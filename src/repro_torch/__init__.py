@@ -1,0 +1,18 @@
+"""repro_torch — Histogram Sort with Sampling on PyTorch and CUDA.
+
+The port of the JAX package `repro` to one NVIDIA H100. The p shards of a
+distributed sort are the leading axis of one tensor on one device; the
+collectives between them are tensor ops behind one seam
+(`repro_torch.parallel.comm.Comm`). Every Pallas kernel on the sort's path
+has a hand-written CUDA counterpart under `repro_torch/kernels/csrc`, and a
+plain PyTorch version beside it that the CPU runs.
+
+    from repro_torch.sort import SortSpec, sort
+    out = sort(x, SortSpec(shards=8))           # on the card by default
+    out.gather()                                # flat sorted NumPy array
+
+Subpackages mirror `repro`: core/ (splitters, exchange, hss), kernels/
+(bitonic_sort, merge, histogram, dispatch), sort/ (spec, partitioners,
+driver, adapters, api), data/ (the paper's input distributions), parallel/
+(the Comm seam). Nothing here imports jax or repro.
+"""

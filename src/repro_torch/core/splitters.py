@@ -1,0 +1,231 @@
+"""HSS splitter determination (the paper's core contribution, Section 4).
+
+Counterpart of `repro.core.splitters`. For every target rank t_i = N*i/p
+the algorithm keeps a splitter interval, the tightest pair of ranked keys
+bracketing t_i. Each round samples the keys inside the still-unsatisfied
+intervals, ranks the sample exactly with one histogram, and tightens every
+interval (Lemmas 4.4/4.5, Theorem 4.8).
+
+The port's layout: the p shards are the rows of one (p, n_local) tensor.
+Per-shard work (membership, sampling, the sample-buffer sort, ranking) runs
+over all rows at once; the collectives go through `Comm`; the replicated
+interval state is held once. `lax.scan` over the k rounds becomes a Python
+loop, and the reference's `lax.cond` early exit becomes a host `if` on the
+replicated `satisfied` vector — one device-to-host sync per round. A
+skipped round records sample_count = overflow = 0, as the reference does.
+
+Random draws: round j calls `uniform(j)` for a (p, n_local) float32 tensor
+of U[0, 1) draws, row s for shard s. The driver's default draws from a
+seeded `torch.Generator` on the device; tests inject the reference's own
+`jax.random` streams, and then the port reproduces the reference bit for
+bit.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.common import (
+    HSSConfig, hi_sentinel, interval_union_size, lo_sentinel, sampling_ratios)
+from repro_torch.kernels import dispatch
+from repro_torch.parallel.comm import Comm
+
+#: Collectives one non-converged round issues: ONE all_gather of the sample
+#: buffers and ONE fused psum of the ranks + (n_sample, overflow) counts.
+ROUND_COLLECTIVES = {"all_gather": 1, "psum": 1}
+
+Uniform = Callable[[int], torch.Tensor]
+
+
+class SplitterState(NamedTuple):
+    """Replicated per-splitter interval state; tensors of shape (p-1,)."""
+
+    lo_rank: torch.Tensor    # int32, largest known rank <= t_i
+    hi_rank: torch.Tensor    # int32, smallest known rank >= t_i
+    lo_key: torch.Tensor     # key at lo_rank (lo sentinel when unknown)
+    hi_key: torch.Tensor     # key at hi_rank (hi sentinel when unknown)
+    satisfied: torch.Tensor  # bool
+
+
+class SplitterStats(NamedTuple):
+    """Per-round diagnostics, int32 tensors of shape (k,)."""
+
+    gamma_size: torch.Tensor    # |gamma_{j-1}| before round j
+    sample_count: torch.Tensor  # keys sampled in round j (all shards)
+    overflow: torch.Tensor      # samples dropped for buffer capacity
+    n_satisfied: torch.Tensor   # satisfied splitters after round j
+    rounds_used: torch.Tensor   # scalar: first all-satisfied round, 1-based
+
+
+def splitter_targets(n: int, p: int, device=None) -> torch.Tensor:
+    """Target ranks t_i = N*i/p for i = 1..p-1."""
+    t = np.arange(1, p, dtype=np.int64) * n // p
+    return torch.tensor(t.astype(np.int32), device=device)
+
+
+def init_state(p: int, n: int, dtype: torch.dtype,
+               device=None) -> SplitterState:
+    m = p - 1
+    return SplitterState(
+        lo_rank=torch.zeros((m,), dtype=torch.int32, device=device),
+        hi_rank=torch.full((m,), n, dtype=torch.int32, device=device),
+        lo_key=torch.full((m,), lo_sentinel(dtype), dtype=dtype,
+                          device=device),
+        hi_key=torch.full((m,), hi_sentinel(dtype), dtype=dtype,
+                          device=device),
+        satisfied=torch.zeros((m,), dtype=torch.bool, device=device))
+
+
+def refine(state: SplitterState, probes: torch.Tensor,
+           probe_ranks: torch.Tensor, targets: torch.Tensor,
+           tol: int) -> SplitterState:
+    """Tighten every splitter interval with freshly ranked probes.
+
+    probes sorted ascending (sentinel-padded tail), probe_ranks
+    nondecreasing (sentinels rank N)."""
+    j = torch.searchsorted(probe_ranks, targets, side="left")
+    j = torch.clamp(j, max=probe_ranks.shape[0] - 1)
+    cand_hi_rank = probe_ranks[j]
+    cand_hi_key = probes[j]
+    jm = torch.clamp(j - 1, min=0)
+    has_lo = j > 0
+    cand_lo_rank = torch.where(has_lo, probe_ranks[jm], 0)
+    cand_lo_key = torch.where(has_lo, probes[jm], state.lo_key)
+
+    take_lo = cand_lo_rank > state.lo_rank
+    take_hi = cand_hi_rank < state.hi_rank
+    lo_rank = torch.where(take_lo, cand_lo_rank, state.lo_rank)
+    lo_key = torch.where(take_lo, cand_lo_key, state.lo_key)
+    hi_rank = torch.where(take_hi, cand_hi_rank, state.hi_rank)
+    hi_key = torch.where(take_hi, cand_hi_key, state.hi_key)
+    satisfied = ((targets - lo_rank) <= tol) | ((hi_rank - targets) <= tol)
+    return SplitterState(lo_rank, hi_rank, lo_key, hi_key, satisfied)
+
+
+def active_union_size(state: SplitterState,
+                      targets: torch.Tensor) -> torch.Tensor:
+    """|gamma|: union (rank space) of the unsatisfied splitters' intervals;
+    satisfied splitters contribute empty [t_i, t_i] intervals."""
+    lo = torch.where(state.satisfied, targets, state.lo_rank)
+    hi = torch.where(state.satisfied, targets, state.hi_rank)
+    return interval_union_size(lo, hi)
+
+
+def gamma_membership(x: torch.Tensor, state: SplitterState) -> torch.Tensor:
+    """Boolean mask (x's shape): which keys lie in an active interval, i.e.
+    lo_key_i < x < hi_key_i for some unsatisfied i. The containing
+    intervals form a contiguous run [a, b) over i, so membership is two
+    searchsorteds plus a prefix-sum lookup."""
+    unsat = (~state.satisfied).to(torch.int32)
+    csum = torch.cat([torch.zeros((1,), dtype=torch.int32,
+                                  device=x.device), torch.cumsum(unsat, 0)])
+    a = torch.searchsorted(state.hi_key, x, side="right")
+    b = torch.searchsorted(state.lo_key, x, side="left")
+    b = torch.maximum(a, b)
+    return (csum[b] - csum[a]) > 0
+
+
+def choose_splitters(state: SplitterState, targets: torch.Tensor):
+    """Final splitter keys: the closer satisfied side of each interval."""
+    pick_lo = (targets - state.lo_rank) <= (state.hi_rank - targets)
+    keys = torch.where(pick_lo, state.lo_key, state.hi_key)
+    ranks = torch.where(pick_lo, state.lo_rank, state.hi_rank)
+    return keys, ranks
+
+
+def _sample_round(local_sorted: torch.Tensor, state: SplitterState,
+                  prob: torch.Tensor, cap: int, u: torch.Tensor,
+                  kernel_policy: str = "auto"):
+    """Bernoulli-sample each shard's active-interval keys into a sorted,
+    sentinel-padded (p, min(cap, n_local)) buffer. Returns (vals,
+    sampled (p,), overflow (p,))."""
+    in_g = gamma_membership(local_sorted, state)
+    mask = in_g & (u < prob)
+    n_hit = mask.sum(dim=1, dtype=torch.int32)
+    vals = torch.where(mask, local_sorted, hi_sentinel(local_sorted.dtype))
+    # The full sort of the masked buffer keeps parity with the reference
+    # (splitters.py:168); a stable compaction would give the same bits.
+    vals = dispatch.local_sort(vals, policy=kernel_policy)[:, :cap]
+    overflow = torch.clamp(n_hit - cap, min=0)
+    return vals, n_hit - overflow, overflow
+
+
+def hss_splitters(local_sorted: torch.Tensor, *, comm: Comm,
+                  cfg: HSSConfig, uniform: Uniform,
+                  initial_probes: torch.Tensor | None = None):
+    """Determine the p-1 splitters of a sort over `comm.p` shards.
+
+    Args:
+      local_sorted: (p, n_local) keys, each row sorted ascending.
+      comm: the collective seam; its `p` is the shard count.
+      cfg: HSSConfig.
+      uniform: round j -> (p, n_local) float32 U[0, 1) draws.
+      initial_probes: optional sorted probe keys to warm-start with (the
+        ChaNGa trick, paper Section 7.3); sentinel-padded, any length.
+
+    Returns (splitter_keys (p-1,), splitter_ranks (p-1,), SplitterStats).
+    """
+    p, n_local = local_sorted.shape
+    n = n_local * p
+    dev, dtype = local_sorted.device, local_sorted.dtype
+    k = cfg.resolved_rounds(p)
+    cap = cfg.resolved_sample_cap(p)
+    tol = max(1, int(n * cfg.eps / (2 * p)))
+    targets = splitter_targets(n, p, dev)
+    # float32 operands on both sides of every division, as the reference's
+    # weakly typed scalars are
+    f_total = torch.tensor(float(cap * p) / 2.0, dtype=torch.float32,
+                           device=dev)
+    ratios = torch.tensor(sampling_ratios(p, cfg.eps, k), dtype=torch.float32,
+                          device=dev)
+    n_local_f = torch.tensor(float(n_local), dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+    state = init_state(p, n, dtype, dev)
+    if initial_probes is not None:
+        lr = dispatch.probe_ranks(local_sorted, initial_probes,
+                                  policy=cfg.kernel_policy, assume_sorted=True)
+        state = refine(state, initial_probes, comm.psum(lr), targets, tol)
+
+    gam, cnt, ovf, nsat = [], [], [], []
+    for j in range(k):
+        gamma = active_union_size(state, targets)
+        if cfg.adaptive:
+            prob = torch.minimum(
+                one, f_total / torch.clamp(gamma, min=1).to(torch.float32))
+        else:
+            prob = torch.minimum(one, ratios[j] / n_local_f)
+        # Early exit on the replicated `satisfied`: one host sync per round.
+        if bool(state.satisfied.all()):
+            count, over = zero, zero
+        else:
+            vals, n_samp, s_ovf = _sample_round(
+                local_sorted, state, prob, cap, uniform(j),
+                kernel_policy=cfg.kernel_policy)
+            probes = dispatch.local_sort(comm.all_gather(vals)[None],
+                                         policy=cfg.kernel_policy)[0]
+            local_ranks = dispatch.probe_ranks(
+                local_sorted, probes, policy=cfg.kernel_policy,
+                assume_sorted=True)
+            # one fused reduction per round: ranks + sample count + overflow
+            packed = comm.psum(torch.cat(
+                [local_ranks, torch.stack([n_samp, s_ovf], dim=1)], dim=1))
+            state = refine(state, probes, packed[:-2], targets, tol)
+            count, over = packed[-2], packed[-1]
+        gam.append(gamma)
+        cnt.append(count)
+        ovf.append(over)
+        nsat.append(state.satisfied.sum(dtype=torch.int32))
+
+    keys, ranks = choose_splitters(state, targets)
+    nsat = torch.stack(nsat)
+    all_sat = nsat >= (p - 1)
+    rounds_used = torch.where(all_sat.any(),
+                              1 + torch.argmax(all_sat.to(torch.int32)),
+                              k).to(torch.int32)
+    stats = SplitterStats(torch.stack(gam), torch.stack(cnt),
+                          torch.stack(ovf), nsat, rounds_used)
+    return keys, ranks, stats

@@ -1,0 +1,18 @@
+"""Hand-written CUDA kernels for the sort hot spots, with plain versions.
+
+bitonic_sort  K1 block sort and K2 shared-memory bitonic merge; the local
+              sort of every row (shards, sample buffers, gathered probes).
+merge         K3 strided compare-exchange: the HBM pass of the merge
+              cascade, for pairs too long for shared memory.
+histogram     K4 probe-rank count: the per-round histogram.
+dispatch      the policy layer every core pipeline routes through:
+              `kernel_policy` = "auto" | "kernel" | "torch".
+cuda          builds csrc/sort_kernels.cu with nvcc at first use, loads it
+              with ctypes, and counts each kernel's launches.
+
+Key contract (as in repro.kernels): keys are int32 and never equal the hi
+sentinel, except as padding. Every kernel wrapper runs its plain PyTorch
+version on a CPU tensor and the kernel on a CUDA tensor; within the
+contract the two, and the torch policy's `torch.sort` and
+`torch.searchsorted`, give the same bits.
+"""

@@ -1,0 +1,256 @@
+// Hand-written Hopper (sm_90a) kernels for the HSS sort path.
+//
+// Four kernels replace the five Pallas call sites on the sort's main path:
+//
+//   K1 bitonic_sort_blocks      repro/kernels/bitonic_sort/kernel.py:83
+//   K2 bitonic_merge_smem       repro/kernels/bitonic_sort/kernel.py:117
+//                               repro/kernels/merge/kernel.py:71
+//   K3 strided_compare_exchange repro/kernels/merge/kernel.py:49
+//   K4 probe_rank_count         repro/kernels/histogram/kernel.py:35
+//
+// All keys are int32 (the core only ever sees encoded int32). Arrays are
+// flat: a (rows, n) tensor is rows*n keys, and every kernel keeps its work
+// inside a run or row because run lengths divide the row length.
+//
+// Plain C interface, loaded with ctypes (repro_torch/kernels/cuda.py). Each
+// launcher enqueues on the caller's stream, never synchronises, allocates
+// nothing, and returns cudaGetLastError() so that a refused launch (too
+// many threads, too much shared memory) reaches the Python wrapper.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -o libsort_kernels.so sort_kernels.cu
+
+#include <cuda_runtime.h>
+#include <climits>
+#include <cstdint>
+
+namespace {
+
+constexpr int kMaxSmemKeys = 16384;     // K2 segment ceiling: 64 KB of keys
+constexpr int kProbeTile = 4096;        // K4 keys per block: 16 KB
+constexpr int kProbeThreads = 256;
+
+// One comparator of the bitonic network over shared memory: pair (i, i+d)
+// with i = 2t - (t mod d), ordered ascending iff asc.
+__device__ __forceinline__ void smem_compare_exchange(int* s, int t, int d,
+                                                      bool asc_all, int k) {
+  const int i = 2 * t - (t & (d - 1));
+  const int a = s[i];
+  const int b = s[i + d];
+  const bool asc = asc_all || ((i & k) == 0);
+  const int lo = min(a, b);
+  const int hi = max(a, b);
+  s[i] = asc ? lo : hi;
+  s[i + d] = asc ? hi : lo;
+}
+
+// K1. One thread block sorts one `block`-key run (block a power of two,
+// at most 1024) held in shared memory: the full bitonic sorting network,
+// k = 2..block, d = k/2..1, ascending iff (i & k) == 0 as in
+// bitonic_sort_network. One comparator per thread per step.
+__global__ void bitonic_sort_blocks_kernel(const int* __restrict__ in,
+                                           int* __restrict__ out, int block) {
+  extern __shared__ int s[];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * block;
+  for (int i = threadIdx.x; i < block; i += blockDim.x) s[i] = in[base + i];
+  __syncthreads();
+  const int half = block >> 1;
+  for (int k = 2; k <= block; k <<= 1) {
+    for (int d = k >> 1; d > 0; d >>= 1) {
+      for (int t = threadIdx.x; t < half; t += blockDim.x)
+        smem_compare_exchange(s, t, d, false, k);
+      __syncthreads();
+    }
+  }
+  for (int i = threadIdx.x; i < block; i += blockDim.x) out[base + i] = s[i];
+}
+
+// K2. One thread block merges one `seg`-key segment held in shared memory
+// with the half-cleaner cascade d = seg/2..1, all ascending
+// (bitonic_merge_network). reverse != 0 first reverses the segment's
+// second half, which turns two sorted runs into one bitonic sequence
+// (merge_adjacent); reverse == 0 takes a segment that is already bitonic
+// (merge_bitonic_blocks, the tail of an HBM merge pass).
+__global__ void bitonic_merge_smem_kernel(const int* __restrict__ in,
+                                          int* __restrict__ out, int seg,
+                                          int reverse) {
+  extern __shared__ int s[];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * seg;
+  const int half = seg >> 1;
+  for (int i = threadIdx.x; i < seg; i += blockDim.x) {
+    const int src = (reverse && i >= half) ? seg + half - 1 - i : i;
+    s[i] = in[base + src];
+  }
+  __syncthreads();
+  for (int d = half; d > 0; d >>= 1) {
+    for (int t = threadIdx.x; t < half; t += blockDim.x)
+      smem_compare_exchange(s, t, d, true, 0);
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < seg; i += blockDim.x) out[base + i] = s[i];
+}
+
+// K3, scalar form. One thread per pair (i, i+d), i = 2t - (t mod d):
+// out[i] = min, out[i+d] = max. flip != 0 reads the partner mirrored
+// inside its 2d-run, x[i + 2d - 1 - 2(t mod d)], which folds the bitonic
+// relayout of merge_pass_hbm (second run reversed) into the first step.
+__global__ void strided_ce_kernel(const int* __restrict__ in,
+                                  int* __restrict__ out, int64_t pairs,
+                                  int64_t d, int flip) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       t < pairs; t += stride) {
+    const int64_t j = t & (d - 1);
+    const int64_t i = 2 * t - j;
+    const int a = in[i];
+    const int b = flip ? in[i + 2 * d - 1 - 2 * j] : in[i + d];
+    out[i] = min(a, b);
+    out[i + d] = max(a, b);
+  }
+}
+
+// K3, vector form (d % 4 == 0, 16-byte aligned buffers): four neighbouring
+// pairs per thread with 16-byte loads and stores. A mirrored partner quad
+// is one aligned int4 read backwards.
+__global__ void strided_ce_vec4_kernel(const int4* __restrict__ in,
+                                       int4* __restrict__ out, int64_t quads,
+                                       int64_t d, int flip) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t dq = d >> 2;
+  for (int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       q < quads; q += stride) {
+    const int64_t jq = q & (dq - 1);      // quad index inside its run half
+    const int64_t iq = 2 * q - jq;        // first lane's quad
+    const int4 a = in[iq];
+    int4 b;
+    if (flip) {
+      const int4 r = in[iq + 2 * dq - 1 - 2 * jq];
+      b = make_int4(r.w, r.z, r.y, r.x);
+    } else {
+      b = in[iq + dq];
+    }
+    out[iq] = make_int4(min(a.x, b.x), min(a.y, b.y), min(a.z, b.z),
+                        min(a.w, b.w));
+    out[iq + dq] = make_int4(max(a.x, b.x), max(a.y, b.y), max(a.z, b.z),
+                             max(a.w, b.w));
+  }
+}
+
+// K4. rank[r, m] = #{keys[r, :] < probes[r, m]}. One thread block per
+// (row, tile of kProbeTile keys): the tile is staged in shared memory
+// (past the row's end it reads as INT_MAX, which is below no probe), and
+// each thread counts its probes over the whole tile with broadcast reads.
+// Blocks run in no order, so each adds its partial counts into the zeroed
+// output with atomicAdd: integer atomics are exact in any order.
+__global__ void probe_rank_count_kernel(const int* __restrict__ keys,
+                                        const int* __restrict__ probes,
+                                        int* __restrict__ out, int64_t n,
+                                        int m) {
+  __shared__ __align__(16) int tile[kProbeTile];
+  const int64_t row = blockIdx.y;
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * kProbeTile;
+  const int* krow = keys + row * n;
+  for (int i = threadIdx.x; i < kProbeTile; i += blockDim.x) {
+    const int64_t g = start + i;
+    tile[i] = g < n ? krow[g] : INT_MAX;
+  }
+  __syncthreads();
+  const int* prow = probes + row * m;
+  int* orow = out + row * m;
+  const int4* tile4 = reinterpret_cast<const int4*>(tile);
+  for (int pm = threadIdx.x; pm < m; pm += blockDim.x) {
+    const int pr = prow[pm];
+    int cnt = 0;
+#pragma unroll 8
+    for (int i = 0; i < kProbeTile / 4; ++i) {
+      const int4 v = tile4[i];
+      cnt += (v.x < pr) + (v.y < pr) + (v.z < pr) + (v.w < pr);
+    }
+    if (cnt) atomicAdd(orow + pm, cnt);
+  }
+}
+
+bool is_pow2(int64_t v) { return v > 0 && (v & (v - 1)) == 0; }
+
+int grid_for(int64_t work, int threads) {
+  const int64_t blocks = (work + threads - 1) / threads;
+  const int64_t cap = 132 * 32;         // grid-stride past 32 blocks per SM
+  return static_cast<int>(blocks < cap ? blocks : cap);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* repro_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int bitonic_sort_blocks(const void* in, void* out, long long n_total,
+                        int block, void* stream) {
+  if (!is_pow2(block) || block < 2 || block > 1024 || n_total % block)
+    return cudaErrorInvalidValue;
+  const int threads = block / 2;
+  bitonic_sort_blocks_kernel<<<static_cast<unsigned>(n_total / block),
+                               threads, block * sizeof(int),
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(in), static_cast<int*>(out), block);
+  return cudaGetLastError();
+}
+
+int bitonic_merge_smem(const void* in, void* out, long long n_total, int seg,
+                       int reverse, void* stream) {
+  if (!is_pow2(seg) || seg < 2 || seg > kMaxSmemKeys || n_total % seg)
+    return cudaErrorInvalidValue;
+  static bool smem_raised = false;
+  if (!smem_raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bitonic_merge_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmemKeys * static_cast<int>(sizeof(int)));
+    if (e != cudaSuccess) return e;
+    smem_raised = true;
+  }
+  const int threads = seg / 2 < 1024 ? seg / 2 : 1024;
+  bitonic_merge_smem_kernel<<<static_cast<unsigned>(n_total / seg), threads,
+                              seg * sizeof(int),
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(in), static_cast<int*>(out), seg, reverse);
+  return cudaGetLastError();
+}
+
+int strided_compare_exchange(const void* in, void* out, long long n_total,
+                             long long d, int flip, void* stream) {
+  if (!is_pow2(d) || n_total % (2 * d)) return cudaErrorInvalidValue;
+  const int threads = 256;
+  const bool aligned = (reinterpret_cast<uintptr_t>(in) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  if (d % 4 == 0 && aligned) {
+    const int64_t quads = n_total / 8;
+    strided_ce_vec4_kernel<<<grid_for(quads, threads), threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int4*>(in), static_cast<int4*>(out), quads, d,
+        flip);
+  } else {
+    const int64_t pairs = n_total / 2;
+    strided_ce_kernel<<<grid_for(pairs, threads), threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(in), static_cast<int*>(out), pairs, d, flip);
+  }
+  return cudaGetLastError();
+}
+
+int probe_rank_count(const void* keys, const void* probes, void* out,
+                     long long rows, long long n, int m, void* stream) {
+  if (rows < 1 || rows > 65535 || n < 1 || m < 1) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>((n + kProbeTile - 1) / kProbeTile),
+                  static_cast<unsigned>(rows));
+  probe_rank_count_kernel<<<grid, kProbeThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(keys), static_cast<const int*>(probes),
+      static_cast<int*>(out), n, m);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,130 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+The kernels live in `csrc/sort_kernels.cu` behind a plain C interface.
+`library()` compiles that source with nvcc for sm_90a into a shared library
+on first use and loads it with ctypes (no PyTorch headers, so the build
+takes seconds). The library is cached under `build/cuda/` at the repository
+root (git-ignored), keyed by a hash of the source, so an edited source
+builds anew. Nothing here runs at import: the CPU tests import every module
+and have no nvcc.
+
+`launch(name, *args)` calls one C launcher on PyTorch's current stream,
+raises when it returns a CUDA error, and adds one to that kernel's count in
+`launches` — the count a run reads to show that its main path went through
+the kernels. Wrappers validate device, dtype, shape and contiguity before
+they call it; a launch failure raises, it never falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "sort_kernels.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cuda"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: C signature of each launcher (the trailing c_void_p is the stream).
+SIGNATURES = {
+    "bitonic_sort_blocks": (_P, _P, _L, _I, _P),
+    "bitonic_merge_smem": (_P, _P, _L, _I, _I, _P),
+    "strided_compare_exchange": (_P, _P, _L, _L, _I, _P),
+    "probe_rank_count": (_P, _P, _P, _L, _L, _I, _P),
+}
+
+#: Launches per kernel since the last `reset_launches()`.
+launches: Counter = Counter()
+
+_lock = threading.Lock()
+_lib = None
+
+
+def reset_launches():
+    launches.clear()
+    launches.update({name: 0 for name in SIGNATURES})
+
+
+reset_launches()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH or CUDA_HOME): the CUDA "
+                       "kernels are built from source at first use")
+
+
+def build(force: bool = False) -> Path:
+    """Compile the kernel library if it is not built yet; returns its path.
+
+    Writes to a temporary name and renames, so concurrent builds never
+    load a half-written file."""
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"libsort_kernels-{digest}.so"
+    if out.exists() and not force:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-o", tmp, str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def launch(name: str, *args):
+    """Run one C launcher on the current stream; raise on a CUDA error."""
+    lib = library()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed: error {err} ({msg})")
+    launches[name] += 1
+
+
+def check_int32_rows(x: torch.Tensor, what: str):
+    """The wrappers' common argument check: a contiguous (rows, n) int32
+    tensor on the CPU (plain version) or on a CUDA device (the kernel)."""
+    if x.dtype != torch.int32:
+        raise TypeError(f"{what}: keys must be int32, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected (rows, n), got {tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.device.type == "cuda" and not x.is_contiguous():
+        raise ValueError(f"{what}: CUDA input must be contiguous")

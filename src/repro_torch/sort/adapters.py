@@ -1,0 +1,241 @@
+"""Dtype and duplicate-tagging adapters (counterpart of repro.sort.adapters).
+
+The core sorts distinct int32 keys. This module maps user keys onto that
+contract and back:
+
+  * float32 keys go through the IEEE-754 bijection, uint32 keys through a
+    top-bit flip (repro_torch.core.tagging), int32 keys as they are;
+  * duplicate keys — always for `stable=True`, auto-detected otherwise —
+    are made distinct by implicit tagging (paper Section 6.3): keys are
+    rebased to their observed range and packed as (key << b) | index into
+    int32, so the tag doubles as the argsort permutation on the way out.
+    Packing into int32 only is the reference's behaviour with jax x64 off
+    (adapters.py:368-381); int64 packing, float64 keys, argsort and
+    sort_kv come with the next slice;
+  * non-divisible inputs are padded before packing with the maximum real
+    key, so pads sort to the global tail and decode trims them by index.
+
+Inside the plan every key is in the encoded int32 domain (for uint32, the
+flipped one), so `key_min`/`key_max` and the rebase are plain int32
+arithmetic whatever the user's dtype.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.common import hi_sentinel
+from repro_torch.core.tagging import (
+    float32_to_sortable_int32, sortable_int32_to_float32,
+    sortable_int32_to_uint32, tag_bits, uint32_to_sortable_int32)
+from repro_torch.sort.spec import SortSpec
+
+KEY_DTYPES = (torch.int32, torch.uint32, torch.float32)
+_INT32_MAX = torch.iinfo(torch.int32).max
+
+
+def to_core(x: torch.Tensor) -> torch.Tensor:
+    """User keys -> order-preserving int32."""
+    if x.dtype == torch.float32:
+        return float32_to_sortable_int32(x)
+    if x.dtype == torch.uint32:
+        return uint32_to_sortable_int32(x)
+    return x
+
+
+def _encoded_hi(dtype: torch.dtype) -> int:
+    """The encoded int32 of `dtype`'s +sentinel (+inf for float32)."""
+    host = torch.tensor([hi_sentinel(dtype)], dtype=dtype)
+    return int(to_core(host)[0])
+
+
+def from_core(enc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Order-preserving int32 -> user keys of `dtype`."""
+    if dtype == torch.float32:
+        return sortable_int32_to_float32(enc)
+    if dtype == torch.uint32:
+        return sortable_int32_to_uint32(enc)
+    return enc
+
+
+class SortOutput:
+    """Decoded result of `repro_torch.sort.sort`.
+
+    shards   (p, cap) sorted keys per shard in the input dtype; slots past
+             counts[i] hold the dtype's +sentinel.
+    counts   (p,) valid keys per shard (pads trimmed; sums to n when
+             overflow == 0).
+    indices  (p, cap) original positions of the keys, -1 past counts[i];
+             None when the sort ran untagged.
+    overflow dropped-key count (0 => exact, the contract callers check).
+    splitter_keys / splitter_ranks / stats  partitioner diagnostics
+             (splitter keys decoded back to the key domain).
+    n        number of real input keys.
+    """
+
+    def __init__(self, shards, counts, indices, overflow, splitter_keys,
+                 splitter_ranks, stats, n):
+        self.shards = shards
+        self.counts = counts
+        self.indices = indices
+        self.overflow = overflow
+        self.splitter_keys = splitter_keys
+        self.splitter_ranks = splitter_ranks
+        self.stats = stats
+        self.n = n
+
+    def gather(self) -> np.ndarray:
+        """All keys globally sorted, as one (n,) NumPy array."""
+        from repro_torch.sort.driver import masked_concat
+        return masked_concat(self.shards, self.counts)
+
+    def gather_indices(self) -> np.ndarray:
+        """The argsort permutation, as one (n,) NumPy array."""
+        if self.indices is None:
+            raise ValueError("sort ran untagged: no indices were tracked "
+                             "(use stable=True or tag=True)")
+        from repro_torch.sort.driver import masked_concat
+        return masked_concat(self.indices, self.counts)
+
+
+@dataclasses.dataclass
+class AdapterPlan:
+    n: int                 # real keys
+    n_pad: int
+    out_dtype: torch.dtype  # user-facing key dtype
+    tagged: bool = False
+    tag_b: int = 0
+    key_min: int = 0       # rebase offset in the encoded int32 domain
+    key_max: int = 0
+    _enc: torch.Tensor | None = None   # encoded keys, cached by make_plan
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """Keys -> the distinct-int32 core domain."""
+        enc = self._enc if self._enc is not None else to_core(x)
+        if not self.tagged:
+            return enc       # pads (hi sentinel) are appended by the driver
+        if self.n_pad:       # pads = max real key; they sort to the tail
+            enc = torch.cat([enc, torch.full((self.n_pad,), self.key_max,
+                                             dtype=enc.dtype,
+                                             device=enc.device)])
+        e = (enc.to(torch.int64) - self.key_min).to(torch.int32)
+        idx = torch.arange(e.shape[0], dtype=torch.int32, device=e.device)
+        return (e << self.tag_b) | idx
+
+    def encode_probes(self, probes) -> torch.Tensor:
+        """Warm-start probes (key domain) -> encoded domain."""
+        probes = to_core(as_keys(probes, self._enc.device))
+        if not self.tagged:
+            return probes
+        return ((probes.to(torch.int64) - self.key_min) << self.tag_b
+                ).to(torch.int32)
+
+    def decode(self, raw) -> SortOutput:
+        shards, counts, skeys, sranks, overflow, stats = raw
+        cap = shards.shape[1]
+        pos = torch.arange(cap, dtype=torch.int32, device=shards.device)
+        valid = pos[None, :] < counts[:, None]
+        indices = None
+        if self.tagged:
+            raw_idx = shards & ((1 << self.tag_b) - 1)
+            if self.n_pad:
+                # pads carry indices >= n; they may have been counted as
+                # valid by the exchange — exact even under key drops
+                pads = valid & (raw_idx >= self.n)
+                counts = counts - pads.sum(dim=1, dtype=torch.int32)
+                valid = pos[None, :] < counts[:, None]
+            indices = torch.where(valid, raw_idx, -1)
+            shards = self._unrebase(shards >> self.tag_b)
+            if skeys.numel():
+                skeys = self._unrebase(skeys >> self.tag_b)
+        # fill past the counts with the user dtype's +sentinel, written in
+        # the encoded domain (torch's uint32 kernels are few)
+        shards = torch.where(valid, shards, _encoded_hi(self.out_dtype))
+        # p == 1's empty splitter keys keep the reference's encoded dtype:
+        # int32 for float32 keys, the key dtype otherwise
+        if skeys.numel() or self.out_dtype == torch.uint32:
+            skeys = from_core(skeys, self.out_dtype)
+        return SortOutput(from_core(shards, self.out_dtype), counts, indices,
+                          overflow, skeys, sranks, stats, self.n)
+
+    def _unrebase(self, rebased: torch.Tensor) -> torch.Tensor:
+        """Rebased int32 -> encoded int32, wrapping mod 2^32 as the
+        reference's int32/uint32 arithmetic does (only sentinel slots and
+        sentinel splitter keys ever wrap)."""
+        wide = rebased.to(torch.int64) + self.key_min
+        return ((wide + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def as_keys(x, device) -> torch.Tensor:
+    """NumPy array, tensor or sequence -> contiguous 1-D tensor on device."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    elif not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device).contiguous()
+
+
+def _needs_tags(x: torch.Tensor, spec: SortSpec):
+    """-> (wanted, required). Required tagging errors out when the packing
+    budget does not fit; merely wanted tagging (auto duplicate detection)
+    falls back to untagged, which still sorts correctly."""
+    if spec.tag is not None:
+        return spec.tag, spec.tag
+    if spec.stable:
+        return True, True
+    # auto duplicate detection, as the reference does it with a plain
+    # jnp.sort outside any kernel: sort, compare neighbours (float keys
+    # compare as floats, so -0.0 == 0.0); only a scalar reaches the host
+    s = torch.sort(x.view(torch.int32) if x.dtype == torch.uint32 else x
+                   ).values
+    return bool((s[1:] == s[:-1]).any()), False
+
+
+def make_plan(x: torch.Tensor, spec: SortSpec, p: int) -> AdapterPlan:
+    """Inspect the input and decide bijection, tagging and padding."""
+    n = x.shape[-1]
+    if n == 0:
+        raise ValueError("cannot sort an empty array")
+    if x.dtype not in KEY_DTYPES:
+        raise NotImplementedError(
+            f"key dtype {x.dtype} is not ported yet: the port sorts int32, "
+            "uint32 and float32 (int64/float64 come with int64 packing, "
+            "ROADMAP queue 1)")
+    n_pad = (-n) % p
+    plan = AdapterPlan(n=n, n_pad=n_pad, out_dtype=x.dtype)
+    enc = to_core(x)
+    plan._enc = enc
+
+    wanted, required = _needs_tags(x, spec)
+    key_max = int(enc.max())
+    if key_max == _INT32_MAX:
+        # keys whose encoded value equals the hi sentinel of the untagged
+        # path (dtype max, or a float NaN payload mapping onto it) would be
+        # dropped as padding; tagging rebases them below it
+        if spec.tag is False:
+            raise ValueError(
+                f"keys contain the {x.dtype} sentinel value (dtype max, or a "
+                "NaN payload mapping onto it) reserved by the untagged path "
+                "(tag=False): remove those keys or drop tag=False")
+        wanted = required = True
+    if not wanted:
+        return plan
+
+    key_min = int(enc.min())
+    key_bits = max(1, (key_max - key_min).bit_length())
+    b = tag_bits(p, (n + n_pad) // p)
+    total = key_bits + b
+    if total > 30:            # one bit of headroom below the int32 sentinel
+        if not required:
+            return plan       # auto-tagging does not fit: sort untagged
+        raise ValueError(
+            f"key range needs {key_bits} bits + {b} tag bits > 30: int64 "
+            "packing is not ported yet (ROADMAP queue 1); pass tag=False "
+            "for known-distinct keys")
+    plan.tagged = True
+    plan.tag_b = b
+    plan.key_min = key_min
+    plan.key_max = key_max
+    return plan

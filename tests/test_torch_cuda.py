@@ -1,0 +1,88 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Each test is `cuda`-marked and skips where there is no CUDA device (the
+kernels have no CPU mode). The file imports neither jax nor repro, so it
+runs on a machine with only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import cuda
+from repro_torch.kernels.bitonic_sort import kernel as tbk
+from repro_torch.kernels.histogram import kernel as thk
+from repro_torch.kernels.merge import kernel as tmk
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _card_keys(shape, seed=0):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                         device="cuda", dtype=torch.int32)
+
+
+@pytest.mark.cuda
+def test_cuda_bitonic_sort_blocks(card):
+    x = _card_keys((8, 1 << 16))
+    before = cuda.launches["bitonic_sort_blocks"]
+    got = tbk.sort_blocks(x, 1024)
+    assert torch.equal(got, tbk.sort_blocks_plain(x, 1024))
+    assert cuda.launches["bitonic_sort_blocks"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [True, False])
+def test_cuda_bitonic_merge_smem(card, reverse):
+    x = torch.sort(_card_keys((8, 1 << 16)).view(8, -1, 8192), dim=-1
+                   ).values.view(8, -1)
+    got = tbk.bitonic_merge_smem(x, tbk.SMEM_MAX_SEG, reverse)
+    assert torch.equal(got, tbk.bitonic_merge_plain(x, tbk.SMEM_MAX_SEG,
+                                                    reverse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,flip", [(1, False), (2, True), (1 << 14, True),
+                                    (1 << 15, False)])
+def test_cuda_strided_compare_exchange(card, d, flip):
+    x = _card_keys((4, 1 << 16))
+    got = tmk.strided_compare_exchange(x, d, flip)
+    assert torch.equal(got, tmk.strided_compare_exchange_plain(x, d, flip))
+
+
+@pytest.mark.cuda
+def test_cuda_probe_rank_count(card):
+    keys = _card_keys((8, 100_003))
+    probes = torch.sort(_card_keys((8, 256), seed=1), dim=-1).values
+    got = thk.probe_rank_count(keys, probes)
+    assert torch.equal(got, thk.probe_ranks_plain(keys, probes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.float32])
+def test_cuda_sort_matches_numpy_and_torch_policy(card, dtype):
+    from repro_torch.sort import SortSpec, sort
+
+    rng = np.random.default_rng(0)
+    n = 8 * 65536 + 5
+    if dtype == np.float32:
+        x = rng.standard_normal(n).astype(np.float32)
+    else:
+        x = rng.integers(0, 2 ** 31 - 1, n).astype(dtype)
+    cuda.reset_launches()
+    out = sort(x, SortSpec(shards=8))
+    assert all(v > 0 for v in cuda.launches.values()), dict(cuda.launches)
+    assert int(out.overflow) == 0
+    np.testing.assert_array_equal(out.gather(), np.sort(x))
+    ref = sort(x, SortSpec(shards=8, kernel_policy="torch"))
+    assert torch.equal(out.shards.view(torch.int32),
+                       ref.shards.view(torch.int32))
+    assert torch.equal(out.counts, ref.counts)

@@ -1,0 +1,125 @@
+"""Shared helpers of the PyTorch port's parity tests (tests/test_torch_*.py).
+
+The reference (`repro`, JAX) and the port (`repro_torch`) run in one
+process on the CPU and exchange only NumPy arrays:
+
+  * `auto_mesh(p)`: the reference's 1-D sort mesh with an Auto axis (the
+    default Explicit axes of jax.make_mesh break the reference's gather,
+    ROADMAP queue 3 item 1);
+  * `reference_uniform(seed, p, n_local, k)`: the reference's own sampling
+    draws — jr.fold_in(jr.key(seed), shard) (sort/driver.py:292), one
+    jr.split per round (core/splitters.py:217), jr.uniform(sub, (n_local,))
+    (:164) — as a round -> (p, n_local) float32 source the port takes;
+  * `port_spec(ref_spec, p)`: a reference SortSpec mapped field by field
+    onto the port's, on the CPU;
+  * `assert_bits_equal` / `assert_sort_outputs_equal`: zero-tolerance
+    comparisons (float arrays are compared as their bit patterns).
+"""
+from __future__ import annotations
+
+import jax
+import jax.random as jr
+import numpy as np
+import torch
+from jax.sharding import AxisType
+
+import repro_torch.sort as tsort
+from repro.core.common import HSSConfig
+from repro.core.exchange import ExchangeConfig
+from repro.sort import SortSpec as RefSortSpec
+from repro_torch.core.common import HSSConfig as TorchHSSConfig
+from repro_torch.core.exchange import ExchangeConfig as TorchExchangeConfig
+
+
+def auto_mesh(p: int):
+    return jax.make_mesh((p,), ("sort",), axis_types=(AxisType.Auto,),
+                         devices=jax.devices()[:p])
+
+
+def reference_uniform(seed: int, p: int, n_local: int, k: int):
+    """Round j -> (p, n_local) float32: the reference's per-shard draws."""
+    keys = [jr.fold_in(jr.key(seed), s) for s in range(p)]
+    rounds = []
+    for _ in range(k):
+        row = []
+        for s in range(p):
+            keys[s], sub = jr.split(keys[s])
+            row.append(np.asarray(jr.uniform(sub, (n_local,))))
+        rounds.append(np.stack(row))
+    return lambda j: rounds[j]
+
+
+def port_hss_config(cfg: HSSConfig, policy: str | None = None):
+    return TorchHSSConfig(
+        eps=cfg.eps, rounds=cfg.rounds, sample_per_shard=cfg.sample_per_shard,
+        adaptive=cfg.adaptive, out_slack=cfg.out_slack,
+        capacity_scale=cfg.capacity_scale,
+        kernel_policy=policy or _POLICY[cfg.kernel_policy])
+
+
+def port_exchange_config(cfg: ExchangeConfig, policy: str | None = None):
+    return TorchExchangeConfig(
+        strategy=cfg.strategy, pair_factor=cfg.pair_factor,
+        out_slack=cfg.out_slack, capacity_scale=cfg.capacity_scale,
+        kernel_policy=policy or _POLICY[cfg.kernel_policy])
+
+
+_POLICY = {"auto": "auto", "pallas": "kernel", "xla": "torch"}
+
+
+def port_spec(ref: RefSortSpec, p: int, **overrides) -> tsort.SortSpec:
+    """The port's SortSpec for a reference spec, field by field."""
+    fields = dict(
+        algorithm=ref.algorithm, eps=ref.eps, rounds=ref.rounds,
+        sample_per_shard=ref.sample_per_shard, adaptive=ref.adaptive,
+        exchange=ref.exchange, pair_factor=ref.pair_factor,
+        out_slack=ref.out_slack, on_overflow=ref.on_overflow,
+        capacity_scale=ref.capacity_scale, stable=ref.stable, tag=ref.tag,
+        kernel_policy=_POLICY[ref.kernel_policy], seed=ref.seed,
+        initial_probes=ref.initial_probes, shards=p, device="cpu")
+    fields.update(overrides)
+    return tsort.SortSpec(**fields)
+
+
+def to_numpy(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        if a.dtype == torch.uint32:
+            return a.view(torch.int32).numpy().view(np.uint32)
+        return a.numpy()
+    return np.asarray(a)
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    if a.dtype.kind == "f":
+        return a.view(np.dtype(f"i{a.dtype.itemsize}"))
+    return a
+
+
+def assert_bits_equal(got, want, what: str = ""):
+    got, want = to_numpy(got), to_numpy(want)
+    assert got.dtype == want.dtype, (what, got.dtype, want.dtype)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=what)
+
+
+def assert_stats_equal(got, want):
+    if want is None:
+        assert got is None
+        return
+    for name in want._fields:
+        assert_bits_equal(getattr(got, name), getattr(want, name), name)
+
+
+def assert_sort_outputs_equal(got, want):
+    """Every field of a port SortOutput against the reference's."""
+    for name in ("shards", "counts", "splitter_keys", "splitter_ranks",
+                 "overflow"):
+        assert_bits_equal(getattr(got, name), getattr(want, name), name)
+    assert (got.indices is None) == (want.indices is None)
+    if want.indices is not None:
+        assert_bits_equal(got.indices, want.indices, "indices")
+        assert_bits_equal(got.gather_indices(), want.gather_indices(),
+                          "gather_indices")
+    assert_stats_equal(got.stats, want.stats)
+    assert_bits_equal(got.gather(), want.gather(), "gather")
