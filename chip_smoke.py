@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one GPU and check every kernel.
+"""Drive the PyTorch/CUDA port's main paths on one GPU and check every kernel.
 
     python3 chip_smoke.py        # from the repository root, one CUDA device
 
@@ -9,21 +9,39 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: compiles src/repro_torch/kernels/csrc/sort_kernels.cu with nvcc
      (the kernels are built from the checkout's sources, nothing else);
   3. kernels: each hand-written kernel (K1-K4) against its plain PyTorch
-     version on the card, at the shapes the main path gives it, exactly
-     (torch.equal), then timed by CUDA events beside its plain version,
-     its bound and, where one PyTorch call computes the same function, that
-     call (`library_ms`, a yardstick only);
-  4. slice: `repro_torch.sort.sort` with 8 shards, eps 0.05 and the default
-     "auto" policy on WEAK_SCALING (16,000,000 UNIF int32 keys,
+     version on the card, exactly (torch.equal), at the shapes each main
+     path gives it — the sort's (8, 2^21) shard rows and the batched
+     sort's 64 = B*p rows of 2^18 (K4: keys (64, 250,000) x a distinct
+     probe row each, and 70,000 rows past gridDim.y's 65,535; K3 also on
+     the batched merges' 64 rows of 2^20 and 2^21 keys) — then timed by
+     CUDA events beside its plain version, its bound and, where one
+     PyTorch call computes the same function, that call (`library_ms`, a
+     yardstick only); one row per Pallas site and path (#7 and #8 run on
+     both paths, so they have a row for each);
+  4. slice 1: `repro_torch.sort.sort` with 8 shards, eps 0.05 and the
+     default "auto" policy on WEAK_SCALING (16,000,000 UNIF int32 keys,
      repro/configs/paper_sort.py:18 at p = 8), 16,000,000 standard-normal
      float32 keys, and 16,000,003 uint32 keys (ragged n). Each must equal
      np.sort of its input with overflow 0 and max(counts) <= (1+eps)N/p + 1,
      must have launched every kernel (launch counts set to 0 just before
      the call and read just after), and must give the same shards and
      counts as the same call under kernel_policy="torch";
-  5. times: the warm end-to-end sort of the 16M int32 keys (median of 5,
+  5. slice 2: `repro_torch.sort.sort_batched` on the serving engine's batch
+     (B = 8 requests, serve/service.py:118, of 2,000,000 UNIF int32 keys,
+     seeds 0-7, p = 8, eps 0.05, "auto"), once per exchange (dense,
+     allgather): per request gather(b) == np.sort, overflow 0 and
+     max(counts[b]) <= (1+eps)n/p + 1; every kernel launched; the torch
+     policy gives identical shards and counts; with tag=False, row b
+     equals sort() of row b alone. Then, dense only: (8, 2,000,000)
+     standard-normal float32, (8, 2,000,003) uint32, and a list of five
+     2,000,000-key and three 2,000,003-key requests (two length buckets,
+     results in input order);
+  6. times: the warm end-to-end sort of the 16M int32 keys (median of 5,
      host clock around torch.cuda.synchronize()) under both policies, and
-     a torch.profiler breakdown of one warm sort.
+     a torch.profiler breakdown of one warm sort; the warm batched sort
+     (dense, median of 5) beside the same 8 requests as 8 sequential warm
+     sort() calls, under both policies, and a profile of one warm batched
+     sort.
 
 Every measurement line is one JSON object carrying the card's name and
 power limit. The line before the last is the card line; the kernels line
@@ -52,6 +70,12 @@ N_WEAK = 16_000_000          # WEAK_SCALING: 2,000,000 keys per shard
 N_LOCAL = N_WEAK // P
 ROW = 1 << 21                # the local sort's power-of-two row
 PROBES = 256                 # p x sample cap (32) per round
+B = 8                        # serving's flush size (ServiceConfig.max_batch)
+N_REQ = 2_000_000            # keys per request of the batched cell
+B_ROWS = B * P               # the batched path's kernel rows
+B_LOCAL = N_REQ // P         # 250,000 keys per (request, shard) row
+B_ROW = 1 << 18              # its power-of-two local-sort row
+PALLAS = "src/repro/kernels"
 
 
 def fail(msg: str):
@@ -96,6 +120,8 @@ def bound(bytes_moved: float, int_ops: float):
 
 
 def kernel_phase(torch, card):
+    """One row per Pallas site, in site order; `launches` is filled in
+    from the main paths' runs later."""
     from repro_torch.kernels.bitonic_sort import kernel as BK
     from repro_torch.kernels.histogram import kernel as HK
     from repro_torch.kernels.merge import kernel as MK
@@ -118,52 +144,57 @@ def kernel_phase(torch, card):
             fail(f"{name} disagrees with its plain version (max err {err})")
         return err
 
-    n = P * ROW
-    x = keys((P, ROW))
-    seg = BK.SMEM_MAX_SEG
-    paired = runs(P, ROW, seg // 2)
-    sorted_rows = torch.sort(keys((P, N_LOCAL)), dim=-1).values
-    probes = torch.sort(keys((1, PROBES)), dim=-1).values
-    probes = probes.expand(P, -1).contiguous()
-    log_b = 10                      # block 1024
     rows = []
 
-    def row(name, replaces, err, fn, plain, library, bytes_moved, ops):
+    def row(site, name, kernel, counter, path, replaces, err, fn, plain,
+            library, bytes_moved, ops, **extra):
         ms = time_ms(torch, fn, reps=20)
         plain_ms = time_ms(torch, plain, reps=3, warmup=1)
         lib_ms = None if library is None else time_ms(torch, library, reps=20)
         bound_ms, bound_by = bound(bytes_moved, ops)
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": replaces, "launches": 0,
+        rows.append({"site": site, "name": name, "kernel": kernel,
+                     "counter": counter, "path": path, "route": "cuda",
+                     "source": SOURCE, "replaces": replaces, "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib_ms})
+                     "library_ms": lib_ms, **extra})
 
-    # K1: the shard sort's first stage, (8, 2^21) rows, 1024-key blocks
+    log_b = 10                      # block 1024
+    seg = BK.SMEM_MAX_SEG
+
+    # -- slice 1 shapes: the sort's (8, 2^21) shard rows
+    n = P * ROW
+    x = keys((P, ROW))
+    paired = runs(P, ROW, seg // 2)
+    sorted_rows = torch.sort(keys((P, N_LOCAL)), dim=-1).values
+    probes = torch.sort(keys((1, PROBES)), dim=-1).values
+    probes = probes.expand(P, -1).contiguous()
+
+    # #1 K1: the shard sort's first stage, 1024-key blocks
     err = check("bitonic_sort_blocks", BK.sort_blocks(x, 1024),
                 BK.sort_blocks_plain(x, 1024))
-    row("bitonic_sort_blocks", "src/repro/kernels/bitonic_sort/kernel.py:83",
-        err, lambda: BK.sort_blocks(x, 1024),
+    row(1, "bitonic_sort_blocks", "K1", "bitonic_sort_blocks", "sort",
+        f"{PALLAS}/bitonic_sort/kernel.py:83", err,
+        lambda: BK.sort_blocks(x, 1024),
         lambda: BK.sort_blocks_plain(x, 1024),
         lambda: torch.sort(x.view(-1, 1024), dim=-1),
         2 * 4 * n, 2 * (n // 2) * log_b * (log_b + 1) // 2)
 
-    # K2: both flags, on the largest on-chip segment of the cascade
-    err = 0
-    for reverse in (True, False):
-        err = max(err, check(
-            f"bitonic_merge_smem(reverse={reverse})",
-            BK.bitonic_merge_smem(paired, seg, reverse),
-            BK.bitonic_merge_plain(paired, seg, reverse)))
-    row("bitonic_merge_smem",
-        "src/repro/kernels/bitonic_sort/kernel.py:117, "
-        "src/repro/kernels/merge/kernel.py:71",
-        err, lambda: BK.bitonic_merge_smem(paired, seg, True),
-        lambda: BK.bitonic_merge_plain(paired, seg, True),
-        lambda: torch.sort(paired.view(-1, seg), dim=-1),
-        2 * 4 * n, 2 * (n // 2) * (seg.bit_length() - 1))
+    # #3 and #8 K2: both flags, on the largest on-chip segment
+    for site, reverse, role, line in (
+            (3, True, "reverse", "bitonic_sort/kernel.py:117"),
+            (8, False, "tail", "merge/kernel.py:71")):
+        err = check(f"bitonic_merge_smem(reverse={reverse})",
+                    BK.bitonic_merge_smem(paired, seg, reverse),
+                    BK.bitonic_merge_plain(paired, seg, reverse))
+        row(site, f"bitonic_merge_smem[{role}]", "K2",
+            f"bitonic_merge_smem.{role}", "sort", f"{PALLAS}/{line}", err,
+            lambda r=reverse: BK.bitonic_merge_smem(paired, seg, r),
+            lambda r=reverse: BK.bitonic_merge_plain(paired, seg, r),
+            lambda: torch.sort(paired.view(-1, seg), dim=-1),
+            2 * 4 * n, 2 * (n // 2) * (seg.bit_length() - 1))
 
-    # K3: the local sort's largest distance (2^20), both relayouts
+    # #7 K3: the local sort's largest distance (2^20), both relayouts
     d = ROW // 2
     err = 0
     for flip in (True, False):
@@ -171,40 +202,147 @@ def kernel_phase(torch, card):
             f"strided_compare_exchange(flip={flip})",
             MK.strided_compare_exchange(x, d, flip),
             MK.strided_compare_exchange_plain(x, d, flip)))
-    row("strided_compare_exchange", "src/repro/kernels/merge/kernel.py:49",
-        err, lambda: MK.strided_compare_exchange(x, d, True),
+    row(7, "strided_compare_exchange", "K3", "strided_compare_exchange",
+        "sort", f"{PALLAS}/merge/kernel.py:49", err,
+        lambda: MK.strided_compare_exchange(x, d, True),
         lambda: MK.strided_compare_exchange_plain(x, d, True),
         None, 2 * 4 * n, n)
 
-    # K4: one HSS round's histogram, 8 x 2,000,000 sorted keys x 256 probes
+    # #5 K4: one HSS round's histogram, 8 x 2,000,000 sorted keys x 256
     err = check("probe_rank_count", HK.probe_rank_count(sorted_rows, probes),
                 HK.probe_ranks_plain(sorted_rows, probes))
-    row("probe_rank_count", "src/repro/kernels/histogram/kernel.py:35",
-        err, lambda: HK.probe_rank_count(sorted_rows, probes),
+    row(5, "probe_rank_count", "K4", "probe_rank_count", "sort",
+        f"{PALLAS}/histogram/kernel.py:35", err,
+        lambda: HK.probe_rank_count(sorted_rows, probes),
         lambda: HK.probe_ranks_plain(sorted_rows, probes),
         lambda: torch.searchsorted(sorted_rows, probes, side="left"),
         4 * (sorted_rows.numel() + 2 * probes.numel()),
         2 * sorted_rows.numel() * PROBES)
+    del x, paired, sorted_rows, probes
+
+    # -- slice 2 shapes: the batched sort's B*p = 64 rows
+    nb = B_ROWS * B_ROW
+    xb = keys((B_ROWS, B_ROW))
+
+    # #2 K1 over 64 rows of 2^18
+    err = check("bitonic_sort_blocks[batched]", BK.sort_blocks(xb, 1024),
+                BK.sort_blocks_plain(xb, 1024))
+    row(2, "bitonic_sort_blocks[batched]", "K1", "bitonic_sort_blocks",
+        "sort_batched", f"{PALLAS}/bitonic_sort/kernel.py:98", err,
+        lambda: BK.sort_blocks(xb, 1024),
+        lambda: BK.sort_blocks_plain(xb, 1024),
+        lambda: torch.sort(xb.view(-1, 1024), dim=-1),
+        2 * 4 * nb, 2 * (nb // 2) * log_b * (log_b + 1) // 2)
+
+    # #4 K2 reverse over 64 rows, at a segment of 2,048 and of 16,384
+    seg_ms = {}
+    err = 0
+    for sg in (2048, seg):
+        pb = runs(B_ROWS, B_ROW, sg // 2)
+        err = max(err, check(f"bitonic_merge_smem[reverse,batched,{sg}]",
+                             BK.bitonic_merge_smem(pb, sg, True),
+                             BK.bitonic_merge_plain(pb, sg, True)))
+        seg_ms[sg] = time_ms(torch, lambda: BK.bitonic_merge_smem(pb, sg,
+                                                                  True),
+                             reps=20)
+    row(4, "bitonic_merge_smem[reverse,batched]", "K2",
+        "bitonic_merge_smem.reverse", "sort_batched",
+        f"{PALLAS}/bitonic_sort/kernel.py:132", err,
+        lambda: BK.bitonic_merge_smem(pb, seg, True),
+        lambda: BK.bitonic_merge_plain(pb, seg, True),
+        lambda: torch.sort(pb.view(-1, seg), dim=-1),
+        2 * 4 * nb, 2 * (nb // 2) * (seg.bit_length() - 1),
+        ms_segment_2048=seg_ms[2048])
+
+    # #8 K2 tail (no reverse) over the same 64 rows at 16,384 keys
+    err = check("bitonic_merge_smem[tail,batched]",
+                BK.bitonic_merge_smem(pb, seg, False),
+                BK.bitonic_merge_plain(pb, seg, False))
+
+    # #7 K3 at the batched path's largest distances, both relayouts: the
+    # local sort of (64, 2^18) rows, then the post-exchange merges of 64
+    # rows of 2^20 keys (dense) and 2^21 keys (allgather); the tail is
+    # checked on the dense merge rows too
+    k3_err = 0
+    for flip in (True, False):
+        k3_err = max(k3_err, check(
+            f"strided_compare_exchange[(64, 2^18), flip={flip}]",
+            MK.strided_compare_exchange(xb, B_ROW // 2, flip),
+            MK.strided_compare_exchange_plain(xb, B_ROW // 2, flip)))
+    del xb
+    for log_n in (21, 20):    # the dense rows are kept for the timing
+        xm = keys((B_ROWS, 1 << log_n))
+        for flip in (True, False):
+            k3_err = max(k3_err, check(
+                f"strided_compare_exchange[(64, 2^{log_n}), flip={flip}]",
+                MK.strided_compare_exchange(xm, 1 << (log_n - 1), flip),
+                MK.strided_compare_exchange_plain(xm, 1 << (log_n - 1),
+                                                  flip)))
+    err = max(err, check("bitonic_merge_smem[tail,(64, 2^20)]",
+                         BK.bitonic_merge_smem(xm, seg, False),
+                         BK.bitonic_merge_plain(xm, seg, False)))
+    row(8, "bitonic_merge_smem[tail,batched]", "K2",
+        "bitonic_merge_smem.tail", "sort_batched",
+        f"{PALLAS}/merge/kernel.py:71", err,
+        lambda: BK.bitonic_merge_smem(pb, seg, False),
+        lambda: BK.bitonic_merge_plain(pb, seg, False),
+        lambda: torch.sort(pb.view(-1, seg), dim=-1),
+        2 * 4 * nb, 2 * (nb // 2) * (seg.bit_length() - 1),
+        shapes_checked=[[B_ROWS, B_ROW], [B_ROWS, 1 << 20]])
+    nm = xm.numel()
+    row(7, "strided_compare_exchange[batched]", "K3",
+        "strided_compare_exchange", "sort_batched",
+        f"{PALLAS}/merge/kernel.py:49", k3_err,
+        lambda: MK.strided_compare_exchange(xm, 1 << 19, True),
+        lambda: MK.strided_compare_exchange_plain(xm, 1 << 19, True),
+        None, 2 * 4 * nm, nm, timed_shape=[B_ROWS, 1 << 20],
+        timed_distance=1 << 19,
+        shapes_checked=[[B_ROWS, B_ROW], [B_ROWS, 1 << 20],
+                        [B_ROWS, 1 << 21]])
+    del pb, xm
+
+    # #6 K4: keys (64, 250,000), a distinct sorted probe row of 256 each
+    kb = torch.sort(keys((B_ROWS, B_LOCAL)), dim=-1).values
+    qb = torch.sort(keys((B_ROWS, PROBES)), dim=-1).values
+    err = check("probe_rank_count[batched]", HK.probe_rank_count(kb, qb),
+                HK.probe_ranks_plain(kb, qb))
+    # the row-limit repair: 70,000 rows, past gridDim.y's 65,535
+    kr, qr = keys((70_000, 64)), torch.sort(keys((70_000, 8)), dim=-1).values
+    err = max(err, check("probe_rank_count[70,000 rows]",
+                         HK.probe_rank_count(kr, qr),
+                         HK.probe_ranks_plain(kr, qr)))
+    row(6, "probe_rank_count[batched]", "K4", "probe_rank_count",
+        "sort_batched", f"{PALLAS}/histogram/kernel.py:64", err,
+        lambda: HK.probe_rank_count(kb, qb),
+        lambda: HK.probe_ranks_plain(kb, qb),
+        lambda: torch.searchsorted(kb, qb, side="left"),
+        4 * (kb.numel() + 2 * qb.numel()), 2 * kb.numel() * PROBES,
+        rows_limit_checked=70_000)
+    rows.sort(key=lambda r: r["site"])
     return rows
 
 
 def cascade_line(torch, card):
-    """The local sort as a whole (K1 + K2 + K3) against torch.sort."""
+    """The local sort as a whole (K1 + K2 + K3) against torch.sort, at the
+    sort's (8, 2,000,000) rows and the batched sort's (8, 8, 250,000)."""
     from repro_torch.kernels import dispatch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (P, N_LOCAL), generator=gen,
-                      device="cuda", dtype=torch.int32)
-    got = dispatch.local_sort(x, policy="kernel")
-    if not torch.equal(got, torch.sort(x, dim=-1).values):
-        fail("the kernel local sort disagrees with torch.sort")
-    emit({"measure": "local_sort_cascade", "shape": [P, N_LOCAL],
-          "kernel_ms": time_ms(torch, lambda: dispatch.local_sort(
-              x, policy="kernel"), reps=10),
-          "library_ms": time_ms(torch, lambda: torch.sort(x, dim=-1),
-                                reps=10),
-          "card": card})
+    for shape in ((P, N_LOCAL), (B, P, B_LOCAL)):
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                          device="cuda", dtype=torch.int32)
+        got = dispatch.local_sort(x, policy="kernel")
+        torch.cuda.synchronize()
+        if not torch.equal(got, torch.sort(x, dim=-1).values):
+            fail(f"the kernel local sort of {shape} disagrees with "
+                 "torch.sort")
+        emit({"measure": "local_sort_cascade", "shape": list(shape),
+              "kernel_ms": time_ms(torch, lambda: dispatch.local_sort(
+                  x, policy="kernel"), reps=10),
+              "library_ms": time_ms(torch, lambda: torch.sort(x, dim=-1),
+                                    reps=10),
+              "card": card})
 
 
 def slice_inputs(np):
@@ -261,6 +399,119 @@ def slice_phase(torch, np, card):
     return main_launches
 
 
+def batched_inputs(np):
+    from repro_torch.data.distributions import make_distribution
+
+    return np.stack([make_distribution("UNIF", N_REQ, seed=s)
+                     for s in range(B)])
+
+
+def check_batched(np, name, out, xs, sorted_rows=None):
+    """Per request: gather == np.sort, overflow 0, balance within
+    (1+eps)n/p + 1. Returns (max count, limit)."""
+    overflow = out.overflow.cpu().numpy()
+    counts = out.counts.cpu().numpy()
+    n = xs[0].shape[0]
+    limit = (1 + EPS) * n / P + 1
+    for b, x in enumerate(xs):
+        want = np.sort(x) if sorted_rows is None else sorted_rows[b]
+        if not np.array_equal(out.gather(b), want):
+            fail(f"{name}: request {b} differs from np.sort")
+    if overflow.any() or counts.max() > limit:
+        fail(f"{name}: overflow {overflow.tolist()}, max count "
+             f"{counts.max()} (limit {limit})")
+    return int(counts.max()), limit
+
+
+def batched_phase(torch, np, card):
+    """Slice 2's main path, sort_batched on (8, 2,000,000) keys, under
+    both exchanges; returns the dense run's launch counts."""
+    from repro_torch.kernels import cuda
+    from repro_torch.sort import SortSpec, sort, sort_batched
+
+    xs = batched_inputs(np)
+    sorted_rows = np.sort(xs, axis=1)
+    main_launches = None
+    for exchange in ("dense", "allgather"):
+        spec = SortSpec(shards=P, eps=EPS, exchange=exchange)
+        cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sort_batched(xs, spec)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches = dict(cuda.launches)
+        if main_launches is None:
+            main_launches = launches
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            fail(f"sort_batched[{exchange}]: kernels never launched: "
+                 f"{missing}")
+        max_count, limit = check_batched(np, f"sort_batched[{exchange}]",
+                                         out, xs, sorted_rows)
+        ref = sort_batched(xs, dataclasses.replace(spec,
+                                                   kernel_policy="torch"))
+        if not (torch.equal(out.shards, ref.shards)
+                and torch.equal(out.counts, ref.counts)):
+            fail(f"sort_batched[{exchange}]: kernel and torch policies "
+                 "disagree")
+        # with tag fixed both plans agree: row b is sort() of row b alone
+        untagged = dataclasses.replace(spec, tag=False)
+        batched = sort_batched(xs, untagged)
+        for b in range(B):
+            one = sort(xs[b], untagged)
+            view = batched.request(b)
+            if not (torch.equal(view.shards, one.shards)
+                    and torch.equal(view.counts, one.counts)
+                    and torch.equal(view.splitter_keys, one.splitter_keys)):
+                fail(f"sort_batched[{exchange}]: row {b} differs from "
+                     "sort() of that row (tag=False)")
+        emit({"measure": "slice_batched", "input": "unif_int32",
+              "exchange": exchange, "batch": B, "n": N_REQ,
+              "overflow": out.overflow.cpu().tolist(),
+              "max_count": max_count, "limit": limit,
+              "rounds_used": out.stats.rounds_used.cpu().tolist(),
+              "tagged": out.indices is not None, "launches": launches,
+              "first_call_s": cold_s, "policies_agree": True,
+              "rows_equal_sort_untagged": True, "card": card})
+
+    spec = SortSpec(shards=P, eps=EPS)
+    others = (
+        ("normal_float32", np.random.default_rng(1).standard_normal(
+            (B, N_REQ)).astype(np.float32)),
+        # below 2^32 - 1: the uint32 sentinel would force 31-bit tagging
+        ("ragged_uint32", np.random.default_rng(2).integers(
+            0, 2 ** 32 - 1, (B, N_REQ + 3), dtype=np.uint32)))
+    for name, ys in others:
+        cuda.reset_launches()
+        out = sort_batched(ys, spec)
+        torch.cuda.synchronize()
+        launches = dict(cuda.launches)
+        if not all(launches.values()):
+            fail(f"{name}: kernels never launched: {launches}")
+        max_count, limit = check_batched(np, name, out, ys)
+        emit({"measure": "slice_batched", "input": name, "exchange": "dense",
+              "batch": B, "n": int(ys.shape[1]), "max_count": max_count,
+              "limit": limit, "tagged": out.indices is not None,
+              "launches": launches, "card": card})
+
+    # list input: five 2,000,000-key and three 2,000,003-key requests
+    ragged = np.random.default_rng(3).integers(
+        0, 2 ** 30, (3, N_REQ + 3)).astype(np.int32)
+    reqs = [xs[0], ragged[0], xs[1], xs[2], ragged[1], xs[3], ragged[2],
+            xs[4]]
+    outs = sort_batched(reqs, spec)
+    if len(outs) != len(reqs):
+        fail("list input: wrong number of results")
+    for i, (x, o) in enumerate(zip(reqs, outs)):
+        if int(o.overflow) != 0 or not np.array_equal(o.gather(), np.sort(x)):
+            fail(f"list input: request {i} differs from np.sort")
+    emit({"measure": "slice_batched", "input": "list_int32",
+          "lengths": [int(x.shape[0]) for x in reqs], "buckets": 2,
+          "in_order": True, "card": card})
+    return main_launches
+
+
 def timing_phase(torch, np, card):
     from repro_torch.data.distributions import make_distribution
     from repro_torch.sort import SortSpec, sort
@@ -297,6 +548,49 @@ def timing_phase(torch, np, card):
           "card": card})
 
 
+def batched_timing_phase(torch, np, card):
+    from repro_torch.sort import SortSpec, sort, sort_batched
+
+    xs = batched_inputs(np)
+
+    def median_ms(fn, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), times
+
+    for policy in ("auto", "torch"):
+        spec = SortSpec(shards=P, eps=EPS, kernel_policy=policy)
+        batched, runs_b = median_ms(lambda: sort_batched(xs, spec))
+        seq, runs_s = median_ms(lambda: [sort(x, spec) for x in xs])
+        emit({"measure": "sort_batched_e2e_warm", "input": "unif_int32",
+              "exchange": "dense", "batch": B, "n": N_REQ, "policy": policy,
+              "batched_median_ms": batched, "batched_runs_ms": runs_b,
+              "sequential_median_ms": seq, "sequential_runs_ms": runs_s,
+              "card": card})
+
+    spec = SortSpec(shards=P, eps=EPS)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        sort_batched(xs, spec)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    emit({"measure": "sort_batched_profile", "input": "unif_int32",
+          "exchange": "dense",
+          "device_us_total": sum(e.self_device_time_total for e in events),
+          "top": [{"name": e.key[:80], "device_us": e.self_device_time_total,
+                   "calls": e.count} for e in events[:15]],
+          "card": card})
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -328,10 +622,13 @@ def main() -> int:
 
     rows = kernel_phase(torch, card)
     cascade_line(torch, card)
-    launches = slice_phase(torch, np, card)
+    paths = {"sort": slice_phase(torch, np, card),
+             "sort_batched": batched_phase(torch, np, card)}
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches_by_path"] = {k: v[r["counter"]] for k, v in paths.items()}
+        r["launches"] = r["launches_by_path"][r["path"]]
     timing_phase(torch, np, card)
+    batched_timing_phase(torch, np, card)
 
     print(json.dumps({"kernels": rows}))
     print(card)

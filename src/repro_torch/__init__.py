@@ -7,12 +7,13 @@ collectives between them are tensor ops behind one seam
 has a hand-written CUDA counterpart under `repro_torch/kernels/csrc`, and a
 plain PyTorch version beside it that the CPU runs.
 
-    from repro_torch.sort import SortSpec, sort
+    from repro_torch.sort import SortSpec, sort, sort_batched
     out = sort(x, SortSpec(shards=8))           # on the card by default
     out.gather()                                # flat sorted NumPy array
+    outs = sort_batched(xs)                     # (B, n): B requests at once
 
 Subpackages mirror `repro`: core/ (splitters, exchange, hss), kernels/
 (bitonic_sort, merge, histogram, dispatch), sort/ (spec, partitioners,
-driver, adapters, api), data/ (the paper's input distributions), parallel/
-(the Comm seam). Nothing here imports jax or repro.
+driver, adapters, grouping, api), data/ (the paper's input distributions),
+parallel/ (the Comm seam). Nothing here imports jax or repro.
 """

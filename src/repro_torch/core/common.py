@@ -103,10 +103,11 @@ def interval_union_size(lo_rank: torch.Tensor,
     """Size of the union of splitter intervals [lo_i, hi_i] in rank space.
 
     Intervals are monotone (lo and hi nondecreasing in i), so the union is
-    sum_i max(0, hi_i - max(lo_i, cummax(hi)_{i-1})). Returns a 0-d tensor
-    of the ranks' dtype (int32 on the splitter path, as in the reference).
+    sum_i max(0, hi_i - max(lo_i, cummax(hi)_{i-1})). Intervals run along
+    the last axis; leading axes are independent requests. Returns the
+    ranks' dtype (int32 on the splitter path, as in the reference).
     """
-    cummax = torch.cummax(hi_rank, dim=0).values
-    cummax_prev = torch.cat([lo_rank[:1], cummax[:-1]])
+    cummax = torch.cummax(hi_rank, dim=-1).values
+    cummax_prev = torch.cat([lo_rank[..., :1], cummax[..., :-1]], dim=-1)
     gaps = torch.clamp(hi_rank - torch.maximum(lo_rank, cummax_prev), min=0)
-    return gaps.sum(dtype=hi_rank.dtype)
+    return gaps.sum(dim=-1, dtype=hi_rank.dtype)

@@ -5,6 +5,9 @@ bitonic_sort  K1 block sort and K2 shared-memory bitonic merge; the local
 merge         K3 strided compare-exchange: the HBM pass of the merge
               cascade, for pairs too long for shared memory.
 histogram     K4 probe-rank count: the per-round histogram.
+
+Every kernel takes rows, so the reference's batched Pallas kernels (#2, #4,
+#6) are the same kernels over the batched engine's B*p rows.
 dispatch      the policy layer every core pipeline routes through:
               `kernel_policy` = "auto" | "kernel" | "torch".
 cuda          builds csrc/sort_kernels.cu with nvcc at first use, loads it

@@ -126,8 +126,10 @@ def bitonic_merge_smem(x: torch.Tensor, seg: int,
         return bitonic_merge_plain(x, seg, reverse_second_half)
     out = torch.empty_like(x)
     if x.numel():
+        role = "reverse" if reverse_second_half else "tail"
         cuda.launch("bitonic_merge_smem", x.data_ptr(), out.data_ptr(),
-                    x.numel(), seg, int(reverse_second_half))
+                    x.numel(), seg, int(reverse_second_half),
+                    counter=f"bitonic_merge_smem.{role}")
     return out
 
 

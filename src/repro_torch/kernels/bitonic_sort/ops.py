@@ -1,11 +1,12 @@
 """The local sort built from the bitonic kernels, over rows.
 
-`local_sort(x)` sorts each row of a (rows, n) int32 tensor: pad the rows
-to a power of two with the hi sentinel, sort `block`-key runs with K1,
-then merge runs pairwise (`merge.ops.merge_cascade`: K2 while a pair fits
-in shared memory, the strided HBM pass above it). Counterpart of
-`repro.kernels.bitonic_sort.ops.local_sort` (ops.py:42), with the shard
-axis written out as rows.
+`local_sort(x)` sorts each row of an int32 tensor (..., n): the leading
+axes (shards, or the batched engine's (p, B)) flatten to rows, every row
+pads to one shared power of two with the hi sentinel, K1 sorts `block`-key
+runs, then runs merge pairwise (`merge.ops.merge_cascade`: K2 while a pair
+fits in shared memory, the strided HBM pass above it). The row boundary is
+a run boundary, so no comparator crosses it. Counterpart of the
+reference's `local_sort` and `local_sort_batched` (ops.py:42, :61).
 """
 from __future__ import annotations
 
@@ -18,16 +19,24 @@ DEFAULT_BLOCK = 1024
 
 
 def local_sort(x: torch.Tensor, block: int = DEFAULT_BLOCK) -> torch.Tensor:
-    """Full sort of each row: kernel block sort + kernel merge cascade."""
+    """Full sort of each row of (..., n): kernel block sort + kernel merge
+    cascade, one launch per pass for all rows."""
     # deferred: merge.ops imports the bitonic kernels too
     from repro_torch.kernels.merge.ops import merge_cascade
 
-    rows, n = x.shape
+    shape, n = x.shape, x.shape[-1]
+    x = x.reshape(-1, n)
     np2 = pow2_ceil(max(n, 2))
     blk = min(block, np2)
     if np2 != n:
-        x = torch.cat([x, torch.full((rows, np2 - n), hi_sentinel(x.dtype),
-                                     dtype=x.dtype, device=x.device)], dim=1)
+        x = torch.cat([x, torch.full((x.shape[0], np2 - n),
+                                     hi_sentinel(x.dtype), dtype=x.dtype,
+                                     device=x.device)], dim=1)
     x = K.sort_blocks(x, blk)
     x = merge_cascade(x, blk)
-    return x if np2 == n else x[:, :n].contiguous()
+    x = x if np2 == n else x[:, :n].contiguous()
+    return x.reshape(shape)
+
+
+#: The reference's batched name; `local_sort` already takes any rows.
+local_sort_batched = local_sort

@@ -1,12 +1,14 @@
 // Hand-written Hopper (sm_90a) kernels for the HSS sort path.
 //
-// Four kernels replace the five Pallas call sites on the sort's main path:
+// Four kernels replace the eight Pallas call sites of the sort and the
+// batched sort (a batched Pallas kernel is its unbatched one per row, and
+// every kernel here already takes rows):
 //
-//   K1 bitonic_sort_blocks      repro/kernels/bitonic_sort/kernel.py:83
-//   K2 bitonic_merge_smem       repro/kernels/bitonic_sort/kernel.py:117
+//   K1 bitonic_sort_blocks      repro/kernels/bitonic_sort/kernel.py:83, :98
+//   K2 bitonic_merge_smem       repro/kernels/bitonic_sort/kernel.py:117, :132
 //                               repro/kernels/merge/kernel.py:71
 //   K3 strided_compare_exchange repro/kernels/merge/kernel.py:49
-//   K4 probe_rank_count         repro/kernels/histogram/kernel.py:35
+//   K4 probe_rank_count         repro/kernels/histogram/kernel.py:35, :64
 //
 // All keys are int32 (the core only ever sees encoded int32). Arrays are
 // flat: a (rows, n) tensor is rows*n keys, and every kernel keeps its work
@@ -143,14 +145,19 @@ __global__ void strided_ce_vec4_kernel(const int4* __restrict__ in,
 // (past the row's end it reads as INT_MAX, which is below no probe), and
 // each thread counts its probes over the whole tile with broadcast reads.
 // Blocks run in no order, so each adds its partial counts into the zeroed
-// output with atomicAdd: integer atomics are exact in any order.
+// output with atomicAdd: integer atomics are exact in any order. That also
+// stands in for the batched Pallas kernel's per-row accumulator reset
+// (histogram/kernel.py:57): each row adds into its own zeroed output row.
+// Rows and tiles share gridDim.x (block = row * tiles + tile), so the row
+// count is not held to gridDim.y's 65,535: the batched path hands K4 B*p
+// rows, and 8,192 requests at p = 8 are 65,536 of them.
 __global__ void probe_rank_count_kernel(const int* __restrict__ keys,
                                         const int* __restrict__ probes,
                                         int* __restrict__ out, int64_t n,
-                                        int m) {
+                                        int m, int64_t tiles) {
   __shared__ __align__(16) int tile[kProbeTile];
-  const int64_t row = blockIdx.y;
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * kProbeTile;
+  const int64_t row = blockIdx.x / tiles;
+  const int64_t start = (blockIdx.x - row * tiles) * kProbeTile;
   const int* krow = keys + row * n;
   for (int i = threadIdx.x; i < kProbeTile; i += blockDim.x) {
     const int64_t g = start + i;
@@ -243,13 +250,14 @@ int strided_compare_exchange(const void* in, void* out, long long n_total,
 
 int probe_rank_count(const void* keys, const void* probes, void* out,
                      long long rows, long long n, int m, void* stream) {
-  if (rows < 1 || rows > 65535 || n < 1 || m < 1) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>((n + kProbeTile - 1) / kProbeTile),
-                  static_cast<unsigned>(rows));
-  probe_rank_count_kernel<<<grid, kProbeThreads, 0,
+  if (rows < 1 || n < 1 || m < 1) return cudaErrorInvalidValue;
+  const int64_t tiles = (n + kProbeTile - 1) / kProbeTile;
+  if (tiles > INT_MAX / rows) return cudaErrorInvalidValue;
+  probe_rank_count_kernel<<<static_cast<unsigned>(rows * tiles),
+                            kProbeThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(keys), static_cast<const int*>(probes),
-      static_cast<int*>(out), n, m);
+      static_cast<int*>(out), n, m, tiles);
   return cudaGetLastError();
 }
 

@@ -11,8 +11,11 @@ and have no nvcc.
 `launch(name, *args)` calls one C launcher on PyTorch's current stream,
 raises when it returns a CUDA error, and adds one to that kernel's count in
 `launches` — the count a run reads to show that its main path went through
-the kernels. Wrappers validate device, dtype, shape and contiguity before
-they call it; a launch failure raises, it never falls back.
+the kernels. K2 serves two Pallas sites, so it is counted apart by role:
+`bitonic_merge_smem.reverse` (a pair merge, merge_adjacent) and
+`bitonic_merge_smem.tail` (an HBM pass's tail, merge_bitonic_blocks).
+Wrappers validate device, dtype, shape and contiguity before they call it;
+a launch failure raises, it never falls back.
 """
 from __future__ import annotations
 
@@ -41,7 +44,12 @@ SIGNATURES = {
     "probe_rank_count": (_P, _P, _P, _L, _L, _I, _P),
 }
 
-#: Launches per kernel since the last `reset_launches()`.
+#: Launch counters: one per kernel, K2's split by role.
+COUNTERS = ("bitonic_sort_blocks", "bitonic_merge_smem.reverse",
+            "bitonic_merge_smem.tail", "strided_compare_exchange",
+            "probe_rank_count")
+
+#: Launches per counter since the last `reset_launches()`.
 launches: Counter = Counter()
 
 _lock = threading.Lock()
@@ -50,7 +58,7 @@ _lib = None
 
 def reset_launches():
     launches.clear()
-    launches.update({name: 0 for name in SIGNATURES})
+    launches.update({name: 0 for name in COUNTERS})
 
 
 reset_launches()
@@ -106,15 +114,16 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args):
-    """Run one C launcher on the current stream; raise on a CUDA error."""
+def launch(name: str, *args, counter: str | None = None):
+    """Run one C launcher on the current stream; raise on a CUDA error.
+    The launch counts under `counter` (default: the launcher's name)."""
     lib = library()
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, name)(*args, stream)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: error {err} ({msg})")
-    launches[name] += 1
+    launches[counter or name] += 1
 
 
 def check_int32_rows(x: torch.Tensor, what: str):

@@ -14,8 +14,10 @@ one code path. The policy decides what runs:
             `torch.searchsorted`), the counterpart of "xla".
 
 Every policy returns the same bits for inputs within the key contract.
-All inputs are rows: the leading axis is the emulated shard (or any other
-batch of independent rows).
+All inputs are rows: any leading axes (the emulated shards, or the batched
+engine's (p, B)) are independent rows, so the reference's `*_batched`
+entry points are the same functions here; under "torch" each is one
+`torch.sort(dim=-1)` or one row-batched `torch.searchsorted`.
 """
 from __future__ import annotations
 
@@ -52,8 +54,9 @@ def local_sort_fn(policy: str = "auto"):
 
 def local_sort(x: torch.Tensor, *, policy: str = "auto",
                block: int | None = None) -> torch.Tensor:
-    """Sort each row of (rows, n) (sentinel-padded rows welcome: sentinels
-    are ordinary largest keys and land on the tail)."""
+    """Sort each row of (..., n) (sentinel-padded rows welcome: sentinels
+    are ordinary largest keys and land on the tail). AUTO_SORT_MAX_N
+    applies to the row length."""
     if policy == "auto" and x.shape[-1] > AUTO_SORT_MAX_N:
         policy = "torch"
     if resolve_policy(policy, x.device) == "torch":
@@ -64,30 +67,40 @@ def local_sort(x: torch.Tensor, *, policy: str = "auto",
 def probe_ranks(keys: torch.Tensor, probes: torch.Tensor, *,
                 policy: str = "auto",
                 assume_sorted: bool = False) -> torch.Tensor:
-    """rank[r, m] = #{keys[r] < probes[m]} as int32: keys (rows, n), probes
-    (M,) shared by all rows or (rows, M) -> (rows, M).
+    """rank[..., m] = #{keys[...] < probes[..., m]} as int32: keys (..., n),
+    probes (..., M) whose leading axes broadcast against the keys' (a
+    request's probe row serves all its shards; (M,) serves every row) ->
+    (..., M).
 
     The kernel counts rather than searches, so it needs no sorted keys.
     The torch path uses `searchsorted` when `assume_sorted` (every splitter
     pipeline ranks over locally sorted shards) and sort + search otherwise.
     """
-    rows = keys.shape[0]
+    probes = probes.expand(keys.shape[:-1] + probes.shape[-1:])
     if probes.shape[-1] == 0:
-        return torch.zeros((rows, 0), dtype=torch.int32, device=keys.device)
+        return torch.zeros(probes.shape, dtype=torch.int32,
+                           device=keys.device)
     if resolve_policy(policy, keys.device) == "torch":
-        rows_probes = probes.expand(rows, -1).contiguous()
         if assume_sorted:
-            return torch.searchsorted(keys.contiguous(), rows_probes,
+            return torch.searchsorted(keys.contiguous(), probes.contiguous(),
                                       side="left").to(torch.int32)
-        return href.probe_ranks_ref(keys, rows_probes)
+        return href.probe_ranks_ref(keys, probes)
     return hops.probe_ranks(keys, probes)
 
 
 def merge_runs(runs: torch.Tensor, *, policy: str = "auto") -> torch.Tensor:
-    """Merge the k sorted runs of each row of (rows, k, r) -> (rows, k*r).
+    """Merge the k sorted runs of each row of (..., k, r) -> (..., k*r).
 
-    Bit-identical to `torch.sort(runs.reshape(rows, -1))`; the kernel path
-    merges in log(k) passes instead of re-sorting."""
+    Bit-identical to `torch.sort` of each row; the kernel path merges in
+    log(k) passes instead of re-sorting."""
     if resolve_policy(policy, runs.device) == "torch":
-        return torch.sort(runs.reshape(runs.shape[0], -1), dim=-1).values
+        return torch.sort(runs.reshape(runs.shape[:-2] + (-1,)),
+                          dim=-1).values
     return mops.merge_sorted_runs(runs)
+
+
+# The reference's batched names (dispatch.py:67-157): the same functions.
+local_sort_batched_fn = local_sort_fn
+local_sort_batched = local_sort
+probe_ranks_batched = probe_ranks
+merge_runs_batched = merge_runs

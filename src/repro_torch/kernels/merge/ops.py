@@ -2,9 +2,15 @@
 
 merge_cascade      sorted runs of length `run` in each row -> each row one
                    sorted run, by a pairwise bitonic-merge tree.
-merge_sorted_runs  (rows, k, r) sorted runs -> (rows, k*r) sorted rows;
-                   the merge after the dense exchange.
-cap_to             slice or sentinel-pad rows to a static capacity.
+merge_sorted_runs  (..., k, r) sorted runs -> (..., k*r) sorted rows;
+                   the merge after the exchange. Leading axes (the batched
+                   engine's (p, B)) flatten to rows: one cascade pass per
+                   level for every request and shard (the reference's
+                   merge_sorted_runs_batched, merge/ops.py:105).
+gather_runs        runs at traced offsets of each row -> a sentinel-padded
+                   (..., k, slot) buffer; the allgather exchange's windows.
+cap_to             slice or sentinel-pad rows to a static capacity (the
+                   reference's cap_to and _cap_rows_to in one).
 
 All merges are exact: given sorted runs and sentinel-filled slack, the
 output equals a full sort of the same entries bit for bit.
@@ -35,13 +41,15 @@ def merge_cascade(x: torch.Tensor, run: int, *,
 
 def merge_sorted_runs(runs: torch.Tensor, *,
                       smem_block: int = BK.SMEM_MAX_SEG) -> torch.Tensor:
-    """Merge the k sorted runs of each row of (rows, k, r) into one sorted
-    (rows, k*r) row. k and r need not be powers of two: runs and rows are
+    """Merge the k sorted runs of each row of (..., k, r) into one sorted
+    (..., k*r) row. k and r need not be powers of two: runs and rows are
     sentinel padded internally and the pad is sliced back off (sentinels
     sort to the tail, so the slice is exact)."""
-    rows, k, r = runs.shape
+    *lead, k, r = runs.shape
     if k * r == 0:
-        return torch.zeros((rows, 0), dtype=runs.dtype, device=runs.device)
+        return torch.zeros((*lead, 0), dtype=runs.dtype, device=runs.device)
+    runs = runs.reshape(-1, k, r)
+    rows = runs.shape[0]
     sent = hi_sentinel(runs.dtype)
     k2, r2 = pow2_ceil(k), pow2_ceil(r)
     if r2 != r:
@@ -53,17 +61,41 @@ def merge_sorted_runs(runs: torch.Tensor, *,
                                            dtype=runs.dtype,
                                            device=runs.device)], dim=1)
     flat = runs.reshape(rows, k2 * r2)
-    if k2 == 1:
-        return flat[:, :r]
-    return merge_cascade(flat, r2, smem_block=smem_block)[:, :k * r]
+    if k2 > 1:
+        flat = merge_cascade(flat, r2, smem_block=smem_block)
+    return flat[:, :k * r].reshape(*lead, k * r)
+
+
+#: The reference's batched name; `merge_sorted_runs` already takes rows.
+merge_sorted_runs_batched = merge_sorted_runs
+
+
+def gather_runs(buf: torch.Tensor, starts: torch.Tensor,
+                counts: torch.Tensor, slot: int) -> torch.Tensor:
+    """Extract k runs at traced offsets of each row into a sentinel-padded
+    (..., k, slot) buffer: buf (..., cap), starts and counts (..., k).
+    Slots past counts hold the sentinel; entries of a run beyond `slot`
+    are not represented (callers detect counts > slot). Row-batched form
+    of the reference's gather_runs (merge/ops.py:152)."""
+    cap = buf.shape[-1]
+    lead, k = starts.shape[:-1], starts.shape[-1]
+    pos = torch.arange(slot, dtype=torch.int64, device=buf.device)
+    idx = torch.clamp(starts.to(torch.int64)[..., None] + pos, 0, cap - 1)
+    vals = torch.gather(buf.expand(lead + (cap,)), -1,
+                        idx.reshape(lead + (k * slot,)))
+    del idx
+    valid = pos < counts[..., None]
+    return torch.where(valid, vals.reshape(lead + (k, slot)),
+                       hi_sentinel(buf.dtype))
 
 
 def cap_to(merged: torch.Tensor, cap: int) -> torch.Tensor:
-    """Slice/pad sorted rows to a static capacity (sentinel-filled tail)."""
-    rows, n = merged.shape
+    """Slice/pad sorted rows (..., n) to a static capacity (sentinel-filled
+    tail)."""
+    n = merged.shape[-1]
     if n >= cap:
-        return merged[:, :cap]
-    return torch.cat([merged, torch.full((rows, cap - n),
+        return merged[..., :cap]
+    return torch.cat([merged, torch.full(merged.shape[:-1] + (cap - n,),
                                          hi_sentinel(merged.dtype),
                                          dtype=merged.dtype,
-                                         device=merged.device)], dim=1)
+                                         device=merged.device)], dim=-1)

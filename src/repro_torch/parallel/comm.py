@@ -5,11 +5,15 @@ collectives the reference calls inside it. In the port a per-shard value
 is one tensor whose leading axis is the shard index, so a collective is a
 tensor op over that axis:
 
-  all_gather  (p, c, ...) -> (p*c, ...)   the reference's tiled all_gather
+  all_gather  (p, ...)    -> (p, ...)     untiled: every shard sees all p
+              blocks, held once with the source shard axis leading
   psum        (p, ...)    -> (...)        sum over shards, dtype kept
   all_to_all  (p_src, p_dst, ...) -> (p_dst, p_src, ...)
               split axis 0, concat axis 0: a transpose of the two shard axes
   axis_index  () -> (p,)                  each shard's index
+
+The batched engine keeps the shard axis leading, (p, B, ...), so the same
+three collectives carry B requests: each is still one logged call.
 
 A value the reference keeps replicated on every shard (gathered probes,
 psum results, the splitter state) is held ONCE here, not p times. Every
@@ -41,7 +45,7 @@ class Comm:
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x, "all_gather")
         self.log["all_gather"] += 1
-        return x.reshape((self.p * x.shape[1],) + tuple(x.shape[2:]))
+        return x
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x, "psum")

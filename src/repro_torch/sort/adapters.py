@@ -18,6 +18,12 @@ contract and back:
 Inside the plan every key is in the encoded int32 domain (for uint32, the
 flipped one), so `key_min`/`key_max` and the rebase are plain int32
 arithmetic whatever the user's dtype.
+
+The batched engine's (B, n) requests share one plan (adapters.py:302): a
+duplicate in any row tags every row, and the rebase offset and packing
+budget come from the key range of all B rows, while the tag indices stay
+per request. So a batched row equals `sort()` of that row alone only when
+the two plans agree (fix `tag`).
 """
 from __future__ import annotations
 
@@ -100,9 +106,56 @@ class SortOutput:
         return masked_concat(self.indices, self.counts)
 
 
+class BatchedSortOutput:
+    """Decoded result of `repro_torch.sort.sort_batched`: B equal-length
+    requests sorted independently in one pipeline.
+
+    Every per-request array of SortOutput gains a leading batch axis:
+    shards (B, p, cap), counts (B, p), indices (B, p, cap) | None, overflow
+    (B,), splitter_keys / splitter_ranks (B, p-1), stats with per-round
+    fields (k, B) and rounds_used (B,); n is the per-request key count.
+    `request(b)` views one request as a SortOutput (stats stay batched).
+    """
+
+    def __init__(self, shards, counts, indices, overflow, splitter_keys,
+                 splitter_ranks, stats, n):
+        self.shards = shards
+        self.counts = counts
+        self.indices = indices
+        self.overflow = overflow
+        self.splitter_keys = splitter_keys
+        self.splitter_ranks = splitter_ranks
+        self.stats = stats
+        self.n = n
+
+    @property
+    def batch(self) -> int:
+        return self.shards.shape[0]
+
+    def request(self, b: int) -> SortOutput:
+        """Request b's result as a SortOutput view."""
+        return SortOutput(
+            self.shards[b], self.counts[b],
+            None if self.indices is None else self.indices[b],
+            self.overflow[b], self.splitter_keys[b], self.splitter_ranks[b],
+            self.stats, self.n)
+
+    def gather(self, b: int) -> np.ndarray:
+        """Request b's keys, globally sorted, as one (n,) NumPy array."""
+        return self.request(b).gather()
+
+    def gather_indices(self, b: int) -> np.ndarray:
+        """Request b's argsort permutation as one (n,) NumPy array."""
+        return self.request(b).gather_indices()
+
+    def gather_all(self) -> list:
+        """Every request gathered, in batch order."""
+        return [self.gather(b) for b in range(self.batch)]
+
+
 @dataclasses.dataclass
 class AdapterPlan:
-    n: int                 # real keys
+    n: int                 # real keys (per request on the batched path)
     n_pad: int
     out_dtype: torch.dtype  # user-facing key dtype
     tagged: bool = False
@@ -112,16 +165,17 @@ class AdapterPlan:
     _enc: torch.Tensor | None = None   # encoded keys, cached by make_plan
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """Keys -> the distinct-int32 core domain."""
+        """Keys (n,), or (B, n) for the batched engine -> the
+        distinct-int32 core domain; every row gets its own index tags."""
         enc = self._enc if self._enc is not None else to_core(x)
         if not self.tagged:
             return enc       # pads (hi sentinel) are appended by the driver
         if self.n_pad:       # pads = max real key; they sort to the tail
-            enc = torch.cat([enc, torch.full((self.n_pad,), self.key_max,
-                                             dtype=enc.dtype,
-                                             device=enc.device)])
+            pad = torch.full(enc.shape[:-1] + (self.n_pad,), self.key_max,
+                             dtype=enc.dtype, device=enc.device)
+            enc = torch.cat([enc, pad], dim=-1)
         e = (enc.to(torch.int64) - self.key_min).to(torch.int32)
-        idx = torch.arange(e.shape[0], dtype=torch.int32, device=e.device)
+        idx = torch.arange(e.shape[-1], dtype=torch.int32, device=e.device)
         return (e << self.tag_b) | idx
 
     def encode_probes(self, probes) -> torch.Tensor:
@@ -132,11 +186,13 @@ class AdapterPlan:
         return ((probes.to(torch.int64) - self.key_min) << self.tag_b
                 ).to(torch.int32)
 
-    def decode(self, raw) -> SortOutput:
+    def decode_batched(self, raw) -> BatchedSortOutput:
+        """The raw batched driver tuple (shards (B, p, cap), counts (B, p),
+        ...) -> BatchedSortOutput."""
         shards, counts, skeys, sranks, overflow, stats = raw
-        cap = shards.shape[1]
+        cap = shards.shape[-1]
         pos = torch.arange(cap, dtype=torch.int32, device=shards.device)
-        valid = pos[None, :] < counts[:, None]
+        valid = pos < counts[..., None]
         indices = None
         if self.tagged:
             raw_idx = shards & ((1 << self.tag_b) - 1)
@@ -144,8 +200,8 @@ class AdapterPlan:
                 # pads carry indices >= n; they may have been counted as
                 # valid by the exchange — exact even under key drops
                 pads = valid & (raw_idx >= self.n)
-                counts = counts - pads.sum(dim=1, dtype=torch.int32)
-                valid = pos[None, :] < counts[:, None]
+                counts = counts - pads.sum(dim=-1, dtype=torch.int32)
+                valid = pos < counts[..., None]
             indices = torch.where(valid, raw_idx, -1)
             shards = self._unrebase(shards >> self.tag_b)
             if skeys.numel():
@@ -157,8 +213,9 @@ class AdapterPlan:
         # int32 for float32 keys, the key dtype otherwise
         if skeys.numel() or self.out_dtype == torch.uint32:
             skeys = from_core(skeys, self.out_dtype)
-        return SortOutput(from_core(shards, self.out_dtype), counts, indices,
-                          overflow, skeys, sranks, stats, self.n)
+        return BatchedSortOutput(
+            from_core(shards, self.out_dtype), counts, indices, overflow,
+            skeys, sranks, stats, self.n)
 
     def _unrebase(self, rebased: torch.Tensor) -> torch.Tensor:
         """Rebased int32 -> encoded int32, wrapping mod 2^32 as the
@@ -186,17 +243,20 @@ def _needs_tags(x: torch.Tensor, spec: SortSpec):
     if spec.stable:
         return True, True
     # auto duplicate detection, as the reference does it with a plain
-    # jnp.sort outside any kernel: sort, compare neighbours (float keys
-    # compare as floats, so -0.0 == 0.0); only a scalar reaches the host
-    s = torch.sort(x.view(torch.int32) if x.dtype == torch.uint32 else x
-                   ).values
-    return bool((s[1:] == s[:-1]).any()), False
+    # jnp.sort outside any kernel: sort each row, compare neighbours (float
+    # keys compare as floats, so -0.0 == 0.0); only a scalar reaches the
+    # host. On a (B, n) batch any duplicated row tags the whole batch.
+    s = torch.sort(x.view(torch.int32) if x.dtype == torch.uint32 else x,
+                   dim=-1).values
+    return bool((s[..., 1:] == s[..., :-1]).any()), False
 
 
 def make_plan(x: torch.Tensor, spec: SortSpec, p: int) -> AdapterPlan:
-    """Inspect the input and decide bijection, tagging and padding."""
+    """Inspect the input, (n,) or a (B, n) batch, and decide bijection,
+    tagging and padding: one plan for the whole batch, its key range taken
+    over all B rows."""
     n = x.shape[-1]
-    if n == 0:
+    if n == 0 or x.numel() == 0:
         raise ValueError("cannot sort an empty array")
     if x.dtype not in KEY_DTYPES:
         raise NotImplementedError(

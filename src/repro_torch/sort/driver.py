@@ -1,16 +1,19 @@
 """The host-level sort driver (counterpart of repro.sort.driver).
 
-`run` pads the key array to a multiple of p with the hi sentinel, lays it
-out as p shard rows, builds the collective seam and the sampling draws,
-runs the shard-level `sort_fn`, and strips the pads back out of the
-counts. The reference compiles the shard program once per shape and keeps
-it in an executable cache; eager PyTorch has no trace to cache, and the
-cache's hit-rate counters come with the serving slice (ROADMAP queue 1
-item 11).
+`run_batched` sorts B equal-length requests in one pipeline (counterpart
+of driver.py:315-383; an unbatched sort is B = 1). It pads each request to
+a multiple of p with the hi sentinel, lays it out as shard rows, builds
+the collective seam and the sampling draws, runs the shard-level
+`sort_fn`, and strips the pads back out of the counts. The reference
+compiles the shard program once per shape and keeps it in an executable
+cache; eager PyTorch has no trace to cache, and the cache's hit-rate
+counters come with the serving slice (ROADMAP queue 1 item 11).
 
-The shard-level contract: `sort_fn(rows, comm, uniform)` returns
-`(out, n_valid, splitter_keys, splitter_ranks, overflow, stats)` with
-`out` the (p, cap) sentinel-padded sorted shards and `n_valid` (p,).
+Shard s of request b holds columns s*n_local .. (s+1)*n_local of row b,
+as in the reference, so request b lands on the same shards as an
+unbatched sort of row b. The rows `sort_fn` gets keep the shard axis
+leading, (p, B, n_local), so `Comm` is unchanged and the kernels see p*B
+rows; the result comes back in the reference's layout, (B, p, ...).
 """
 from __future__ import annotations
 
@@ -22,13 +25,14 @@ from repro_torch.parallel.comm import Comm
 
 
 def pad_to_shards(x: torch.Tensor, p: int):
-    """Sentinel-pad x up to a multiple of p. Returns (padded, n_pad)."""
-    n_pad = (-x.shape[0]) % p
+    """Sentinel-pad the last axis of x up to a multiple of p. Returns
+    (padded, n_pad)."""
+    n_pad = (-x.shape[-1]) % p
     if n_pad == 0:
         return x, 0
-    pad = torch.full((n_pad,), hi_sentinel(x.dtype), dtype=x.dtype,
-                     device=x.device)
-    return torch.cat([x, pad]), n_pad
+    pad = torch.full(x.shape[:-1] + (n_pad,), hi_sentinel(x.dtype),
+                     dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=-1), n_pad
 
 
 def strip_sentinel_counts(shards: torch.Tensor, counts: torch.Tensor,
@@ -43,18 +47,21 @@ def strip_sentinel_counts(shards: torch.Tensor, counts: torch.Tensor,
     pads by value, so only the sentinels present beyond `n_pad` are kept,
     restored to the earliest shards whose prefixes held sentinels (they
     occupy the global tail, so the gather stays sorted). All on device.
+    shards (..., p, cap), counts (..., p), n_restore (...): leading axes
+    are independent requests.
     """
-    cap = shards.shape[1]
+    cap = shards.shape[-1]
     pos = torch.arange(cap, dtype=torch.int32, device=shards.device)
-    valid = pos[None, :] < counts[:, None]
+    valid = pos < counts[..., None]
     pads = valid & (shards == hi_sentinel(shards.dtype))
-    stripped = pads.sum(dim=1, dtype=torch.int32)
+    stripped = pads.sum(dim=-1, dtype=torch.int32)
     counts = counts - stripped
     if n_restore is None:
         return counts
-    keep = torch.clamp(stripped.sum(dtype=torch.int32) - n_pad, min=0)
-    keep = torch.minimum(keep, n_restore)
-    before = torch.cumsum(stripped, 0, dtype=torch.int32) - stripped
+    keep = torch.clamp(stripped.sum(dim=-1, dtype=torch.int32) - n_pad,
+                       min=0)
+    keep = torch.minimum(keep, n_restore)[..., None]
+    before = torch.cumsum(stripped, -1, dtype=torch.int32) - stripped
     restored = torch.clamp(torch.maximum(keep - before,
                                          torch.zeros_like(before)),
                            max=stripped)
@@ -69,41 +76,55 @@ def default_uniform(p: int, n_local: int, seed: int, device):
     return lambda j: torch.rand((p, n_local), generator=gen, device=device)
 
 
-def run(sort_fn, x: torch.Tensor, *, p: int, seed: int = 0,
-        n_real: int | None = None, local_sort_fn=None, uniform=None):
-    """Run a shard-level sort over p emulated shards; returns the raw
-    6-tuple (shards (p, cap), counts (p,), keys, ranks, overflow, stats).
+def run_batched(sort_fn, xs: torch.Tensor, *, p: int, seed: int = 0,
+                n_real: int | None = None, local_sort_fn=None, uniform=None):
+    """Run B independent shard-level sorts over p emulated shards in one
+    pipeline. xs is (B, n): B equal-length requests.
 
-    `n_real` (default len(x)) is the real key count for the p == 1 path,
-    which sorts the whole array with `local_sort_fn` (rows -> rows) and
-    no collectives. `uniform` (round j -> (p, n_local) float32 array)
-    overrides the seeded draws; tests inject the reference's own.
+    `sort_fn(rows, comm, uniform)` gets the (p, B, n_local) shard rows and
+    returns ((p, B, cap), (p, B), keys (B, p-1), ranks (B, p-1), overflow
+    (B,), stats): a `Partitioner.sharded_batched`. Returns the raw batched
+    tuple (shards (B, p, cap), counts (B, p), keys, ranks, overflow,
+    stats). `local_sort_fn` is the (B, n) -> (B, n) sort of the p == 1
+    short-circuit, whose counts are `n_real` (default n). `uniform` (round
+    j -> (p, n_local) float32 array) overrides the seeded draws, shared by
+    every request; tests inject the reference's own.
     """
-    dev = x.device
-    n_real = x.shape[0] if n_real is None else n_real
+    dev = xs.device
+    batch, n = xs.shape
+    n_real = n if n_real is None else n_real
     if p == 1:
         sort_rows = local_sort_fn or (lambda v: torch.sort(v, dim=-1).values)
-        out = sort_rows(x[None])
-        return (out, torch.full((1,), n_real, dtype=torch.int32, device=dev),
-                torch.zeros((0,), dtype=x.dtype, device=dev),
-                torch.zeros((0,), dtype=torch.int32, device=dev),
-                torch.zeros((), dtype=torch.int32, device=dev), None)
+        out = sort_rows(xs)
+        return (out[:, None, :],
+                torch.full((batch, 1), n_real, dtype=torch.int32, device=dev),
+                torch.zeros((batch, 0), dtype=xs.dtype, device=dev),
+                torch.zeros((batch, 0), dtype=torch.int32, device=dev),
+                torch.zeros((batch,), dtype=torch.int32, device=dev), None)
     n_sent_real = None
-    if x.shape[0] % p:   # count sentinel-valued data keys before padding
-        n_sent_real = (x == hi_sentinel(x.dtype)).sum(dtype=torch.int32)
-    x, n_pad = pad_to_shards(x, p)
-    n_local = x.shape[0] // p
-    if uniform is None:
-        draws = default_uniform(p, n_local, seed, dev)
-    else:
-        draws = lambda j: torch.as_tensor(uniform(j), dtype=torch.float32,
-                                          device=dev)
+    if n % p:   # per-request sentinel-valued data keys, counted pre-pad
+        n_sent_real = (xs == hi_sentinel(xs.dtype)).sum(dim=1,
+                                                        dtype=torch.int32)
+    xs, n_pad = pad_to_shards(xs, p)
+    n_local = xs.shape[1] // p
+    rows = xs.reshape(batch, p, n_local).transpose(0, 1).contiguous()
     out, counts, keys, ranks, ovf, stats = sort_fn(
-        x.reshape(p, n_local), Comm(p), draws)
+        rows, Comm(p), _draws(uniform, p, n_local, seed, dev))
+    out = out.transpose(0, 1).contiguous()
+    counts = counts.transpose(0, 1).contiguous()
     if n_pad:   # our sentinel pads may have been counted as keys
         counts = strip_sentinel_counts(out, counts, n_pad=n_pad,
                                        n_restore=n_sent_real)
     return out, counts, keys, ranks, ovf, stats
+
+
+def _draws(uniform, p: int, n_local: int, seed: int, device):
+    """The round -> (p, n_local) draws: the seeded generator, or the
+    injected source moved onto the device."""
+    if uniform is None:
+        return default_uniform(p, n_local, seed, device)
+    return lambda j: torch.as_tensor(uniform(j), dtype=torch.float32,
+                                     device=device)
 
 
 def masked_concat(shards: torch.Tensor, counts: torch.Tensor) -> np.ndarray:

@@ -3,9 +3,10 @@
 Counterpart of `repro.sort.partitioners`. Sample sort, AMS and HSS share
 one three-phase skeleton — local sort, splitter determination, exchange —
 and differ only in how the p-1 splitters are found. A `Partitioner`
-implements `splitters`; `sharded` runs the skeleton over the (p, n_local)
-shard rows. The port registers "hss"; the baselines follow with ROADMAP
-queue 1 item 8.
+implements `splitters_batched`; `sharded_batched` runs the skeleton over
+the batched engine's (p, B, n_local) rows with one collective per phase
+whatever B is (an unbatched sort is B = 1). The port registers "hss"; the
+baselines follow with ROADMAP queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -14,8 +15,9 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.exchange import exchange
-from repro_torch.core.splitters import Uniform, hss_splitters
+from repro_torch.core.exchange import exchange_batched
+from repro_torch.core.splitters import (
+    SplitterStats, Uniform, hss_splitters_batched)
 from repro_torch.kernels import dispatch
 from repro_torch.parallel.comm import Comm
 from repro_torch.sort.spec import SortSpec
@@ -31,24 +33,38 @@ class ShardCtx:
     initial_probes: Any = None
 
 
+def null_stats_batched(batch: int, n_satisfied=None,
+                       device=None) -> SplitterStats:
+    """Placeholder stats for partitioners without per-round diagnostics:
+    per-round fields (1, B), rounds_used (B,) ones."""
+    z = torch.zeros((1, batch), dtype=torch.int32, device=device)
+    sat = (z if n_satisfied is None else torch.as_tensor(
+        n_satisfied, dtype=torch.int32, device=device).reshape(1, batch))
+    return SplitterStats(gamma_size=z, sample_count=z, overflow=z,
+                         n_satisfied=sat,
+                         rounds_used=torch.ones((batch,), dtype=torch.int32,
+                                                device=device))
+
+
 class Partitioner:
-    """Base strategy. Subclasses implement `splitters`."""
+    """Base strategy. Subclasses implement `splitters_batched`."""
 
     name: str = "?"
 
-    def splitters(self, local_sorted: torch.Tensor, ctx: ShardCtx):
-        """-> (splitter_keys (p-1,), splitter_ranks (p-1,), overflow,
-        stats)."""
+    def splitters_batched(self, local_sorted: torch.Tensor, ctx: ShardCtx):
+        """(p, B, n_local) sorted rows -> ((B, p-1) keys, (B, p-1) ranks,
+        (B,) overflow, batched stats). Collectives are batch-fused: one
+        call per phase, not per request."""
         raise NotImplementedError
 
-    def sharded(self, local: torch.Tensor, ctx: ShardCtx):
-        """Full shard-level sort of (p, n_local) rows: local sort ->
-        splitters -> exchange. Returns (out, n_valid, keys, ranks,
-        overflow, stats)."""
-        local_sorted = dispatch.local_sort(local,
-                                           policy=ctx.spec.kernel_policy)
-        keys, ranks, s_ovf, stats = self.splitters(local_sorted, ctx)
-        out, n_valid, e_ovf = exchange(
+    def sharded_batched(self, local: torch.Tensor, ctx: ShardCtx):
+        """Full shard-level sort of (p, B, n_local) rows: local sort ->
+        splitters -> exchange; B = 1 is the unbatched sort. Returns ((p, B,
+        cap), (p, B), keys, ranks, overflow (B,), stats)."""
+        local_sorted = dispatch.local_sort(
+            local, policy=ctx.spec.kernel_policy)
+        keys, ranks, s_ovf, stats = self.splitters_batched(local_sorted, ctx)
+        out, n_valid, e_ovf = exchange_batched(
             local_sorted, keys, comm=ctx.comm, cfg=ctx.spec.exchange_config(),
             eps=ctx.spec.eps)
         return out, n_valid, keys, ranks, s_ovf + e_ovf, stats
@@ -82,9 +98,10 @@ def available_algorithms() -> tuple[str, ...]:
 class HSSPartitioner(Partitioner):
     """Histogram Sort with Sampling (the paper's algorithm, Section 4)."""
 
-    def splitters(self, local_sorted, ctx):
-        keys, ranks, stats = hss_splitters(
+    def splitters_batched(self, local_sorted, ctx):
+        keys, ranks, stats = hss_splitters_batched(
             local_sorted, comm=ctx.comm, cfg=ctx.spec.hss_config(),
             uniform=ctx.uniform, initial_probes=ctx.initial_probes)
         return (keys, ranks,
-                torch.zeros((), dtype=torch.int32, device=keys.device), stats)
+                torch.zeros((keys.shape[0],), dtype=torch.int32,
+                            device=keys.device), stats)

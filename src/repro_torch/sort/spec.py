@@ -28,7 +28,8 @@ class SortSpec:
       algorithm      "hss" (the other partitioners: ROADMAP queue 1 item 8).
       eps            load-balance slack: each shard <= (1+eps) N/p keys.
       rounds, sample_per_shard, adaptive   forwarded to HSSConfig.
-      exchange       "dense" (the only strategy ported so far).
+      exchange       "dense" or "allgather" (dense_spill and ragged: ROADMAP
+                     queue 1 item 8).
       pair_factor    dense: per-(src, dst) capacity multiplier.
       out_slack      output-buffer slack on the (1+eps) capacity.
       on_overflow    "raise": `sort()` reports the overflow counter for the
@@ -37,6 +38,8 @@ class SortSpec:
       capacity_scale uniform multiplier on every static buffer.
       shards         p, the number of emulated shards.
       device         where the sort runs: "cuda" (default) or "cpu".
+      batch          route `sort()` through the batched engine: a (B, n)
+                     array or a list of 1-D arrays (see `sort_batched`).
       stable, tag    duplicate tagging (paper Sec. 6.3): stable=True or
                      tag=True always tags, tag=False never does, tag=None
                      tags when duplicates are detected and the packing fits.
@@ -58,6 +61,7 @@ class SortSpec:
     capacity_scale: float = 1.0
     shards: int = 8
     device: str = "cuda"
+    batch: bool = False
     stable: bool = False
     tag: bool | None = None
     kernel_policy: str = "auto"

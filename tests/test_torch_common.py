@@ -131,8 +131,7 @@ def test_comm_collectives_and_log(rng):
     p = 4
     comm = Comm(p)
     x = torch.from_numpy(rng.integers(0, 100, (p, 3, 2)).astype(np.int32))
-    np.testing.assert_array_equal(comm.all_gather(x).numpy(),
-                                  x.numpy().reshape(p * 3, 2))
+    np.testing.assert_array_equal(comm.all_gather(x).numpy(), x.numpy())
     s = comm.psum(x)
     assert s.dtype == torch.int32
     np.testing.assert_array_equal(s.numpy(), x.numpy().sum(0))
@@ -169,6 +168,10 @@ def test_port_imports_neither_jax_nor_repro():
     banned = ("jax", "jaxlib", "repro")
     files = _port_files()
     assert len(files) > 20
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"src/repro_torch/sort/grouping.py", "src/repro_torch/sort/api.py",
+            "src/repro_torch/core/exchange.py",
+            "src/repro_torch/core/splitters.py"} <= names
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -193,7 +196,9 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
 def test_unported_options_raise_not_implemented():
     x = np.arange(64, dtype=np.int32)
     with pytest.raises(NotImplementedError):
-        tsort.sort(x, tsort.SortSpec(device="cpu", exchange="allgather"))
+        tsort.sort(x, tsort.SortSpec(device="cpu", exchange="dense_spill"))
+    with pytest.raises(NotImplementedError):
+        tsort.sort(x, tsort.SortSpec(device="cpu", exchange="ragged"))
     with pytest.raises(NotImplementedError):
         tsort.sort(x, tsort.SortSpec(device="cpu", algorithm="ams"))
     with pytest.raises(NotImplementedError):

@@ -66,6 +66,81 @@ def test_cuda_probe_rank_count(card):
     assert torch.equal(got, thk.probe_ranks_plain(keys, probes))
 
 
+# ------------------------------------------------ batched row counts
+@pytest.mark.cuda
+def test_cuda_bitonic_sort_blocks_batched_rows(card):
+    """K1 as Pallas #2: 64 rows (B = 8 requests x p = 8 shards)."""
+    x = _card_keys((64, 1 << 14))
+    got = tbk.sort_blocks(x, 1024)
+    assert torch.equal(got, tbk.sort_blocks_plain(x, 1024))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg", [2048, tbk.SMEM_MAX_SEG])
+def test_cuda_merge_adjacent_batched_rows(card, seg):
+    """K2 with reverse = 1 as Pallas #4, over 64 rows."""
+    x = torch.sort(_card_keys((64, 1 << 15)).view(64, -1, seg // 2), dim=-1
+                   ).values.view(64, -1)
+    before = cuda.launches["bitonic_merge_smem.reverse"]
+    got = tbk.bitonic_merge_smem(x, seg, True)
+    assert torch.equal(got, tbk.bitonic_merge_plain(x, seg, True))
+    assert cuda.launches["bitonic_merge_smem.reverse"] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_merge_bitonic_blocks_batched_rows(card):
+    """K2 with no reverse (Pallas #8, an HBM pass's tail) over 64 rows."""
+    x = _card_keys((64, 1 << 15))
+    before = cuda.launches["bitonic_merge_smem.tail"]
+    got = tbk.bitonic_merge_smem(x, tbk.SMEM_MAX_SEG, False)
+    assert torch.equal(got, tbk.bitonic_merge_plain(x, tbk.SMEM_MAX_SEG,
+                                                    False))
+    assert cuda.launches["bitonic_merge_smem.tail"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,flip", [(1 << 15, True), (1 << 15, False),
+                                    (1 << 17, True), (1 << 17, False)])
+def test_cuda_strided_compare_exchange_batched_rows(card, n, flip):
+    """K3 (Pallas #7) over 64 rows at each row's largest distance, as the
+    batched local sort and post-exchange merges run it."""
+    x = _card_keys((64, n))
+    got = tmk.strided_compare_exchange(x, n // 2, flip)
+    assert torch.equal(got, tmk.strided_compare_exchange_plain(x, n // 2,
+                                                               flip))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,m", [(64, 25_003, 256), (70_000, 64, 8)])
+def test_cuda_probe_rank_count_batched_rows(card, rows, n, m):
+    """K4 as Pallas #6: a distinct probe row per key row; 70,000 rows is
+    past gridDim.y's 65,535, the launch limit K4 no longer has."""
+    keys = _card_keys((rows, n))
+    probes = torch.sort(_card_keys((rows, m), seed=1), dim=-1).values
+    got = thk.probe_rank_count(keys, probes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, thk.probe_ranks_plain(keys, probes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["dense", "allgather"])
+def test_cuda_sort_batched_matches_numpy_and_torch_policy(card, exchange):
+    from repro_torch.sort import SortSpec, sort_batched
+
+    rng = np.random.default_rng(1)
+    xs = rng.integers(0, 2 ** 31 - 1, (8, 8 * 32768 + 3)).astype(np.int32)
+    cuda.reset_launches()
+    out = sort_batched(xs, SortSpec(shards=8, exchange=exchange))
+    assert all(v > 0 for v in cuda.launches.values()), dict(cuda.launches)
+    assert int(out.overflow.max()) == 0
+    for b in range(8):
+        np.testing.assert_array_equal(out.gather(b), np.sort(xs[b]))
+    ref = sort_batched(xs, SortSpec(shards=8, exchange=exchange,
+                                    kernel_policy="torch"))
+    assert torch.equal(out.shards, ref.shards)
+    assert torch.equal(out.counts, ref.counts)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.float32])
 def test_cuda_sort_matches_numpy_and_torch_policy(card, dtype):

@@ -1,7 +1,7 @@
 """HSS splitters and the dense exchange against the reference, bit for bit.
 
 With the reference's own per-shard draws injected, the port's
-`hss_sort_sharded` (local sort -> `hss_splitters` -> `exchange_dense`)
+`hss_sort_sharded` (local sort -> `hss_splitters` -> dense `exchange`)
 must reproduce `repro.core.hss.hss_sort` exactly: shards, counts,
 splitter keys and ranks, overflow, and every SplitterStats field. The
 dense exchange is also held alone to the reference's, run in shard_map,
@@ -163,9 +163,8 @@ def test_exchange_dense_matches_reference(rng, case):
         keys = np.array([10, 20, 30], np.int32)   # everything to the last
     want = _ref_exchange(rows, keys, cfg, eps)
     comm = Comm(p)
-    got = tex.exchange_dense(torch.from_numpy(rows), torch.from_numpy(keys),
-                             comm=comm, cfg=port_exchange_config(cfg),
-                             eps=eps)
+    got = tex.exchange(torch.from_numpy(rows), torch.from_numpy(keys),
+                       comm=comm, cfg=port_exchange_config(cfg), eps=eps)
     for a, b, name in zip(got, want, ("out", "n_valid", "overflow")):
         assert_bits_equal(a, b, name)
     if case != "balanced":

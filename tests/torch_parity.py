@@ -12,8 +12,11 @@ process on the CPU and exchange only NumPy arrays:
     (:164) — as a round -> (p, n_local) float32 source the port takes;
   * `port_spec(ref_spec, p)`: a reference SortSpec mapped field by field
     onto the port's, on the CPU;
-  * `assert_bits_equal` / `assert_sort_outputs_equal`: zero-tolerance
-    comparisons (float arrays are compared as their bit patterns).
+  * `sort_batched_both(xs, p, ...)`: the reference's and the port's
+    `sort_batched` on the same (B, n) keys, the reference's draws injected;
+  * `assert_bits_equal` / `assert_sort_outputs_equal` /
+    `assert_batched_outputs_equal`: zero-tolerance comparisons (float
+    arrays are compared as their bit patterns).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 from jax.sharding import AxisType
 
+import repro.sort as rsort
 import repro_torch.sort as tsort
 from repro.core.common import HSSConfig
 from repro.core.exchange import ExchangeConfig
@@ -81,6 +85,34 @@ def port_spec(ref: RefSortSpec, p: int, **overrides) -> tsort.SortSpec:
     return tsort.SortSpec(**fields)
 
 
+def random_keys(dtype, shape, seed: int) -> np.ndarray:
+    """Full-range int32/uint32 keys (below the uint32 sentinel) or
+    standard-normal float32 keys."""
+    rng = np.random.default_rng(seed)
+    if dtype == np.float32:
+        return rng.standard_normal(shape).astype(np.float32)
+    if dtype == np.uint32:
+        return rng.integers(0, 2 ** 32 - 1, size=shape, dtype=np.uint32)
+    return rng.integers(-2 ** 31, 2 ** 31 - 1, size=shape, dtype=np.int32)
+
+
+def reference_draws(ref_spec: RefSortSpec, p: int, n: int):
+    """`reference_uniform` for a sort of n keys per request under
+    ref_spec."""
+    k = ref_spec.hss_config().resolved_rounds(p)
+    return reference_uniform(ref_spec.seed, p, -(-n // p), k)
+
+
+def sort_batched_both(xs, p: int, port_overrides=None, **spec_kw):
+    """(port, reference) BatchedSortOutputs of one (B, n) batch."""
+    ref_spec = RefSortSpec(mesh=auto_mesh(p), **spec_kw)
+    want = rsort.sort_batched(xs, ref_spec)
+    got = tsort.sort_batched(
+        xs, port_spec(ref_spec, p, **(port_overrides or {})),
+        uniform=reference_draws(ref_spec, p, xs.shape[1]))
+    return got, want
+
+
 def to_numpy(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu()
@@ -123,3 +155,21 @@ def assert_sort_outputs_equal(got, want):
                           "gather_indices")
     assert_stats_equal(got.stats, want.stats)
     assert_bits_equal(got.gather(), want.gather(), "gather")
+
+
+def assert_batched_outputs_equal(got, want):
+    """Every field of a port BatchedSortOutput against the reference's,
+    and every request's gather."""
+    assert got.batch == want.batch
+    for name in ("shards", "counts", "splitter_keys", "splitter_ranks",
+                 "overflow"):
+        assert_bits_equal(getattr(got, name), getattr(want, name), name)
+    assert (got.indices is None) == (want.indices is None)
+    if want.indices is not None:
+        assert_bits_equal(got.indices, want.indices, "indices")
+    assert_stats_equal(got.stats, want.stats)
+    for b in range(want.batch):
+        assert_bits_equal(got.gather(b), want.gather(b), f"gather({b})")
+        if want.indices is not None:
+            assert_bits_equal(got.gather_indices(b), want.gather_indices(b),
+                              f"gather_indices({b})")
