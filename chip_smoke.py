@@ -8,40 +8,45 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card: `nvidia-smi --query-gpu=name,power.limit` of device 0;
   2. build: compiles src/repro_torch/kernels/csrc/sort_kernels.cu with nvcc
      (the kernels are built from the checkout's sources, nothing else);
-  3. kernels: each hand-written kernel (K1-K4) against its plain PyTorch
-     version on the card, exactly (torch.equal), at the shapes each main
-     path gives it — the sort's (8, 2^21) shard rows and the batched
-     sort's 64 = B*p rows of 2^18 (K4: keys (64, 250,000) x a distinct
-     probe row each, and 70,000 rows past gridDim.y's 65,535; K3 also on
-     the batched merges' 64 rows of 2^20 and 2^21 keys) — then timed by
-     CUDA events beside its plain version, its bound and, where one
-     PyTorch call computes the same function, that call (`library_ms`, a
-     yardstick only); one row per Pallas site and path (#7 and #8 run on
-     both paths, so they have a row for each);
+  3. kernels: each hand-written kernel (K1-K3, K4s, K4) against its
+     plain PyTorch version on the card, exactly (torch.equal), at the
+     shapes each main path gives it — the sort's (8, 2^21) shard rows and
+     the batched sort's 64 = B*p rows of 2^18 (K4s and K4: sorted keys
+     (8, 2,000,000) x 256 probes and (64, 250,000) x a distinct probe row
+     each, and 70,000 rows past gridDim.y's 65,535, K4s also against K4;
+     K3 also on the batched merges' 64 rows of 2^20 and 2^21 keys) — then
+     timed by CUDA events beside its plain version, its bound, the floor
+     of an empty launch and, where one PyTorch call computes the same
+     function, that call (`library_ms`, a yardstick only); one row per
+     Pallas site, path and kernel (#7 and #8 run on both paths, so they
+     have a row for each; #5 and #6 have a row for K4s, the main paths'
+     search over sorted rows, and one for the counting K4, which only
+     `assume_sorted=False` reaches and no main path launches);
   4. slice 1: `repro_torch.sort.sort` with 8 shards, eps 0.05 and the
      default "auto" policy on WEAK_SCALING (16,000,000 UNIF int32 keys,
      repro/configs/paper_sort.py:18 at p = 8), 16,000,000 standard-normal
      float32 keys, and 16,000,003 uint32 keys (ragged n). Each must equal
      np.sort of its input with overflow 0 and max(counts) <= (1+eps)N/p + 1,
-     must have launched every kernel (launch counts set to 0 just before
-     the call and read just after), and must give the same shards and
-     counts as the same call under kernel_policy="torch";
+     must have launched every kernel of the path and not the counting
+     K4 (launch counts set to 0 just before the call and read just
+     after), and must give the same shards and counts as the same call
+     under kernel_policy="torch";
   5. slice 2: `repro_torch.sort.sort_batched` on the serving engine's batch
      (B = 8 requests, serve/service.py:118, of 2,000,000 UNIF int32 keys,
      seeds 0-7, p = 8, eps 0.05, "auto"), once per exchange (dense,
      allgather): per request gather(b) == np.sort, overflow 0 and
-     max(counts[b]) <= (1+eps)n/p + 1; every kernel launched; the torch
-     policy gives identical shards and counts; with tag=False, row b
-     equals sort() of row b alone. Then, dense only: (8, 2,000,000)
-     standard-normal float32, (8, 2,000,003) uint32, and a list of five
-     2,000,000-key and three 2,000,003-key requests (two length buckets,
-     results in input order);
+     max(counts[b]) <= (1+eps)n/p + 1; every kernel of the path launched
+     and the counting K4 not; the torch policy gives identical shards
+     and counts; with tag=False, row b equals sort() of row b alone.
+     Then, dense only: (8, 2,000,000) standard-normal float32, (8,
+     2,000,003) uint32, and a list of five 2,000,000-key and three
+     2,000,003-key requests (two length buckets, results in input order);
   6. times: the warm end-to-end sort of the 16M int32 keys (median of 5,
      host clock around torch.cuda.synchronize()) under both policies, and
-     a torch.profiler breakdown of one warm sort; the warm batched sort
-     (dense, median of 5) beside the same 8 requests as 8 sequential warm
-     sort() calls, under both policies, and a profile of one warm batched
-     sort.
+     a torch.profiler breakdown of one warm sort (the 15 largest names and
+     every kernel of the port); the warm batched sort (dense, median of 5)
+     beside the same 8 requests as 8 sequential warm sort() calls, under
+     both policies, and a profile of one warm batched sort.
 
 Every measurement line is one JSON object carrying the card's name and
 power limit. The line before the last is the card line; the kernels line
@@ -76,6 +81,18 @@ B_ROWS = B * P               # the batched path's kernel rows
 B_LOCAL = N_REQ // P         # 250,000 keys per (request, shard) row
 B_ROW = 1 << 18              # its power-of-two local-sort row
 PALLAS = "src/repro/kernels"
+# The short kernels (K4s, its library call, the empty launch) are timed
+# over this many calls, so that the launch queue's start-up is not in the
+# number; the others over 20.
+SHORT_REPS = 200
+# A sleep kernel queued before the timed calls holds the device while the
+# host enqueues them (about 20 ms at the H100's clock), so a kernel shorter
+# than its host-side call is timed back to back on the device.
+HEAD_START_CYCLES = 40_000_000
+# The CUDA functions of csrc/sort_kernels.cu, as the profiler names them.
+PORT_KERNELS = ("bitonic_sort_blocks_kernel", "bitonic_merge_smem_kernel",
+                "strided_ce_kernel", "strided_ce_vec4_kernel",
+                "probe_rank_count_kernel", "probe_rank_search_kernel")
 
 
 def fail(msg: str):
@@ -97,18 +114,57 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call by CUDA events over `reps` calls."""
+    """Mean milliseconds per call by CUDA events over `reps` calls, the
+    device given a head start (HEAD_START_CYCLES) before the first."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HEAD_START_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds per call on the host clock, each call waited for:
+    what a caller that needs the result at once pays."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def empty_launch_line(torch, card) -> float:
+    """The floor of a launch: a kernel that does nothing, started through
+    the same ctypes route as the port's kernels; returns its ms."""
+    from repro_torch.kernels import cuda
+
+    lib = cuda.library()
+
+    def launch():
+        err = lib.empty_launch(torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"empty_launch failed: error {err}")
+
+    ms = time_ms(torch, launch, reps=SHORT_REPS)
+    emit({"measure": "empty_launch", "ms": ms,
+          "host_ms": host_ms(torch, launch, reps=SHORT_REPS), "card": card})
+    return ms
+
+
+def search_bound(rows: int, n: int, m: int):
+    """K4s's bound: each probe read once, each rank written once, and the
+    ceil(log2(n + 1)) keys a comparison search reads per probe."""
+    depth = n.bit_length()
+    return 4 * rows * m * (2 + depth), rows * m * depth
 
 
 def bound(bytes_moved: float, int_ops: float):
@@ -119,9 +175,10 @@ def bound(bytes_moved: float, int_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase(torch, card):
-    """One row per Pallas site, in site order; `launches` is filled in
-    from the main paths' runs later."""
+def kernel_phase(torch, card, floor_ms):
+    """One row per Pallas site and kernel, in site order; `launches` is
+    filled in from the main paths' runs later."""
+    from repro_torch.kernels import cuda
     from repro_torch.kernels.bitonic_sort import kernel as BK
     from repro_torch.kernels.histogram import kernel as HK
     from repro_torch.kernels.merge import kernel as MK
@@ -147,17 +204,37 @@ def kernel_phase(torch, card):
     rows = []
 
     def row(site, name, kernel, counter, path, replaces, err, fn, plain,
-            library, bytes_moved, ops, **extra):
-        ms = time_ms(torch, fn, reps=20)
+            library, bytes_moved, ops, reps=20, **extra):
+        ms = time_ms(torch, fn, reps=reps)
         plain_ms = time_ms(torch, plain, reps=3, warmup=1)
-        lib_ms = None if library is None else time_ms(torch, library, reps=20)
+        lib_ms = (None if library is None
+                  else time_ms(torch, library, reps=reps))
         bound_ms, bound_by = bound(bytes_moved, ops)
         rows.append({"site": site, "name": name, "kernel": kernel,
                      "counter": counter, "path": path, "route": "cuda",
                      "source": SOURCE, "replaces": replaces, "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib_ms, **extra})
+                     "library_ms": lib_ms,
+                     "main_path": counter not in cuda.OFF_MAIN_PATH,
+                     **extra})
+
+    def search_row(site, path, replaces, err, k, q, **extra):
+        """K4s's row on sorted keys k and probes q, with the floor of an
+        empty launch and both calls' host-clock times beside it."""
+        row(site, "probe_rank_search" + ("[batched]" if site == 6 else ""),
+            "K4s", "probe_rank_search", path, replaces, err,
+            lambda: HK.probe_rank_search(k, q),
+            lambda: HK.probe_ranks_search_plain(k, q),
+            lambda: torch.searchsorted(k, q, side="left"),
+            *search_bound(k.shape[0], k.shape[1], q.shape[1]),
+            reps=SHORT_REPS, floor_ms=floor_ms,
+            host_ms=host_ms(torch, lambda: HK.probe_rank_search(k, q),
+                            reps=SHORT_REPS),
+            library_host_ms=host_ms(
+                torch, lambda: torch.searchsorted(k, q, side="left"),
+                reps=SHORT_REPS),
+            **extra)
 
     log_b = 10                      # block 1024
     seg = BK.SMEM_MAX_SEG
@@ -208,7 +285,16 @@ def kernel_phase(torch, card):
         lambda: MK.strided_compare_exchange_plain(x, d, True),
         None, 2 * 4 * n, n)
 
-    # #5 K4: one HSS round's histogram, 8 x 2,000,000 sorted keys x 256
+    # #5 K4s: one HSS round's histogram, 8 x 2,000,000 sorted keys x 256,
+    # against its plain version and the counting K4
+    got = HK.probe_rank_search(sorted_rows, probes)
+    err = max(check("probe_rank_search", got,
+                    HK.probe_ranks_search_plain(sorted_rows, probes)),
+              check("probe_rank_search[vs K4]", got,
+                    HK.probe_rank_count(sorted_rows, probes)))
+    search_row(5, "sort", f"{PALLAS}/histogram/kernel.py:35", err,
+               sorted_rows, probes)
+    # #5 K4, the count (off the main path), on the same rows
     err = check("probe_rank_count", HK.probe_rank_count(sorted_rows, probes),
                 HK.probe_ranks_plain(sorted_rows, probes))
     row(5, "probe_rank_count", "K4", "probe_rank_count", "sort",
@@ -217,7 +303,8 @@ def kernel_phase(torch, card):
         lambda: HK.probe_ranks_plain(sorted_rows, probes),
         lambda: torch.searchsorted(sorted_rows, probes, side="left"),
         4 * (sorted_rows.numel() + 2 * probes.numel()),
-        2 * sorted_rows.numel() * PROBES)
+        2 * sorted_rows.numel() * PROBES,
+        note="off the main path: assume_sorted=False")
     del x, paired, sorted_rows, probes
 
     # -- slice 2 shapes: the batched sort's B*p = 64 rows
@@ -301,13 +388,24 @@ def kernel_phase(torch, card):
                         [B_ROWS, 1 << 21]])
     del pb, xm
 
-    # #6 K4: keys (64, 250,000), a distinct sorted probe row of 256 each
+    # #6 K4s and K4: keys (64, 250,000), a distinct sorted probe row of
+    # 256 each; and 70,000 rows, past gridDim.y's 65,535
     kb = torch.sort(keys((B_ROWS, B_LOCAL)), dim=-1).values
     qb = torch.sort(keys((B_ROWS, PROBES)), dim=-1).values
+    kr = torch.sort(keys((70_000, 64)), dim=-1).values
+    qr = torch.sort(keys((70_000, 8)), dim=-1).values
+    err = 0
+    for what, k, q in (("batched", kb, qb), ("70,000 rows", kr, qr)):
+        got = HK.probe_rank_search(k, q)
+        err = max(err, check(f"probe_rank_search[{what}]", got,
+                             HK.probe_ranks_search_plain(k, q)),
+                  check(f"probe_rank_search[{what}, vs K4]", got,
+                        HK.probe_rank_count(k, q)))
+    search_row(6, "sort_batched", f"{PALLAS}/histogram/kernel.py:64", err,
+               kb, qb, rows_limit_checked=70_000)
     err = check("probe_rank_count[batched]", HK.probe_rank_count(kb, qb),
                 HK.probe_ranks_plain(kb, qb))
-    # the row-limit repair: 70,000 rows, past gridDim.y's 65,535
-    kr, qr = keys((70_000, 64)), torch.sort(keys((70_000, 8)), dim=-1).values
+    kr = keys((70_000, 64))         # the count takes keys in any order
     err = max(err, check("probe_rank_count[70,000 rows]",
                          HK.probe_rank_count(kr, qr),
                          HK.probe_ranks_plain(kr, qr)))
@@ -317,7 +415,8 @@ def kernel_phase(torch, card):
         lambda: HK.probe_ranks_plain(kb, qb),
         lambda: torch.searchsorted(kb, qb, side="left"),
         4 * (kb.numel() + 2 * qb.numel()), 2 * kb.numel() * PROBES,
-        rows_limit_checked=70_000)
+        rows_limit_checked=70_000,
+        note="off the main path: assume_sorted=False")
     rows.sort(key=lambda r: r["site"])
     return rows
 
@@ -343,6 +442,19 @@ def cascade_line(torch, card):
               "library_ms": time_ms(torch, lambda: torch.sort(x, dim=-1),
                                     reps=10),
               "card": card})
+
+
+def check_path_launches(name: str, launches: dict):
+    """Every kernel of the main path launched; the counting K4 did not."""
+    from repro_torch.kernels import cuda
+
+    missing = [k for k, v in launches.items()
+               if v == 0 and k not in cuda.OFF_MAIN_PATH]
+    if missing:
+        fail(f"{name}: kernels never launched: {missing}")
+    stray = [k for k in cuda.OFF_MAIN_PATH if launches.get(k)]
+    if stray:
+        fail(f"{name}: off-path kernels launched: {stray}")
 
 
 def slice_inputs(np):
@@ -372,9 +484,7 @@ def slice_phase(torch, np, card):
         launches = dict(cuda.launches)
         if main_launches is None:
             main_launches = launches
-        missing = [k for k, v in launches.items() if v == 0]
-        if missing:
-            fail(f"{name}: kernels never launched: {missing}")
+        check_path_launches(name, launches)
         got = out.gather()
         if not np.array_equal(got, np.sort(x)):
             fail(f"{name}: gather() differs from np.sort")
@@ -443,10 +553,7 @@ def batched_phase(torch, np, card):
         launches = dict(cuda.launches)
         if main_launches is None:
             main_launches = launches
-        missing = [k for k, v in launches.items() if v == 0]
-        if missing:
-            fail(f"sort_batched[{exchange}]: kernels never launched: "
-                 f"{missing}")
+        check_path_launches(f"sort_batched[{exchange}]", launches)
         max_count, limit = check_batched(np, f"sort_batched[{exchange}]",
                                          out, xs, sorted_rows)
         ref = sort_batched(xs, dataclasses.replace(spec,
@@ -487,8 +594,7 @@ def batched_phase(torch, np, card):
         out = sort_batched(ys, spec)
         torch.cuda.synchronize()
         launches = dict(cuda.launches)
-        if not all(launches.values()):
-            fail(f"{name}: kernels never launched: {launches}")
+        check_path_launches(name, launches)
         max_count, limit = check_batched(np, name, out, ys)
         emit({"measure": "slice_batched", "input": name, "exchange": "dense",
               "batch": B, "n": int(ys.shape[1]), "max_count": max_count,
@@ -512,6 +618,30 @@ def batched_phase(torch, np, card):
     return main_launches
 
 
+def profile_line(torch, fn, card, **fields):
+    """One warm call of `fn` under torch.profiler: device time by name, the
+    15 largest, and every one of the port's kernels however small."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+
+    def entry(e):
+        return {"name": e.key[:80], "device_us": e.self_device_time_total,
+                "calls": e.count}
+
+    emit({**fields,
+          "device_us_total": sum(e.self_device_time_total for e in events),
+          "top": [entry(e) for e in events[:15]],
+          "port_kernels": [entry(e) for e in events
+                           if any(k in e.key for k in PORT_KERNELS)],
+          "card": card})
+
+
 def timing_phase(torch, np, card):
     from repro_torch.data.distributions import make_distribution
     from repro_torch.sort import SortSpec, sort
@@ -532,20 +662,8 @@ def timing_phase(torch, np, card):
               "runs_ms": times, "card": card})
 
     spec = SortSpec(shards=P, eps=EPS)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        sort(x, spec)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    total = sum(e.self_device_time_total for e in events)
-    emit({"measure": "sort_profile", "input": "weak_scaling_int32",
-          "device_us_total": total,
-          "top": [{"name": e.key[:80], "device_us": e.self_device_time_total,
-                   "calls": e.count} for e in events[:15]],
-          "card": card})
+    profile_line(torch, lambda: sort(x, spec), card, measure="sort_profile",
+                 input="weak_scaling_int32")
 
 
 def batched_timing_phase(torch, np, card):
@@ -575,20 +693,9 @@ def batched_timing_phase(torch, np, card):
               "card": card})
 
     spec = SortSpec(shards=P, eps=EPS)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        sort_batched(xs, spec)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    emit({"measure": "sort_batched_profile", "input": "unif_int32",
-          "exchange": "dense",
-          "device_us_total": sum(e.self_device_time_total for e in events),
-          "top": [{"name": e.key[:80], "device_us": e.self_device_time_total,
-                   "calls": e.count} for e in events[:15]],
-          "card": card})
+    profile_line(torch, lambda: sort_batched(xs, spec), card,
+                 measure="sort_batched_profile", input="unif_int32",
+                 exchange="dense")
 
 
 def main() -> int:
@@ -620,7 +727,7 @@ def main() -> int:
     emit({"measure": "build", "seconds": time.perf_counter() - t0,
           "library": str(path), "card": card})
 
-    rows = kernel_phase(torch, card)
+    rows = kernel_phase(torch, card, empty_launch_line(torch, card))
     cascade_line(torch, card)
     paths = {"sort": slice_phase(torch, np, card),
              "sort_batched": batched_phase(torch, np, card)}

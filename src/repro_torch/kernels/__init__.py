@@ -4,7 +4,8 @@ bitonic_sort  K1 block sort and K2 shared-memory bitonic merge; the local
               sort of every row (shards, sample buffers, gathered probes).
 merge         K3 strided compare-exchange: the HBM pass of the merge
               cascade, for pairs too long for shared memory.
-histogram     K4 probe-rank count: the per-round histogram.
+histogram     the per-round histogram: K4s probe-rank search over sorted
+              rows (the main paths), K4 probe-rank count in any order.
 
 Every kernel takes rows, so the reference's batched Pallas kernels (#2, #4,
 #6) are the same kernels over the batched engine's B*p rows.

@@ -1,14 +1,19 @@
 // Hand-written Hopper (sm_90a) kernels for the HSS sort path.
 //
-// Four kernels replace the eight Pallas call sites of the sort and the
+// Five kernels replace the eight Pallas call sites of the sort and the
 // batched sort (a batched Pallas kernel is its unbatched one per row, and
 // every kernel here already takes rows):
 //
-//   K1 bitonic_sort_blocks      repro/kernels/bitonic_sort/kernel.py:83, :98
-//   K2 bitonic_merge_smem       repro/kernels/bitonic_sort/kernel.py:117, :132
-//                               repro/kernels/merge/kernel.py:71
-//   K3 strided_compare_exchange repro/kernels/merge/kernel.py:49
-//   K4 probe_rank_count         repro/kernels/histogram/kernel.py:35, :64
+//   K1  bitonic_sort_blocks      repro/kernels/bitonic_sort/kernel.py:83, :98
+//   K2  bitonic_merge_smem       repro/kernels/bitonic_sort/kernel.py:117,
+//                                :132; repro/kernels/merge/kernel.py:71
+//   K3  strided_compare_exchange repro/kernels/merge/kernel.py:49
+//   K4s probe_rank_search        repro/kernels/histogram/kernel.py:35, :64
+//                                over sorted rows (every main-path caller)
+//   K4  probe_rank_count         the same sites, keys in any order
+//
+// empty_launch starts a kernel that does nothing: the floor a timed launch
+// cannot go below, measured through the same ctypes route.
 //
 // All keys are int32 (the core only ever sees encoded int32). Arrays are
 // flat: a (rows, n) tensor is rows*n keys, and every kernel keeps its work
@@ -31,6 +36,8 @@ namespace {
 constexpr int kMaxSmemKeys = 16384;     // K2 segment ceiling: 64 KB of keys
 constexpr int kProbeTile = 4096;        // K4 keys per block: 16 KB
 constexpr int kProbeThreads = 256;
+constexpr int kSearchThreads = 256;     // K4s: 8 warps, one probe each
+constexpr int kSearchWarps = kSearchThreads / 32;
 
 // One comparator of the bitonic network over shared memory: pair (i, i+d)
 // with i = 2t - (t mod d), ordered ascending iff asc.
@@ -140,10 +147,12 @@ __global__ void strided_ce_vec4_kernel(const int4* __restrict__ in,
   }
 }
 
-// K4. rank[r, m] = #{keys[r, :] < probes[r, m]}. One thread block per
-// (row, tile of kProbeTile keys): the tile is staged in shared memory
-// (past the row's end it reads as INT_MAX, which is below no probe), and
-// each thread counts its probes over the whole tile with broadcast reads.
+// K4. rank[r, m] = #{keys[r, :] < probes[r, m]} with the keys in any order
+// (no main-path caller needs that: they rank sorted rows with K4s, below).
+// One thread block per (row, tile of kProbeTile keys): the tile is staged
+// in shared memory (past the row's end it reads as INT_MAX, which is below
+// no probe), and each thread counts its probes over the whole tile with
+// broadcast reads.
 // Blocks run in no order, so each adds its partial counts into the zeroed
 // output with atomicAdd: integer atomics are exact in any order. That also
 // stands in for the batched Pallas kernel's per-row accumulator reset
@@ -178,6 +187,57 @@ __global__ void probe_rank_count_kernel(const int* __restrict__ keys,
     if (cnt) atomicAdd(orow + pm, cnt);
   }
 }
+
+// K4s. rank[r, m] = #{keys[r, :] < probes[r, m]} over rows sorted
+// ascending: the same function as K4, and so the same Pallas sites
+// (histogram/kernel.py:35, :64), on the inputs every main-path caller
+// hands them (the splitters rank over locally sorted shards). On sorted
+// rows the work is a search, O(M log n), not K4's O(n*M) count: for the
+// main path's 8 x 2,000,000 keys and M = 256 the bytes and operations any
+// comparison search needs are 0.2 MB and 43 K compares, far below one
+// launch. What bounds it is latency: a binary search per probe (as
+// torch.searchsorted runs it) is ~21 dependent loads from device memory.
+//
+// The design cuts the chain: one warp per (row, probe) searches 32-ary.
+// [lo, lo + w] holds the rank. Each level lane l reads the pivot
+// keys[lo + (l+1)s - 1], s = ceil(w/32) (a pivot past the interval reads
+// as not < probe); the row is sorted, so the lanes whose pivot is < probe
+// are a prefix, and one ballot counts them: lo += c*s, w = min(s, what is
+// left). At w <= 32 one coalesced read of keys[lo + l] and a ballot give
+// lo + c. That is ceil(log32 n) dependent round trips, all 32 loads of a
+// level in flight at once: 5 for 2,000,000 keys, 4 for 250,000. A row's
+// first-level pivots are the same for all its probes, so after the first
+// warp they come from L2. The hi sentinel pads keys and probes alike:
+// INT_MAX < INT_MAX is false, the count the reference's padding gives.
+// No shared memory, no atomics: each warp writes its rank once, so the
+// output needs no zeroing. (row, probe) pairs are flattened into
+// blockIdx.x, as K4 flattens (row, tile), so no row limit applies.
+__global__ void probe_rank_search_kernel(const int* __restrict__ keys,
+                                         const int* __restrict__ probes,
+                                         int* __restrict__ out, int64_t n,
+                                         int m, int64_t pairs) {
+  const int lane = threadIdx.x & 31;
+  const int64_t pair =
+      static_cast<int64_t>(blockIdx.x) * kSearchWarps + (threadIdx.x >> 5);
+  if (pair >= pairs) return;            // a whole warp, so ballots stay full
+  const int* krow = keys + (pair / m) * n;
+  const int pr = probes[pair];
+  int64_t lo = 0;
+  int64_t w = n;
+  while (w > 32) {
+    const int64_t s = (w + 31) >> 5;
+    const int64_t off = (lane + 1) * s;
+    const bool lt = off <= w && krow[lo + off - 1] < pr;
+    const int64_t end = lo + w;
+    lo += __popc(__ballot_sync(0xffffffffu, lt)) * s;
+    w = s < end - lo ? s : end - lo;
+  }
+  const bool lt = lane < w && krow[lo + lane] < pr;
+  const int c = __popc(__ballot_sync(0xffffffffu, lt));
+  if (lane == 0) out[pair] = static_cast<int>(lo + c);
+}
+
+__global__ void empty_kernel() {}
 
 bool is_pow2(int64_t v) { return v > 0 && (v & (v - 1)) == 0; }
 
@@ -258,6 +318,26 @@ int probe_rank_count(const void* keys, const void* probes, void* out,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(keys), static_cast<const int*>(probes),
       static_cast<int*>(out), n, m, tiles);
+  return cudaGetLastError();
+}
+
+int probe_rank_search(const void* keys, const void* probes, void* out,
+                      long long rows, long long n, int m, void* stream) {
+  if (rows < 1 || n < 1 || n > INT_MAX || m < 1) return cudaErrorInvalidValue;
+  if (rows > static_cast<int64_t>(INT_MAX) * kSearchWarps / m)
+    return cudaErrorInvalidValue;        // more blocks than gridDim.x holds
+  const int64_t pairs = rows * m;
+  probe_rank_search_kernel<<<static_cast<unsigned>(
+                                 (pairs + kSearchWarps - 1) / kSearchWarps),
+                             kSearchThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(keys), static_cast<const int*>(probes),
+      static_cast<int*>(out), n, m, pairs);
+  return cudaGetLastError();
+}
+
+int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return cudaGetLastError();
 }
 

@@ -14,6 +14,10 @@ raises when it returns a CUDA error, and adds one to that kernel's count in
 the kernels. K2 serves two Pallas sites, so it is counted apart by role:
 `bitonic_merge_smem.reverse` (a pair merge, merge_adjacent) and
 `bitonic_merge_smem.tail` (an HBM pass's tail, merge_bitonic_blocks).
+K4 has two forms with a counter each: `probe_rank_search` over sorted rows
+(the main paths) and `probe_rank_count` over keys in any order.
+`empty_launch`, a kernel that does nothing, is there to time the floor of
+a launch and counts under no kernel.
 Wrappers validate device, dtype, shape and contiguity before they call it;
 a launch failure raises, it never falls back.
 """
@@ -42,12 +46,17 @@ SIGNATURES = {
     "bitonic_merge_smem": (_P, _P, _L, _I, _I, _P),
     "strided_compare_exchange": (_P, _P, _L, _L, _I, _P),
     "probe_rank_count": (_P, _P, _P, _L, _L, _I, _P),
+    "probe_rank_search": (_P, _P, _P, _L, _L, _I, _P),
+    "empty_launch": (_P,),
 }
 
 #: Launch counters: one per kernel, K2's split by role.
 COUNTERS = ("bitonic_sort_blocks", "bitonic_merge_smem.reverse",
             "bitonic_merge_smem.tail", "strided_compare_exchange",
-            "probe_rank_count")
+            "probe_rank_count", "probe_rank_search")
+#: Counters of kernels that neither main path launches: the counting K4
+#: serves only `assume_sorted=False`.
+OFF_MAIN_PATH = ("probe_rank_count",)
 
 #: Launches per counter since the last `reset_launches()`.
 launches: Counter = Counter()

@@ -72,9 +72,11 @@ def probe_ranks(keys: torch.Tensor, probes: torch.Tensor, *,
     request's probe row serves all its shards; (M,) serves every row) ->
     (..., M).
 
-    The kernel counts rather than searches, so it needs no sorted keys.
-    The torch path uses `searchsorted` when `assume_sorted` (every splitter
-    pipeline ranks over locally sorted shards) and sort + search otherwise.
+    `assume_sorted` says each row of keys is sorted ascending, as every
+    splitter pipeline's locally sorted shards are. The kernel route then
+    searches (K4s) and the torch route runs `searchsorted`; otherwise the
+    kernel route counts (K4, any key order) and the torch route sorts and
+    searches.
     """
     probes = probes.expand(keys.shape[:-1] + probes.shape[-1:])
     if probes.shape[-1] == 0:
@@ -85,7 +87,7 @@ def probe_ranks(keys: torch.Tensor, probes: torch.Tensor, *,
             return torch.searchsorted(keys.contiguous(), probes.contiguous(),
                                       side="left").to(torch.int32)
         return href.probe_ranks_ref(keys, probes)
-    return hops.probe_ranks(keys, probes)
+    return hops.probe_ranks(keys, probes, assume_sorted=assume_sorted)
 
 
 def merge_runs(runs: torch.Tensor, *, policy: str = "auto") -> torch.Tensor:

@@ -23,6 +23,15 @@ def card():
     return torch.device("cuda")
 
 
+def _assert_main_path_launches():
+    """Every kernel of the main paths launched; the counting K4, which
+    only `assume_sorted=False` reaches, did not."""
+    got = dict(cuda.launches)
+    assert all(got[k] > 0 for k in cuda.COUNTERS
+               if k not in cuda.OFF_MAIN_PATH), got
+    assert all(got[k] == 0 for k in cuda.OFF_MAIN_PATH), got
+
+
 def _card_keys(shape, seed=0):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -123,6 +132,41 @@ def test_cuda_probe_rank_count_batched_rows(card, rows, n, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,m", [(8, 100_003, 256), (64, 25_003, 256),
+                                      (70_000, 64, 8), (4, 1, 256),
+                                      (4, 31, 256), (4, 33, 256)])
+def test_cuda_probe_rank_search(card, rows, n, m):
+    """K4s over sorted rows equals its plain version and the counting K4:
+    the two main paths' row shapes (cut in length), 70,000 rows (no row
+    limit) and rows shorter than, just under and just over a warp."""
+    keys = torch.sort(_card_keys((rows, n)), dim=-1).values
+    probes = _card_keys((rows, m), seed=1)
+    probes[:, ::7] = keys[:, :1]            # probes equal to keys
+    before = cuda.launches["probe_rank_search"]
+    got = thk.probe_rank_search(keys, probes)
+    torch.cuda.synchronize()
+    assert cuda.launches["probe_rank_search"] == before + 1
+    assert torch.equal(got, thk.probe_ranks_search_plain(keys, probes))
+    assert torch.equal(got, thk.probe_rank_count(keys, probes))
+
+
+@pytest.mark.cuda
+def test_cuda_sort_batched_searches_not_counts(card):
+    """Under "kernel" the splitters rank sorted shards with K4s: one
+    sort_batched launches it and never the counting K4."""
+    from repro_torch.sort import SortSpec, sort_batched
+
+    xs = np.random.default_rng(2).integers(
+        0, 2 ** 31 - 1, (4, 8 * 4096)).astype(np.int32)
+    cuda.reset_launches()
+    out = sort_batched(xs, SortSpec(shards=8, kernel_policy="kernel"))
+    assert cuda.launches["probe_rank_search"] > 0
+    assert cuda.launches["probe_rank_count"] == 0
+    for b in range(4):
+        np.testing.assert_array_equal(out.gather(b), np.sort(xs[b]))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("exchange", ["dense", "allgather"])
 def test_cuda_sort_batched_matches_numpy_and_torch_policy(card, exchange):
     from repro_torch.sort import SortSpec, sort_batched
@@ -131,7 +175,7 @@ def test_cuda_sort_batched_matches_numpy_and_torch_policy(card, exchange):
     xs = rng.integers(0, 2 ** 31 - 1, (8, 8 * 32768 + 3)).astype(np.int32)
     cuda.reset_launches()
     out = sort_batched(xs, SortSpec(shards=8, exchange=exchange))
-    assert all(v > 0 for v in cuda.launches.values()), dict(cuda.launches)
+    _assert_main_path_launches()
     assert int(out.overflow.max()) == 0
     for b in range(8):
         np.testing.assert_array_equal(out.gather(b), np.sort(xs[b]))
@@ -154,7 +198,7 @@ def test_cuda_sort_matches_numpy_and_torch_policy(card, dtype):
         x = rng.integers(0, 2 ** 31 - 1, n).astype(dtype)
     cuda.reset_launches()
     out = sort(x, SortSpec(shards=8))
-    assert all(v > 0 for v in cuda.launches.values()), dict(cuda.launches)
+    _assert_main_path_launches()
     assert int(out.overflow) == 0
     np.testing.assert_array_equal(out.gather(), np.sort(x))
     ref = sort(x, SortSpec(shards=8, kernel_policy="torch"))
