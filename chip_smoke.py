@@ -7,8 +7,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. the card: `nvidia-smi --query-gpu=name,power.limit` of device 0;
   2. build: compiles src/repro_torch/kernels/csrc/sort_kernels.cu with nvcc
-     (the kernels are built from the checkout's sources, nothing else);
-  3. kernels: each hand-written kernel (K1-K3, K4s, K4) against its
+     (the kernels are built from the checkout's sources, nothing else) and
+     prints ptxas's registers, stack and spills for each instantiation of
+     K2 (one per segment size), failing on a spill;
+  3. kernels: K2 at every power-of-two segment 2..16,384, both roles, on 5
+     rows (random, all INT_MAX, duplicates, INT_MIN among INT_MAX and
+     small keys, unsorted) against its plain version; then
+     each hand-written kernel (K1-K3, K4s, K4) against its
      plain PyTorch version on the card, exactly (torch.equal), at the
      shapes each main path gives it — the sort's (8, 2^21) shard rows and
      the batched sort's 64 = B*p rows of 2^18 (K4s and K4: sorted keys
@@ -56,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -91,8 +97,9 @@ SHORT_REPS = 200
 HEAD_START_CYCLES = 40_000_000
 # The CUDA functions of csrc/sort_kernels.cu, as the profiler names them.
 PORT_KERNELS = ("bitonic_sort_blocks_kernel", "bitonic_merge_smem_kernel",
-                "strided_ce_kernel", "strided_ce_vec4_kernel",
-                "probe_rank_count_kernel", "probe_rank_search_kernel")
+                "bitonic_merge_warp_kernel", "strided_ce_kernel",
+                "strided_ce_vec4_kernel", "probe_rank_count_kernel",
+                "probe_rank_search_kernel")
 
 
 def fail(msg: str):
@@ -175,6 +182,73 @@ def bound(bytes_moved: float, int_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+K2_ENTRY = re.compile(r"bitonic_merge_(smem|warp)_kernelILi(\d+)E")
+
+
+def ptxas_line(card):
+    """ptxas's registers, stack and spill bytes of every K2 instantiation,
+    from the build's `-Xptxas -v` report; fails on a missing size or a
+    spill."""
+    from repro_torch.kernels import cuda
+
+    found, current = {}, None
+    for line in cuda.ptxas_log().splitlines():
+        name = re.search(r"entry function '([^']+)'|Function properties "
+                         r"for (\S+)", line)
+        if name:
+            m = K2_ENTRY.search(name.group(1) or name.group(2))
+            current = None if m is None else int(m.group(2))
+            if current is not None:
+                found.setdefault(current, {"segment": current,
+                                           "kernel": m.group(1)})
+            continue
+        if current is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if frame:
+            found[current].update(zip(
+                ("stack_bytes", "spill_store_bytes", "spill_load_bytes"),
+                map(int, frame.groups())))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            found[current]["registers"] = int(regs.group(1))
+    entries = [found[k] for k in sorted(found)]
+    emit({"measure": "ptxas_k2", "instantiations": entries, "card": card})
+    if sorted(found) != [1 << j for j in range(1, 15)]:
+        fail(f"ptxas report lacks K2 sizes: found {sorted(found)}")
+    spilled = [e["segment"] for e in entries
+               if e.get("spill_store_bytes", 1) or e.get("spill_load_bytes", 1)]
+    if spilled:
+        fail(f"K2 spills registers at segments {spilled}")
+
+
+def k2_segment_checks(torch, BK, keys, check, card):
+    """K2 against its plain version at every power-of-two segment, both
+    roles, on an odd row count with the edge rows."""
+    rows, n = 5, 2 * BK.SMEM_MAX_SEG
+    i32 = torch.iinfo(torch.int32)
+    for j in range(1, 15):
+        sg = 1 << j
+        x = keys((rows, n))
+        x[1] = i32.max                              # all hi sentinel
+        x[2] = x[2] & 7                             # duplicates
+        pick = keys((n,)) & 3
+        x[3] = torch.where(pick == 0, i32.min,
+                           torch.where(pick == 1, i32.max, x[3] & 15))
+        half = sg // 2
+        x[:4] = torch.sort(x[:4].view(4, -1, half), dim=-1).values.view(4, n)
+        for reverse in (True, False):
+            check(f"bitonic_merge_smem[segment {sg}, reverse={reverse}]",
+                  BK.bitonic_merge_smem(x, sg, reverse),
+                  BK.bitonic_merge_plain(x, sg, reverse))
+    emit({"measure": "k2_segments", "segments": [1 << j for j in range(1, 15)],
+          "roles": ["reverse", "tail"], "shape": [rows, n],
+          "rows": ["random runs", "all INT_MAX", "duplicates",
+                   "INT_MIN/INT_MAX/small", "random unsorted"],
+          "equal": True, "card": card})
+
+
 def kernel_phase(torch, card, floor_ms):
     """One row per Pallas site and kernel, in site order; `launches` is
     filled in from the main paths' runs later."""
@@ -236,6 +310,7 @@ def kernel_phase(torch, card, floor_ms):
                 reps=SHORT_REPS),
             **extra)
 
+    k2_segment_checks(torch, BK, keys, check, card)
     log_b = 10                      # block 1024
     seg = BK.SMEM_MAX_SEG
 
@@ -726,6 +801,7 @@ def main() -> int:
     cuda.library()
     emit({"measure": "build", "seconds": time.perf_counter() - t0,
           "library": str(path), "card": card})
+    ptxas_line(card)
 
     rows = kernel_phase(torch, card, empty_launch_line(torch, card))
     cascade_line(torch, card)

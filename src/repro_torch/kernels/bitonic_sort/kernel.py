@@ -1,4 +1,4 @@
-"""Bitonic block sort (K1) and shared-memory bitonic merge (K2).
+"""Bitonic block sort (K1) and the register-and-shuffle bitonic merge (K2).
 
 K1 `sort_blocks` replaces the Pallas `sort_blocks`
 (repro/kernels/bitonic_sort/kernel.py:83): it sorts each contiguous
@@ -11,15 +11,21 @@ What bounds them on an H100: bytes. Each kernel reads every key once and
 writes it once (K1 at block 1024 does 55 comparators per key pair, about
 1 GOP for the (8, 2^21) shard rows, against 128 MiB of traffic; the card's
 3.35 TB/s moves that in 40 us, its int32 rate does the comparators in
-28 us). The design keeps every network step out of device memory: one
-thread block holds its run (K1: at most 1024 keys, 4 KB) or segment (K2:
-at most SMEM_MAX_SEG = 16,384 keys, 64 KB of dynamic shared memory) in
-shared memory, each thread does one comparator per step, and
-__syncthreads() separates the steps. The TPU kernel's VMEM limit (pairs
-of MAX_RUN = 65,536 keys, 256 KiB) does not fit a Hopper block's 227 KB,
-so the merge cascade switches to the strided HBM pass (K3) above
-SMEM_MAX_SEG instead; the comparators are the same, so the output is
-bit-identical whatever the threshold.
+28 us). K1 holds its run (at most 1024 keys, 4 KB) in shared memory, one
+comparator per thread per step, __syncthreads() between the steps.
+
+K2 keeps a segment of at most SMEM_MAX_SEG = 16,384 keys in registers,
+32 keys a thread (fewer below 1,024 keys), and runs each half-cleaner step
+where the step's bit of the key index lies: a register bit is a min/max of
+two registers, a lane bit a warp shuffle; a segment above 1,024 keys
+changes layout once through shared memory (64 KB at 16,384) so that every
+step is one or the other. `bitonic_merge_tiled_plain` is that schedule in
+torch ops (the layouts, the register steps as reshapes, the shuffles as
+the xor pairing, the change of layout as a permute), for the CPU tests;
+sort_kernels.cu says why. The TPU kernel's VMEM limit (pairs of MAX_RUN =
+65,536 keys, 256 KiB) does not fit an SM, so the merge cascade switches to
+the strided HBM pass (K3) above SMEM_MAX_SEG instead; the comparators are
+the same, so the output is bit-identical whatever the threshold.
 
 Beside each wrapper is its plain PyTorch version: the reference's network
 (`_compare_exchange`, bitonic_sort/kernel.py:23) in torch ops. A wrapper
@@ -32,8 +38,10 @@ import torch
 
 from repro_torch.kernels import cuda
 
-#: Largest segment (keys) K2 holds in shared memory: 64 KB of int32.
+#: Largest segment (keys) K2 merges on chip: 64 KB of int32.
 SMEM_MAX_SEG = 16384
+#: Keys a K2 thread holds in registers for segments above 1,024 keys.
+MERGE_KEYS = 32
 #: Largest run K1 sorts in one thread block (its threads do one pair each).
 MAX_BLOCK = 1024
 
@@ -92,6 +100,63 @@ def bitonic_merge_plain(x: torch.Tensor, seg: int,
         half = seg // 2
         y = torch.cat([y[..., :half], y[..., half:].flip(-1)], dim=-1)
     return bitonic_merge_network(y).reshape(rows, n)
+
+
+def merge_layout(seg: int) -> tuple[int, int]:
+    """K2's layout A for a `seg`-key segment: (K, T), K keys in registers
+    for each of T threads, key r*T + t in register r of thread t."""
+    keys = MERGE_KEYS if seg > 1024 else (seg // 32 if seg >= 64 else 2)
+    return keys, seg // keys
+
+
+def _register_steps(a: torch.Tensor, bits) -> torch.Tensor:
+    """Half-cleaner steps on register bits `bits` (high to low) of a
+    (..., K, T) layout: registers r and r | 2^b, the lower takes the min."""
+    *lead, k, t = a.shape
+    for b in bits:
+        y = a.reshape(*lead, k >> (b + 1), 2, 1 << b, t)
+        lo, hi = y[..., 0, :, :], y[..., 1, :, :]
+        a = torch.stack([torch.minimum(lo, hi), torch.maximum(lo, hi)],
+                        dim=-3).reshape(*lead, k, t)
+    return a
+
+
+def _lane_steps(a: torch.Tensor, bits) -> torch.Tensor:
+    """Half-cleaner steps on lane bits `bits` (high to low) of a (..., K, T)
+    layout: each thread takes the same register of thread t ^ 2^b (the
+    shuffle) and keeps the max if its bit b is set, else the min."""
+    lane = torch.arange(a.shape[-1], device=a.device)
+    for b in bits:
+        partner = a[..., lane ^ (1 << b)]
+        upper = ((lane >> b) & 1).bool()
+        a = torch.where(upper, torch.maximum(a, partner),
+                        torch.minimum(a, partner))
+    return a
+
+
+def bitonic_merge_tiled_plain(x: torch.Tensor, seg: int,
+                              reverse_second_half: bool) -> torch.Tensor:
+    """K2's schedule in torch ops: the same function as
+    `bitonic_merge_plain`, step by step through the kernel's layouts."""
+    rows, n = x.shape
+    y = x.reshape(rows * n // seg, seg)
+    if reverse_second_half:         # the load reads the second half mirrored
+        half = seg // 2
+        y = torch.cat([y[:, :half], y[:, half:].flip(-1)], dim=-1)
+    k, t = merge_layout(seg)
+    log_k = k.bit_length() - 1
+    a = _register_steps(y.reshape(-1, k, t), range(log_k - 1, -1, -1))
+    if seg <= 1024:                 # one layout: the rest are lane bits
+        a = _lane_steps(a, range(t.bit_length() - 2, -1, -1))
+        return a.reshape(rows, n)
+    # layout B, key w*32K + r*32 + l in register r of lane l of warp w:
+    # the keys in segment order, split (w, r, l), permuted to (r, w, l)
+    warps = t // 32
+    a = a.reshape(-1, warps, k, 32).permute(0, 2, 1, 3).reshape(-1, k, t)
+    log_seg = seg.bit_length() - 1
+    a = _register_steps(a, range(log_seg - 11, -1, -1))  # key bits L-6..5
+    a = _lane_steps(a, range(4, -1, -1))                   # key bits 4..0
+    return a.reshape(-1, k, warps, 32).permute(0, 2, 1, 3).reshape(rows, n)
 
 
 def _check_pow2_run(x: torch.Tensor, run: int, limit: int, what: str):

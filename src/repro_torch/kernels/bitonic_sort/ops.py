@@ -4,7 +4,7 @@
 axes (shards, or the batched engine's (p, B)) flatten to rows, every row
 pads to one shared power of two with the hi sentinel, K1 sorts `block`-key
 runs, then runs merge pairwise (`merge.ops.merge_cascade`: K2 while a pair
-fits in shared memory, the strided HBM pass above it). The row boundary is
+fits on chip, the strided HBM pass above it). The row boundary is
 a run boundary, so no comparator crosses it. Counterpart of the
 reference's `local_sort` and `local_sort_batched` (ops.py:42, :61).
 """

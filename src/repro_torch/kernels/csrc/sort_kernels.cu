@@ -7,6 +7,8 @@
 //   K1  bitonic_sort_blocks      repro/kernels/bitonic_sort/kernel.py:83, :98
 //   K2  bitonic_merge_smem       repro/kernels/bitonic_sort/kernel.py:117,
 //                                :132; repro/kernels/merge/kernel.py:71
+//                                (a warp kernel up to 1,024 keys, a block
+//                                kernel above, one instantiation per size)
 //   K3  strided_compare_exchange repro/kernels/merge/kernel.py:49
 //   K4s probe_rank_search        repro/kernels/histogram/kernel.py:35, :64
 //                                over sorted rows (every main-path caller)
@@ -25,7 +27,7 @@
 // many threads, too much shared memory) reaches the Python wrapper.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libsort_kernels.so sort_kernels.cu
+//        -Xcompiler -fPIC -Xptxas -v -o libsort_kernels.so sort_kernels.cu
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -39,14 +41,14 @@ constexpr int kProbeThreads = 256;
 constexpr int kSearchThreads = 256;     // K4s: 8 warps, one probe each
 constexpr int kSearchWarps = kSearchThreads / 32;
 
-// One comparator of the bitonic network over shared memory: pair (i, i+d)
-// with i = 2t - (t mod d), ordered ascending iff asc.
+// One comparator of K1's network over shared memory: pair (i, i+d) with
+// i = 2t - (t mod d), ordered ascending iff (i & k) == 0.
 __device__ __forceinline__ void smem_compare_exchange(int* s, int t, int d,
-                                                      bool asc_all, int k) {
+                                                      int k) {
   const int i = 2 * t - (t & (d - 1));
   const int a = s[i];
   const int b = s[i + d];
-  const bool asc = asc_all || ((i & k) == 0);
+  const bool asc = (i & k) == 0;
   const int lo = min(a, b);
   const int hi = max(a, b);
   s[i] = asc ? lo : hi;
@@ -67,36 +69,192 @@ __global__ void bitonic_sort_blocks_kernel(const int* __restrict__ in,
   for (int k = 2; k <= block; k <<= 1) {
     for (int d = k >> 1; d > 0; d >>= 1) {
       for (int t = threadIdx.x; t < half; t += blockDim.x)
-        smem_compare_exchange(s, t, d, false, k);
+        smem_compare_exchange(s, t, d, k);
       __syncthreads();
     }
   }
   for (int i = threadIdx.x; i < block; i += blockDim.x) out[base + i] = s[i];
 }
 
-// K2. One thread block merges one `seg`-key segment held in shared memory
-// with the half-cleaner cascade d = seg/2..1, all ascending
-// (bitonic_merge_network). reverse != 0 first reverses the segment's
-// second half, which turns two sorted runs into one bitonic sequence
-// (merge_adjacent); reverse == 0 takes a segment that is already bitonic
-// (merge_bitonic_blocks, the tail of an HBM merge pass).
-__global__ void bitonic_merge_smem_kernel(const int* __restrict__ in,
-                                          int* __restrict__ out, int seg,
-                                          int reverse) {
-  extern __shared__ int s[];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * seg;
-  const int half = seg >> 1;
-  for (int i = threadIdx.x; i < seg; i += blockDim.x) {
-    const int src = (reverse && i >= half) ? seg + half - 1 - i : i;
-    s[i] = in[base + src];
+// K2 replaces the Pallas merge_adjacent (#3), merge_adjacent_batched (#4)
+// and merge_bitonic_blocks (#8): the half-cleaner cascade d = seg/2..1, all
+// ascending (bitonic_merge_network), inside each aligned `seg`-key segment.
+// reverse != 0 first reverses the segment's second half, which turns two
+// sorted runs into one bitonic sequence (merge_adjacent); reverse == 0
+// takes a segment that is already bitonic (the tail of an HBM merge pass).
+//
+// What bounds it: bytes. Each key is read once and written once: 128 MiB
+// at 2^24 keys, 0.0401 ms at 3.35 TB/s; the 14 steps of a 16,384-key
+// segment are 14 int32 min/max per key, a sixth of that time.
+//
+// The design it replaces held the segment in shared memory and ran each
+// step as one shared-memory pass (2 loads, 2 stores per comparator,
+// __syncthreads() between steps): 458,752 shared-memory word accesses per
+// 16,384 keys, 2-way bank conflicts on the steps with d < 32, and scalar
+// loads with a runtime trip count. That kept it at a third of its bound.
+//
+// This design keeps every key in a register and works on the bits of its
+// index in the segment, from the top bit down. A step on bit j pairs key i
+// with key i ^ 2^j. Where bit j is a bit of the thread's register index,
+// the step is a min/max of two registers (reg_steps); where it is a lane
+// bit, each lane takes its partner's key by __shfl_xor_sync and keeps the
+// min or the max by its own lane bit (lane_steps). Only warp bits need
+// shared memory, and one change of layout covers them (transpose_smem):
+//
+//   segments up to 1,024 keys (bitonic_merge_warp_kernel<SEG>): K keys a
+//     thread, T = SEG/K <= 32 lanes a segment, key r*T + t in register r
+//     of lane t: the top log2(K) bits are register bits, the rest lane
+//     bits. One layout, no shared memory, no synchronisation.
+//   2,048 to 16,384 keys (bitonic_merge_smem_kernel<SEG>): 32 keys a
+//     thread, T = SEG/32 threads a segment. Layout A, key r*T + t: the top
+//     5 bits are register bits, so the first 5 steps run in registers.
+//     One pass through shared memory (64 KB at 16,384) changes to layout
+//     B, key w*1024 + r*32 + l (warp w, lane l): bits 9..5 are register
+//     bits and 4..0 lane bits, so the remaining steps run in registers and
+//     shuffles. At 16,384 keys: 9 register steps, 5 shuffle steps and
+//     32,768 shared-memory word accesses, 14x fewer than before; in both
+//     layouts a warp touches 32 consecutive words, so no bank conflicts.
+//
+// Loads and stores are scalar and coalesced (a warp reads 128 contiguous
+// bytes per register), all 32 loads issued before the first step. The
+// reversal is folded into the load: register r >= K/2 of thread t reads
+// key (3K/2 - r)T - 1 - t, the mirror of key rT + t in the second half.
+// The segment size is a template parameter, so every loop unrolls and the
+// register arrays are indexed by constants only; 64 registers a thread at
+// most (launch bounds), so two 512-thread blocks share an SM.
+
+// The steps of a bitonic network over keys held in registers: register
+// steps, lane steps and the change of layout. Every pair is ordered
+// ascending, as K2's cascade needs.
+__host__ __device__ constexpr int ilog2(int v) {
+  return v > 1 ? 1 + ilog2(v >> 1) : 0;
+}
+
+constexpr int kMergeKeys = 32;          // keys a thread holds, seg >= 1,024
+constexpr int kWarpKernelThreads = 128;
+
+template <int SEG>
+struct MergeShape {
+  static constexpr int K =
+      SEG > 1024 ? kMergeKeys : (SEG >= 64 ? SEG / 32 : 2);
+  static constexpr int T = SEG / K;     // threads per segment
+};
+
+// Half-cleaner steps on register bits HI..LO of the register index: pair
+// registers r and r | 2^b, the lower takes the min.
+template <int K, int HI, int LO>
+__device__ __forceinline__ void reg_steps(int (&v)[K]) {
+#pragma unroll
+  for (int b = HI; b >= LO; --b) {
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      if (r & (1 << b)) continue;
+      const int a = v[r];
+      const int c = v[r | (1 << b)];
+      v[r] = min(a, c);
+      v[r | (1 << b)] = max(a, c);
+    }
   }
+}
+
+// Half-cleaner steps on lane bits HI..LO: the pair is the same register of
+// lanes l and l ^ 2^b; the lane whose bit b is set keeps the max.
+template <int K, int HI, int LO>
+__device__ __forceinline__ void lane_steps(int (&v)[K], int lane) {
+#pragma unroll
+  for (int b = HI; b >= LO; --b) {
+    const bool upper = lane & (1 << b);
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const int p = __shfl_xor_sync(0xffffffffu, v[r], 1 << b);
+      v[r] = upper ? max(v[r], p) : min(v[r], p);
+    }
+  }
+}
+
+// Layout A (key r*T + t in register r of thread t) to layout B (key
+// w*32K + r*32 + l in register r of lane l of warp w) through shared
+// memory, keys stored in segment order.
+template <int K, int T>
+__device__ __forceinline__ void transpose_smem(int (&v)[K], int* s, int t) {
+#pragma unroll
+  for (int r = 0; r < K; ++r) s[r * T + t] = v[r];
   __syncthreads();
-  for (int d = half; d > 0; d >>= 1) {
-    for (int t = threadIdx.x; t < half; t += blockDim.x)
-      smem_compare_exchange(s, t, d, true, 0);
-    __syncthreads();
+  const int* sb = s + (t >> 5) * 32 * K + (t & 31);
+#pragma unroll
+  for (int r = 0; r < K; ++r) v[r] = sb[r * 32];
+}
+
+// Layout A from device memory: key r*T + t of the segment at src; with
+// reverse the second half reads mirrored.
+template <int K, int T>
+__device__ __forceinline__ void load_layout_a(int (&v)[K],
+                                              const int* __restrict__ src,
+                                              int t, int reverse) {
+#pragma unroll
+  for (int r = 0; r < K / 2; ++r) v[r] = src[r * T + t];
+  if (reverse) {
+#pragma unroll
+    for (int r = K / 2; r < K; ++r) v[r] = src[(3 * K / 2 - r) * T - 1 - t];
+  } else {
+#pragma unroll
+    for (int r = K / 2; r < K; ++r) v[r] = src[r * T + t];
   }
-  for (int i = threadIdx.x; i < seg; i += blockDim.x) out[base + i] = s[i];
+}
+
+// K2 for segments of 2..1,024 keys: each warp merges 32/T whole segments
+// in one layout. Lanes past the last segment run the shuffles on zeros
+// (their partners are in their own segment) and store nothing.
+template <int SEG>
+__global__ void __launch_bounds__(kWarpKernelThreads)
+    bitonic_merge_warp_kernel(const int* __restrict__ in,
+                              int* __restrict__ out, int64_t segs,
+                              int reverse) {
+  constexpr int K = MergeShape<SEG>::K;
+  constexpr int T = MergeShape<SEG>::T;
+  const int64_t g =
+      static_cast<int64_t>(blockIdx.x) * kWarpKernelThreads + threadIdx.x;
+  if ((g & ~int64_t{31}) / T >= segs) return;   // the whole warp is past
+  const int64_t seg = g / T;
+  const int t = threadIdx.x & (T - 1);
+  const bool live = seg < segs;
+  int v[K];
+  if (live) {
+    load_layout_a<K, T>(v, in + seg * SEG, t, reverse);
+  } else {
+#pragma unroll
+    for (int r = 0; r < K; ++r) v[r] = 0;
+  }
+  reg_steps<K, ilog2(K) - 1, 0>(v);
+  lane_steps<K, ilog2(T) - 1, 0>(v, t);
+  if (live) {
+    int* dst = out + seg * SEG + t;
+#pragma unroll
+    for (int r = 0; r < K; ++r) dst[r * T] = v[r];
+  }
+}
+
+// K2 for segments of 2,048..16,384 keys: one block of SEG/32 threads per
+// segment, layouts A and B above, one transposition between them.
+template <int SEG>
+__global__ void __launch_bounds__(SEG / kMergeKeys, 1024 / (SEG / kMergeKeys))
+    bitonic_merge_smem_kernel(const int* __restrict__ in,
+                              int* __restrict__ out, int reverse) {
+  constexpr int K = kMergeKeys;
+  constexpr int T = SEG / K;
+  constexpr int L = ilog2(SEG);
+  extern __shared__ int s[];
+  const int t = threadIdx.x;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * SEG;
+  int v[K];
+  load_layout_a<K, T>(v, in + base, t, reverse);
+  reg_steps<K, 4, 0>(v);                // key bits L-1..L-5
+  transpose_smem<K, T>(v, s, t);
+  reg_steps<K, L - 11, 0>(v);           // key bits L-6..5
+  lane_steps<K, 4, 0>(v, t & 31);       // key bits 4..0
+  int* dst = out + base + (t >> 5) * 32 * K + (t & 31);
+#pragma unroll
+  for (int r = 0; r < K; ++r) dst[r * 32] = v[r];
 }
 
 // K3, scalar form. One thread per pair (i, i+d), i = 2t - (t mod d):
@@ -247,6 +405,37 @@ int grid_for(int64_t work, int threads) {
   return static_cast<int>(blocks < cap ? blocks : cap);
 }
 
+// One K2 launch over n_total / SEG segments.
+template <int SEG>
+int launch_merge(const int* in, int* out, int64_t n_total, int reverse,
+                 cudaStream_t stream) {
+  const int64_t segs = n_total / SEG;
+  if constexpr (SEG <= 1024) {
+    const int64_t blocks =
+        (segs * MergeShape<SEG>::T + kWarpKernelThreads - 1) /
+        kWarpKernelThreads;
+    if (blocks > INT_MAX) return cudaErrorInvalidValue;
+    bitonic_merge_warp_kernel<SEG>
+        <<<static_cast<unsigned>(blocks), kWarpKernelThreads, 0, stream>>>(
+            in, out, segs, reverse);
+  } else {
+    constexpr int bytes = SEG * static_cast<int>(sizeof(int));
+    if (segs > INT_MAX) return cudaErrorInvalidValue;
+    static bool smem_raised = false;    // above 48 KB only when asked for
+    if (!smem_raised) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          bitonic_merge_smem_kernel<SEG>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (e != cudaSuccess) return e;
+      smem_raised = true;
+    }
+    bitonic_merge_smem_kernel<SEG>
+        <<<static_cast<unsigned>(segs), SEG / kMergeKeys, bytes, stream>>>(
+            in, out, reverse);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -271,20 +460,25 @@ int bitonic_merge_smem(const void* in, void* out, long long n_total, int seg,
                        int reverse, void* stream) {
   if (!is_pow2(seg) || seg < 2 || seg > kMaxSmemKeys || n_total % seg)
     return cudaErrorInvalidValue;
-  static bool smem_raised = false;
-  if (!smem_raised) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bitonic_merge_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmemKeys * static_cast<int>(sizeof(int)));
-    if (e != cudaSuccess) return e;
-    smem_raised = true;
+  const auto* src = static_cast<const int*>(in);
+  auto* dst = static_cast<int*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (seg) {
+    case 2: return launch_merge<2>(src, dst, n_total, reverse, st);
+    case 4: return launch_merge<4>(src, dst, n_total, reverse, st);
+    case 8: return launch_merge<8>(src, dst, n_total, reverse, st);
+    case 16: return launch_merge<16>(src, dst, n_total, reverse, st);
+    case 32: return launch_merge<32>(src, dst, n_total, reverse, st);
+    case 64: return launch_merge<64>(src, dst, n_total, reverse, st);
+    case 128: return launch_merge<128>(src, dst, n_total, reverse, st);
+    case 256: return launch_merge<256>(src, dst, n_total, reverse, st);
+    case 512: return launch_merge<512>(src, dst, n_total, reverse, st);
+    case 1024: return launch_merge<1024>(src, dst, n_total, reverse, st);
+    case 2048: return launch_merge<2048>(src, dst, n_total, reverse, st);
+    case 4096: return launch_merge<4096>(src, dst, n_total, reverse, st);
+    case 8192: return launch_merge<8192>(src, dst, n_total, reverse, st);
+    default: return launch_merge<16384>(src, dst, n_total, reverse, st);
   }
-  const int threads = seg / 2 < 1024 ? seg / 2 : 1024;
-  bitonic_merge_smem_kernel<<<static_cast<unsigned>(n_total / seg), threads,
-                              seg * sizeof(int),
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(in), static_cast<int*>(out), seg, reverse);
-  return cudaGetLastError();
 }
 
 int strided_compare_exchange(const void* in, void* out, long long n_total,

@@ -5,8 +5,9 @@ The kernels live in `csrc/sort_kernels.cu` behind a plain C interface.
 on first use and loads it with ctypes (no PyTorch headers, so the build
 takes seconds). The library is cached under `build/cuda/` at the repository
 root (git-ignored), keyed by a hash of the source, so an edited source
-builds anew. Nothing here runs at import: the CPU tests import every module
-and have no nvcc.
+builds anew; ptxas's report of each kernel's registers, stack and spills
+(`-Xptxas -v`) is kept beside it (`ptxas_log()`). Nothing here runs at
+import: the CPU tests import every module and have no nvcc.
 
 `launch(name, *args)` calls one C launcher on PyTorch's current stream,
 raises when it returns a CUDA error, and adds one to that kernel's count in
@@ -98,13 +99,19 @@ def build(force: bool = False) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, str(SOURCE)]
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(SOURCE)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    out.with_suffix(".ptxas.log").write_text(proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def ptxas_log() -> str:
+    """ptxas's report (`-Xptxas -v`) from the build of the loaded source."""
+    return build().with_suffix(".ptxas.log").read_text()
 
 
 def library() -> ctypes.CDLL:

@@ -3,7 +3,7 @@
 A bitonic merge of two sorted runs of length R is a fixed comparator
 network: relayout the pair into one bitonic sequence (second run
 reversed), then a half-cleaner cascade at distances R, R/2, ..., 1. K2
-(`bitonic_merge_smem`) runs the whole network in shared memory while the
+(`bitonic_merge_smem`) runs the whole network on chip while the
 pair fits (2R <= SMEM_MAX_SEG). Above that, `merge_pass_hbm` splits the
 same network into passes over device memory:
 

@@ -48,14 +48,41 @@ def test_cuda_bitonic_sort_blocks(card):
     assert cuda.launches["bitonic_sort_blocks"] == before + 1
 
 
+SEGMENTS = [1 << j for j in range(1, 15)]      # 2 .. SMEM_MAX_SEG
+
+
+def _merge_rows(rows, n, seg, seed=0):
+    """Sorted runs of seg/2 keys, with the edge rows: all INT_MAX (the hi
+    sentinel), duplicates, INT_MIN among INT_MAX and small keys; the last
+    row is left unsorted."""
+    i32 = torch.iinfo(torch.int32)
+    x = _card_keys((rows, n), seed)
+    x[1] = i32.max
+    x[2] &= 7
+    pick = _card_keys((n,), seed + 1) & 3
+    x[3] = torch.where(pick == 0, i32.min,
+                       torch.where(pick == 1, i32.max, x[3] & 15))
+    x[:-1] = torch.sort(x[:-1].view(rows - 1, -1, seg // 2), dim=-1
+                        ).values.view(rows - 1, n)
+    return x
+
+
+def _check_merge(x, seg, reverse):
+    counter = ("bitonic_merge_smem.reverse" if reverse
+               else "bitonic_merge_smem.tail")
+    before = cuda.launches[counter]
+    got = tbk.bitonic_merge_smem(x, seg, reverse)
+    torch.cuda.synchronize()
+    assert cuda.launches[counter] == before + 1
+    assert torch.equal(got, tbk.bitonic_merge_plain(x, seg, reverse))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("reverse", [True, False])
-def test_cuda_bitonic_merge_smem(card, reverse):
-    x = torch.sort(_card_keys((8, 1 << 16)).view(8, -1, 8192), dim=-1
-                   ).values.view(8, -1)
-    got = tbk.bitonic_merge_smem(x, tbk.SMEM_MAX_SEG, reverse)
-    assert torch.equal(got, tbk.bitonic_merge_plain(x, tbk.SMEM_MAX_SEG,
-                                                    reverse))
+@pytest.mark.parametrize("seg", SEGMENTS)
+def test_cuda_bitonic_merge_smem(card, seg, reverse):
+    """K2 at every segment size, both roles, 5 rows with the edge rows."""
+    _check_merge(_merge_rows(5, 1 << 15, seg), seg, reverse)
 
 
 @pytest.mark.cuda
@@ -85,15 +112,12 @@ def test_cuda_bitonic_sort_blocks_batched_rows(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seg", [2048, tbk.SMEM_MAX_SEG])
-def test_cuda_merge_adjacent_batched_rows(card, seg):
-    """K2 with reverse = 1 as Pallas #4, over 64 rows."""
-    x = torch.sort(_card_keys((64, 1 << 15)).view(64, -1, seg // 2), dim=-1
-                   ).values.view(64, -1)
-    before = cuda.launches["bitonic_merge_smem.reverse"]
-    got = tbk.bitonic_merge_smem(x, seg, True)
-    assert torch.equal(got, tbk.bitonic_merge_plain(x, seg, True))
-    assert cuda.launches["bitonic_merge_smem.reverse"] == before + 1
+@pytest.mark.parametrize("reverse", [True, False])
+@pytest.mark.parametrize("seg", SEGMENTS)
+def test_cuda_merge_adjacent_batched_rows(card, seg, reverse):
+    """K2 as Pallas #4 (reverse) and #8 (tail) over B*p-like rows: 65, an
+    odd count, with the edge rows."""
+    _check_merge(_merge_rows(65, 1 << 15, seg, seed=2), seg, reverse)
 
 
 @pytest.mark.cuda
