@@ -9,10 +9,13 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: compiles src/repro_torch/kernels/csrc/sort_kernels.cu with nvcc
      (the kernels are built from the checkout's sources, nothing else) and
      prints ptxas's registers, stack and spills for each instantiation of
-     K2 (one per segment size), failing on a spill;
-  3. kernels: K2 at every power-of-two segment 2..16,384, both roles, on 5
-     rows (random, all INT_MAX, duplicates, INT_MIN among INT_MAX and
-     small keys, unsorted) against its plain version; then
+     K1 (one per block size) and of K2 (one per segment size), failing on
+     a missing size, a spill or more than 64 registers;
+  3. kernels: K1 at every power-of-two block 2..1,024 on 5 rows (random,
+     all INT_MAX, duplicates, INT_MIN among INT_MAX and small keys,
+     random) and on a row read at a one-key offset, and K2 at every
+     power-of-two segment 2..16,384, both roles, on 5 such rows (the last
+     unsorted), each against its plain version; then
      each hand-written kernel (K1-K3, K4s, K4) against its
      plain PyTorch version on the card, exactly (torch.equal), at the
      shapes each main path gives it — the sort's (8, 2^21) shard rows and
@@ -96,7 +99,7 @@ SHORT_REPS = 200
 # than its host-side call is timed back to back on the device.
 HEAD_START_CYCLES = 40_000_000
 # The CUDA functions of csrc/sort_kernels.cu, as the profiler names them.
-PORT_KERNELS = ("bitonic_sort_blocks_kernel", "bitonic_merge_smem_kernel",
+PORT_KERNELS = ("bitonic_sort_warp_kernel", "bitonic_merge_smem_kernel",
                 "bitonic_merge_warp_kernel", "strided_ce_kernel",
                 "strided_ce_vec4_kernel", "probe_rank_count_kernel",
                 "probe_rank_search_kernel")
@@ -182,60 +185,106 @@ def bound(bytes_moved: float, int_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-K2_ENTRY = re.compile(r"bitonic_merge_(smem|warp)_kernelILi(\d+)E")
+PTXAS_ENTRY = re.compile(r"bitonic_(sort|merge)_(warp|smem)_kernelILi(\d+)E")
+#: Instantiations ptxas must report: K1 per block, K2 per segment size.
+PTXAS_SIZES = {"sort": [1 << j for j in range(1, 11)],
+               "merge": [1 << j for j in range(1, 15)]}
+MAX_REGISTERS = 64
 
 
 def ptxas_line(card):
-    """ptxas's registers, stack and spill bytes of every K2 instantiation,
-    from the build's `-Xptxas -v` report; fails on a missing size or a
-    spill."""
+    """ptxas's registers, stack and spill bytes of every K1 and K2
+    instantiation, from the build's `-Xptxas -v` report, one line for each
+    kernel; fails on a missing size, a spill or more than 64 registers."""
     from repro_torch.kernels import cuda
 
-    found, current = {}, None
+    found = {"sort": {}, "merge": {}}
+    current = None
     for line in cuda.ptxas_log().splitlines():
         name = re.search(r"entry function '([^']+)'|Function properties "
                          r"for (\S+)", line)
         if name:
-            m = K2_ENTRY.search(name.group(1) or name.group(2))
-            current = None if m is None else int(m.group(2))
-            if current is not None:
-                found.setdefault(current, {"segment": current,
-                                           "kernel": m.group(1)})
+            m = PTXAS_ENTRY.search(name.group(1) or name.group(2))
+            current = None
+            if m is not None:
+                size = int(m.group(3))
+                key = "block" if m.group(1) == "sort" else "segment"
+                current = found[m.group(1)].setdefault(
+                    size, {key: size, "kernel": m.group(2)})
             continue
         if current is None:
             continue
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
         if frame:
-            found[current].update(zip(
+            current.update(zip(
                 ("stack_bytes", "spill_store_bytes", "spill_load_bytes"),
                 map(int, frame.groups())))
         regs = re.search(r"Used (\d+) registers", line)
         if regs:
-            found[current]["registers"] = int(regs.group(1))
-    entries = [found[k] for k in sorted(found)]
-    emit({"measure": "ptxas_k2", "instantiations": entries, "card": card})
-    if sorted(found) != [1 << j for j in range(1, 15)]:
-        fail(f"ptxas report lacks K2 sizes: found {sorted(found)}")
-    spilled = [e["segment"] for e in entries
-               if e.get("spill_store_bytes", 1) or e.get("spill_load_bytes", 1)]
-    if spilled:
-        fail(f"K2 spills registers at segments {spilled}")
+            current["registers"] = int(regs.group(1))
+    for kind, tag in (("sort", "k1"), ("merge", "k2")):
+        entries = [found[kind][k] for k in sorted(found[kind])]
+        emit({"measure": f"ptxas_{tag}", "instantiations": entries,
+              "card": card})
+        if sorted(found[kind]) != PTXAS_SIZES[kind]:
+            fail(f"ptxas report lacks {tag.upper()} sizes: found "
+                 f"{sorted(found[kind])}")
+        spilled = [k for k, e in sorted(found[kind].items())
+                   if e.get("spill_store_bytes", 1)
+                   or e.get("spill_load_bytes", 1)]
+        if spilled:
+            fail(f"{tag.upper()} spills registers at sizes {spilled}")
+        heavy = [k for k, e in sorted(found[kind].items())
+                 if e.get("registers", MAX_REGISTERS + 1) > MAX_REGISTERS]
+        if heavy:
+            fail(f"{tag.upper()} uses more than {MAX_REGISTERS} registers "
+                 f"at sizes {heavy}")
+
+
+def edge_rows(torch, keys, rows, n):
+    """Random keys with the edge rows: row 1 all INT_MAX (the hi
+    sentinel), row 2 duplicates, row 3 INT_MIN among INT_MAX and small
+    keys."""
+    i32 = torch.iinfo(torch.int32)
+    x = keys((rows, n))
+    x[1] = i32.max
+    x[2] = x[2] & 7
+    pick = keys((n,)) & 3
+    x[3] = torch.where(pick == 0, i32.min,
+                       torch.where(pick == 1, i32.max, x[3] & 15))
+    return x
+
+
+def k1_block_checks(torch, BK, keys, check, card):
+    """K1 against its plain version at every power-of-two block, on an odd
+    row count with the edge rows (a length that leaves the last warp a
+    partial chunk at small blocks), and on one row read at a one-key
+    offset from an allocation, so not 16-byte aligned."""
+    rows = 5
+    blocks = [1 << j for j in range(1, 11)]
+    for blk in blocks:
+        n = 5 * 1024 + 2 * blk
+        x = edge_rows(torch, keys, rows, n)
+        check(f"bitonic_sort_blocks[block {blk}]", BK.sort_blocks(x, blk),
+              BK.sort_blocks_plain(x, blk))
+        off = keys((n + 1,))[1:].view(1, n)
+        check(f"bitonic_sort_blocks[block {blk}, offset view]",
+              BK.sort_blocks(off, blk), BK.sort_blocks_plain(off, blk))
+    emit({"measure": "k1_blocks", "blocks": blocks,
+          "shapes": [[rows, 5 * 1024 + 2 * b] for b in (2, 1024)],
+          "rows": ["random", "all INT_MAX", "duplicates",
+                   "INT_MIN/INT_MAX/small", "random"],
+          "offset_view": True, "equal": True, "card": card})
 
 
 def k2_segment_checks(torch, BK, keys, check, card):
     """K2 against its plain version at every power-of-two segment, both
     roles, on an odd row count with the edge rows."""
     rows, n = 5, 2 * BK.SMEM_MAX_SEG
-    i32 = torch.iinfo(torch.int32)
     for j in range(1, 15):
         sg = 1 << j
-        x = keys((rows, n))
-        x[1] = i32.max                              # all hi sentinel
-        x[2] = x[2] & 7                             # duplicates
-        pick = keys((n,)) & 3
-        x[3] = torch.where(pick == 0, i32.min,
-                           torch.where(pick == 1, i32.max, x[3] & 15))
+        x = edge_rows(torch, keys, rows, n)
         half = sg // 2
         x[:4] = torch.sort(x[:4].view(4, -1, half), dim=-1).values.view(4, n)
         for reverse in (True, False):
@@ -310,6 +359,7 @@ def kernel_phase(torch, card, floor_ms):
                 reps=SHORT_REPS),
             **extra)
 
+    k1_block_checks(torch, BK, keys, check, card)
     k2_segment_checks(torch, BK, keys, check, card)
     log_b = 10                      # block 1024
     seg = BK.SMEM_MAX_SEG

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for the sort hot spots, with plain versions.
 
-bitonic_sort  K1 block sort and K2 register-and-shuffle bitonic merge; the
-              local sort of every row (shards, sample buffers, gathered
-              probes).
+bitonic_sort  K1 block sort and K2 bitonic merge, both register-and-
+              shuffle; the local sort of every row (shards, sample
+              buffers, gathered probes).
 merge         K3 strided compare-exchange: the HBM pass of the merge
               cascade, for pairs longer than K2 holds on chip.
 histogram     the per-round histogram: K4s probe-rank search over sorted

@@ -1,18 +1,25 @@
 """Bitonic block sort (K1) and the register-and-shuffle bitonic merge (K2).
 
 K1 `sort_blocks` replaces the Pallas `sort_blocks`
-(repro/kernels/bitonic_sort/kernel.py:83): it sorts each contiguous
-`block`-key run of every row. K2 `bitonic_merge_smem` replaces both
-`merge_adjacent` (same file :117; reverse_second_half=True) and the merge
-package's `merge_bitonic_blocks` (repro/kernels/merge/kernel.py:71;
-reverse_second_half=False).
+(repro/kernels/bitonic_sort/kernel.py:83) and `sort_blocks_batched` (:98):
+it sorts each contiguous `block`-key run of every row. K2
+`bitonic_merge_smem` replaces both `merge_adjacent` (same file :117;
+reverse_second_half=True) and the merge package's `merge_bitonic_blocks`
+(repro/kernels/merge/kernel.py:71; reverse_second_half=False).
 
 What bounds them on an H100: bytes. Each kernel reads every key once and
 writes it once (K1 at block 1024 does 55 comparators per key pair, about
 1 GOP for the (8, 2^21) shard rows, against 128 MiB of traffic; the card's
 3.35 TB/s moves that in 40 us, its int32 rate does the comparators in
-28 us). K1 holds its run (at most 1024 keys, 4 KB) in shared memory, one
-comparator per thread per step, __syncthreads() between the steps.
+28 us).
+
+K1 keeps a block of at most MAX_BLOCK = 1,024 keys in one warp's
+registers, min(32, block) consecutive keys a thread, so that the low bits
+of the key index, which the network steps most often, are register bits
+and the high ones lane bits. Each stage opens with a mirror step (key i
+against i ^ (2^(m+1) - 1)) and goes on with ascending half-cleaners, so no
+step needs a direction. `sort_blocks_tiled_plain` is that schedule in
+torch ops; sort_kernels.cu says why.
 
 K2 keeps a segment of at most SMEM_MAX_SEG = 16,384 keys in registers,
 32 keys a thread (fewer below 1,024 keys), and runs each half-cleaner step
@@ -42,7 +49,7 @@ from repro_torch.kernels import cuda
 SMEM_MAX_SEG = 16384
 #: Keys a K2 thread holds in registers for segments above 1,024 keys.
 MERGE_KEYS = 32
-#: Largest run K1 sorts in one thread block (its threads do one pair each).
+#: Largest run K1 sorts: one warp's registers, 32 keys a thread.
 MAX_BLOCK = 1024
 
 
@@ -157,6 +164,50 @@ def bitonic_merge_tiled_plain(x: torch.Tensor, seg: int,
     a = _register_steps(a, range(log_seg - 11, -1, -1))  # key bits L-6..5
     a = _lane_steps(a, range(4, -1, -1))                   # key bits 4..0
     return a.reshape(-1, k, warps, 32).permute(0, 2, 1, 3).reshape(rows, n)
+
+
+def _register_mirror(a: torch.Tensor, m: int) -> torch.Tensor:
+    """A stage's first step on register bits m..0 of a (..., K, T) layout:
+    register r against its mirror r ^ (2^(m+1) - 1), the lower takes the
+    min."""
+    *lead, k, t = a.shape
+    y = a.reshape(*lead, k >> (m + 1), 2, 1 << m, t)
+    lo, hi = y[..., 0, :, :], y[..., 1, :, :].flip(-2)
+    return torch.stack([torch.minimum(lo, hi), torch.maximum(lo, hi).flip(-2)],
+                       dim=-3).reshape(*lead, k, t)
+
+
+def _lane_mirror(a: torch.Tensor, b: int) -> torch.Tensor:
+    """A stage's first step whose top bit is lane bit b: lane l against lane
+    l ^ (2^(b+1) - 1), register r against the partner's register K-1-r (the
+    shuffle of the mirrored register); the lane whose bit b is set keeps
+    the max."""
+    lane = torch.arange(a.shape[-1], device=a.device)
+    partner = a[..., lane ^ ((2 << b) - 1)].flip(-2)
+    upper = ((lane >> b) & 1).bool()
+    return torch.where(upper, torch.maximum(a, partner),
+                       torch.minimum(a, partner))
+
+
+def sort_blocks_tiled_plain(x: torch.Tensor, block: int) -> torch.Tensor:
+    """K1's schedule in torch ops: the same function as `sort_blocks_plain`,
+    stage by stage through the kernel's layout."""
+    rows, n = x.shape
+    k = min(32, block)         # keys a lane: key l*K + r in register r
+    t = block // k             # lanes a block
+    log_k = k.bit_length() - 1
+    # the change of layout through shared memory: lane l's K consecutive
+    # keys, held as (..., K, T) for the register and lane steps
+    a = x.reshape(-1, t, k).transpose(-1, -2)
+    for m in range(block.bit_length() - 1):
+        if m < log_k:
+            a = _register_mirror(a, m)
+            a = _register_steps(a, range(m - 1, -1, -1))
+        else:
+            a = _lane_mirror(a, m - log_k)
+            a = _lane_steps(a, range(m - log_k - 1, -1, -1))
+            a = _register_steps(a, range(log_k - 1, -1, -1))
+    return a.transpose(-1, -2).reshape(rows, n)
 
 
 def _check_pow2_run(x: torch.Tensor, run: int, limit: int, what: str):

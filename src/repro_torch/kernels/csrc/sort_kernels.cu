@@ -5,6 +5,7 @@
 // every kernel here already takes rows):
 //
 //   K1  bitonic_sort_blocks      repro/kernels/bitonic_sort/kernel.py:83, :98
+//                                (a warp kernel, one instantiation per size)
 //   K2  bitonic_merge_smem       repro/kernels/bitonic_sort/kernel.py:117,
 //                                :132; repro/kernels/merge/kernel.py:71
 //                                (a warp kernel up to 1,024 keys, a block
@@ -40,41 +41,6 @@ constexpr int kProbeTile = 4096;        // K4 keys per block: 16 KB
 constexpr int kProbeThreads = 256;
 constexpr int kSearchThreads = 256;     // K4s: 8 warps, one probe each
 constexpr int kSearchWarps = kSearchThreads / 32;
-
-// One comparator of K1's network over shared memory: pair (i, i+d) with
-// i = 2t - (t mod d), ordered ascending iff (i & k) == 0.
-__device__ __forceinline__ void smem_compare_exchange(int* s, int t, int d,
-                                                      int k) {
-  const int i = 2 * t - (t & (d - 1));
-  const int a = s[i];
-  const int b = s[i + d];
-  const bool asc = (i & k) == 0;
-  const int lo = min(a, b);
-  const int hi = max(a, b);
-  s[i] = asc ? lo : hi;
-  s[i + d] = asc ? hi : lo;
-}
-
-// K1. One thread block sorts one `block`-key run (block a power of two,
-// at most 1024) held in shared memory: the full bitonic sorting network,
-// k = 2..block, d = k/2..1, ascending iff (i & k) == 0 as in
-// bitonic_sort_network. One comparator per thread per step.
-__global__ void bitonic_sort_blocks_kernel(const int* __restrict__ in,
-                                           int* __restrict__ out, int block) {
-  extern __shared__ int s[];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * block;
-  for (int i = threadIdx.x; i < block; i += blockDim.x) s[i] = in[base + i];
-  __syncthreads();
-  const int half = block >> 1;
-  for (int k = 2; k <= block; k <<= 1) {
-    for (int d = k >> 1; d > 0; d >>= 1) {
-      for (int t = threadIdx.x; t < half; t += blockDim.x)
-        smem_compare_exchange(s, t, d, k);
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < block; i += blockDim.x) out[base + i] = s[i];
-}
 
 // K2 replaces the Pallas merge_adjacent (#3), merge_adjacent_batched (#4)
 // and merge_bitonic_blocks (#8): the half-cleaner cascade d = seg/2..1, all
@@ -257,6 +223,196 @@ __global__ void __launch_bounds__(SEG / kMergeKeys, 1024 / (SEG / kMergeKeys))
   for (int r = 0; r < K; ++r) dst[r * 32] = v[r];
 }
 
+// K1 replaces the Pallas sort_blocks (#1) and sort_blocks_batched (#2):
+// each aligned `block`-key run sorted ascending, block a power of two in
+// 2..1,024.
+//
+// What bounds it: bytes, as for K2 (0.0401 ms at 2^24 keys), though its
+// comparators weigh more: a 1,024-key block runs the full network's 55
+// steps.
+//
+// It keeps the block in registers as K2 does, in the layout that
+// puts the bits the network steps most often, the low bits of the key
+// index, in registers: K = min(32, BLOCK) keys a thread, lane l of a block
+// holding keys lK .. lK + K - 1, T = BLOCK/K <= 32 lanes a block, a warp
+// sorting 32/T whole blocks (a block of 32 keys or fewer is one thread).
+// Stage m (runs of 2^(m+1) keys) steps bits m..0: below log2 K register
+// bits, from log2 K up lane bits. At 1,024 keys stages 0-4 are 15 register
+// steps and stages 5-9 take 1-5 shuffle steps and 5 register steps each:
+// 15 shuffle and 40 register steps in all, where K2's layout (key r*T + t)
+// would make 40 of them shuffles.
+//
+// No step needs a direction. Each stage's first step pairs key i with its
+// mirror i ^ (2^(m+1) - 1) in its 2^(m+1)-key run (reg_mirror; lane_mirror,
+// where the partner lane's registers are read reversed): two ascending
+// halves become a low and a high bitonic half. The rest are K2's ascending
+// half-cleaners (reg_steps, lane_steps), which sort both halves. So every
+// run is ascending after each stage. The comparators differ from
+// bitonic_sort_network's, but the sort is exact, and an exact sort of
+// int32 keys has one result.
+//
+// Loads and stores are coalesced: key r*32 + l of the warp's 32K-key chunk
+// in register r of lane l, a warp reading 128 contiguous bytes a register,
+// with no alignment asked of the buffers. One pass through the warp's 4 KB
+// of shared memory changes to the sorting layout and one changes back
+// before the store, ordered by __syncwarp() alone. The tile is swizzled
+// (swizzle_rows) so that both the column accesses and the 16-byte row
+// accesses are free of bank conflicts. 64 registers a thread at most.
+
+constexpr int kSortWarps = 4;           // K1: warps a thread block
+constexpr int kSortThreads = 32 * kSortWarps;
+
+template <int BLOCK>
+struct SortShape {
+  static constexpr int K = BLOCK < 32 ? BLOCK : 32;   // keys a thread
+  static constexpr int CHUNK = 32 * K;                // keys a warp
+};
+
+// The first step of stage M on register bits M..0: register r against its
+// mirror r ^ (2^(M+1) - 1); the lower takes the min.
+template <int K, int M>
+__device__ __forceinline__ void reg_mirror(int (&v)[K]) {
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    if (r & (1 << M)) continue;
+    const int q = r ^ ((2 << M) - 1);
+    const int a = v[r];
+    const int c = v[q];
+    v[r] = min(a, c);
+    v[q] = max(a, c);
+  }
+}
+
+// The first step of a stage whose top bit is lane bit B: lanes l and
+// l ^ (2^(B+1) - 1), register r against the partner's register K-1-r
+// (every register bit flips too); the lane whose bit B is set keeps the
+// max.
+template <int K, int B>
+__device__ __forceinline__ void lane_mirror(int (&v)[K], int lane) {
+  constexpr int kMask = (2 << B) - 1;
+  const bool upper = lane & (1 << B);
+#pragma unroll
+  for (int r = 0; r < K / 2; ++r) {
+    const int p = __shfl_xor_sync(0xffffffffu, v[K - 1 - r], kMask);
+    const int q = __shfl_xor_sync(0xffffffffu, v[r], kMask);
+    v[r] = upper ? max(v[r], p) : min(v[r], p);
+    v[K - 1 - r] = upper ? max(v[K - 1 - r], q) : min(v[K - 1 - r], q);
+  }
+}
+
+// Stages M..L-1 of the sort of an L-bit block in the consecutive layout.
+template <int K, int L, int M>
+__device__ __forceinline__ void sort_stages(int (&v)[K], int lane) {
+  constexpr int LK = ilog2(K);
+  if constexpr (M < LK) {
+    reg_mirror<K, M>(v);
+    reg_steps<K, M - 1, 0>(v);
+  } else {
+    lane_mirror<K, M - LK>(v, lane);
+    lane_steps<K, M - LK - 1, 0>(v, lane);
+    reg_steps<K, LK - 1, 0>(v);
+  }
+  if constexpr (M + 1 < L) sort_stages<K, L, M + 1>(v, lane);
+}
+
+// Word of key i of a warp's chunk in its shared-memory tile: lane l's
+// 16-byte pieces are permuted by l's bits (i >> 5 is l >> (5 - log2 K)),
+// so that the 8 lanes of a quarter warp reach 8 distinct groups of 4 banks
+// in a row access, and a column access (i >> 5 fixed) 32 distinct banks.
+template <int K>
+__device__ __forceinline__ int swizzle_rows(int i) {
+  constexpr int kPieces = K >= 8 ? K / 4 - 1 : 0;
+  return i ^ (((i >> 5) & kPieces) << 2);
+}
+
+// Lane `lane`'s K consecutive keys from (rows_from_smem) or to (the other)
+// the warp's tile, in 16-byte pieces (8-byte at K = 2).
+template <int K>
+__device__ __forceinline__ void rows_from_smem(int (&v)[K], const int* s,
+                                               int lane) {
+  if constexpr (K >= 4) {
+#pragma unroll
+    for (int q = 0; q < K / 4; ++q) {
+      const int4 c =
+          *reinterpret_cast<const int4*>(s + swizzle_rows<K>(lane * K + 4 * q));
+      v[4 * q] = c.x;
+      v[4 * q + 1] = c.y;
+      v[4 * q + 2] = c.z;
+      v[4 * q + 3] = c.w;
+    }
+  } else {
+    const int2 c = *reinterpret_cast<const int2*>(s + lane * K);
+    v[0] = c.x;
+    v[1] = c.y;
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void rows_to_smem(const int (&v)[K], int* s,
+                                             int lane) {
+  if constexpr (K >= 4) {
+#pragma unroll
+    for (int q = 0; q < K / 4; ++q)
+      *reinterpret_cast<int4*>(s + swizzle_rows<K>(lane * K + 4 * q)) =
+          make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else {
+    *reinterpret_cast<int2*>(s + lane * K) = make_int2(v[0], v[1]);
+  }
+}
+
+// One warp's chunk at in / out; FULL drops the bounds checks of the common
+// case, a whole chunk. Past `valid` the lanes hold zeros in whole blocks of
+// their own and store nothing.
+template <int BLOCK, bool FULL>
+__device__ __forceinline__ void sort_chunk(const int* __restrict__ in,
+                                           int* __restrict__ out, int* s,
+                                           int valid, int lane) {
+  constexpr int K = SortShape<BLOCK>::K;
+  int v[K];
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const int i = r * 32 + lane;
+    v[r] = FULL || i < valid ? in[i] : 0;
+  }
+#pragma unroll
+  for (int r = 0; r < K; ++r) s[swizzle_rows<K>(r * 32 + lane)] = v[r];
+  __syncwarp();
+  rows_from_smem<K>(v, s, lane);
+  sort_stages<K, ilog2(BLOCK), 0>(v, lane);
+  rows_to_smem<K>(v, s, lane);          // each lane's own words: no hazard
+  __syncwarp();
+  // Marked as rewritten, so that ptxas computes the column addresses anew
+  // here instead of holding them across the sort (which spilled at K = 32).
+  asm volatile("" : "+r"(lane), "+r"(valid));
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const int i = r * 32 + lane;
+    if (FULL || i < valid) out[i] = s[swizzle_rows<K>(i)];
+  }
+}
+
+// K1: each warp sorts the BLOCK-key blocks of one 32K-key chunk of the
+// flat array.
+template <int BLOCK>
+__global__ void __launch_bounds__(kSortThreads, 65536 / (64 * kSortThreads))
+    bitonic_sort_warp_kernel(const int* __restrict__ in,
+                             int* __restrict__ out, int64_t n_total) {
+  constexpr int CHUNK = SortShape<BLOCK>::CHUNK;
+  __shared__ __align__(16) int tile[kSortWarps * CHUNK];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t base =
+      (static_cast<int64_t>(blockIdx.x) * kSortWarps + warp) * CHUNK;
+  if (base >= n_total) return;          // the whole warp is past
+  const int64_t rest = n_total - base;
+  int* s = tile + warp * CHUNK;
+  if (rest >= CHUNK)
+    sort_chunk<BLOCK, true>(in + base, out + base, s, CHUNK, lane);
+  else
+    sort_chunk<BLOCK, false>(in + base, out + base, s,
+                             static_cast<int>(rest), lane);
+}
+
 // K3, scalar form. One thread per pair (i, i+d), i = 2t - (t mod d):
 // out[i] = min, out[i+d] = max. flip != 0 reads the partner mirrored
 // inside its 2d-run, x[i + 2d - 1 - 2(t mod d)], which folds the bitonic
@@ -405,6 +561,20 @@ int grid_for(int64_t work, int threads) {
   return static_cast<int>(blocks < cap ? blocks : cap);
 }
 
+// One K1 launch over n_total / BLOCK blocks, one warp a chunk.
+template <int BLOCK>
+int launch_sort(const int* in, int* out, int64_t n_total,
+                cudaStream_t stream) {
+  constexpr int64_t kKeys =
+      static_cast<int64_t>(kSortWarps) * SortShape<BLOCK>::CHUNK;
+  const int64_t blocks = (n_total + kKeys - 1) / kKeys;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  bitonic_sort_warp_kernel<BLOCK>
+      <<<static_cast<unsigned>(blocks), kSortThreads, 0, stream>>>(
+          in, out, n_total);
+  return cudaGetLastError();
+}
+
 // One K2 launch over n_total / SEG segments.
 template <int SEG>
 int launch_merge(const int* in, int* out, int64_t n_total, int reverse,
@@ -448,12 +618,21 @@ int bitonic_sort_blocks(const void* in, void* out, long long n_total,
                         int block, void* stream) {
   if (!is_pow2(block) || block < 2 || block > 1024 || n_total % block)
     return cudaErrorInvalidValue;
-  const int threads = block / 2;
-  bitonic_sort_blocks_kernel<<<static_cast<unsigned>(n_total / block),
-                               threads, block * sizeof(int),
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(in), static_cast<int*>(out), block);
-  return cudaGetLastError();
+  const auto* src = static_cast<const int*>(in);
+  auto* dst = static_cast<int*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (block) {
+    case 2: return launch_sort<2>(src, dst, n_total, st);
+    case 4: return launch_sort<4>(src, dst, n_total, st);
+    case 8: return launch_sort<8>(src, dst, n_total, st);
+    case 16: return launch_sort<16>(src, dst, n_total, st);
+    case 32: return launch_sort<32>(src, dst, n_total, st);
+    case 64: return launch_sort<64>(src, dst, n_total, st);
+    case 128: return launch_sort<128>(src, dst, n_total, st);
+    case 256: return launch_sort<256>(src, dst, n_total, st);
+    case 512: return launch_sort<512>(src, dst, n_total, st);
+    default: return launch_sort<1024>(src, dst, n_total, st);
+  }
 }
 
 int bitonic_merge_smem(const void* in, void* out, long long n_total, int seg,

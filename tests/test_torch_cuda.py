@@ -39,22 +39,13 @@ def _card_keys(shape, seed=0):
                          device="cuda", dtype=torch.int32)
 
 
-@pytest.mark.cuda
-def test_cuda_bitonic_sort_blocks(card):
-    x = _card_keys((8, 1 << 16))
-    before = cuda.launches["bitonic_sort_blocks"]
-    got = tbk.sort_blocks(x, 1024)
-    assert torch.equal(got, tbk.sort_blocks_plain(x, 1024))
-    assert cuda.launches["bitonic_sort_blocks"] == before + 1
-
-
+BLOCKS = [1 << j for j in range(1, 11)]        # 2 .. MAX_BLOCK
 SEGMENTS = [1 << j for j in range(1, 15)]      # 2 .. SMEM_MAX_SEG
 
 
-def _merge_rows(rows, n, seg, seed=0):
-    """Sorted runs of seg/2 keys, with the edge rows: all INT_MAX (the hi
-    sentinel), duplicates, INT_MIN among INT_MAX and small keys; the last
-    row is left unsorted."""
+def _edge_rows(rows, n, seed=0):
+    """Random keys with the edge rows: all INT_MAX (the hi sentinel),
+    duplicates, INT_MIN among INT_MAX and small keys."""
     i32 = torch.iinfo(torch.int32)
     x = _card_keys((rows, n), seed)
     x[1] = i32.max
@@ -62,6 +53,39 @@ def _merge_rows(rows, n, seg, seed=0):
     pick = _card_keys((n,), seed + 1) & 3
     x[3] = torch.where(pick == 0, i32.min,
                        torch.where(pick == 1, i32.max, x[3] & 15))
+    return x
+
+
+def _check_sort(x, block):
+    before = cuda.launches["bitonic_sort_blocks"]
+    got = tbk.sort_blocks(x, block)
+    torch.cuda.synchronize()
+    assert cuda.launches["bitonic_sort_blocks"] == before + 1
+    assert torch.equal(got, tbk.sort_blocks_plain(x, block))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", BLOCKS)
+def test_cuda_bitonic_sort_blocks(card, block):
+    """K1 at every block size, 8 rows with the edge rows."""
+    _check_sort(_edge_rows(8, 1 << 16), block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", BLOCKS)
+def test_cuda_bitonic_sort_blocks_offset_view(card, block):
+    """K1 on a row that starts one key into its allocation (so not 16-byte
+    aligned), 5 blocks long: at blocks below 32 the last warp's chunk is
+    partial."""
+    n = 5 * block
+    x = _card_keys((n + 1,))[1:].view(1, n)
+    _check_sort(x, block)
+
+
+def _merge_rows(rows, n, seg, seed=0):
+    """Sorted runs of seg/2 keys, with the edge rows (`_edge_rows`); the
+    last row is left unsorted."""
+    x = _edge_rows(rows, n, seed)
     x[:-1] = torch.sort(x[:-1].view(rows - 1, -1, seg // 2), dim=-1
                         ).values.view(rows - 1, n)
     return x
@@ -104,11 +128,11 @@ def test_cuda_probe_rank_count(card):
 
 # ------------------------------------------------ batched row counts
 @pytest.mark.cuda
-def test_cuda_bitonic_sort_blocks_batched_rows(card):
-    """K1 as Pallas #2: 64 rows (B = 8 requests x p = 8 shards)."""
-    x = _card_keys((64, 1 << 14))
-    got = tbk.sort_blocks(x, 1024)
-    assert torch.equal(got, tbk.sort_blocks_plain(x, 1024))
+@pytest.mark.parametrize("block", BLOCKS)
+def test_cuda_bitonic_sort_blocks_batched_rows(card, block):
+    """K1 as Pallas #2: 64 rows (B = 8 requests x p = 8 shards) with the
+    edge rows, at every block size."""
+    _check_sort(_edge_rows(64, 1 << 14), block)
 
 
 @pytest.mark.cuda

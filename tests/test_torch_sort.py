@@ -4,8 +4,9 @@ With the reference's own sampling draws injected, the port must reproduce
 `repro.sort.sort` bit for bit — shards, counts, splitter keys and ranks,
 overflow, indices and every SplitterStats field — over every input
 distribution (adversarial family included), for int32, uint32 and float32
-keys, ragged n, p in {1, 2, 4, 8}, and both the torch policy and the
-kernels' plain versions. Zero tolerance throughout.
+keys, ragged n, p in {1, 2, 4, 8} (and 3, 5, 6 under "kernel"), and both
+the torch policy and the kernels' plain versions. Zero tolerance
+throughout.
 """
 import numpy as np
 import pytest
@@ -120,3 +121,15 @@ def test_own_draws_sort_exactly():
                                          kernel_policy="kernel"))
     np.testing.assert_array_equal(again.shards.numpy(), out.shards.numpy())
     np.testing.assert_array_equal(again.counts.numpy(), out.counts.numpy())
+
+
+@pytest.mark.parametrize("p", [3, 5, 6])
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.float32])
+def test_odd_shard_counts_kernel_policy_match_reference(dtype, p):
+    """p not a power of two under "kernel": the shard length ceil(n/p) is
+    not one either, so every local sort sends sentinel-padded rows through
+    `sort_blocks` (the kernels' plain versions on the CPU)."""
+    x = _keys(dtype, N_RAGGED, seed=10 + p)
+    got, want = _both(x, p, port_overrides={"kernel_policy": "kernel"})
+    assert_sort_outputs_equal(got, want)
+    np.testing.assert_array_equal(got.gather(), np.sort(x))
