@@ -22,7 +22,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      the batched sort's 64 = B*p rows of 2^18 (K4s and K4: sorted keys
      (8, 2,000,000) x 256 probes and (64, 250,000) x a distinct probe row
      each, and 70,000 rows past gridDim.y's 65,535, K4s also against K4;
-     K3 also on the batched merges' 64 rows of 2^20 and 2^21 keys) — then
+     K3 also on the batched merges' 64 rows of 2^20 and 2^21 keys, and K3
+     at every distance above 16,384 with K2's tail on the post-exchange
+     merges' 8 rows of 2^22..2^25 keys: dense at capacity_scale 1..4 and
+     the spill merges) — then
      timed by CUDA events beside its plain version, its bound, the floor
      of an empty launch and, where one PyTorch call computes the same
      function, that call (`library_ms`, a yardstick only); one row per
@@ -54,7 +57,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      a torch.profiler breakdown of one warm sort (the 15 largest names and
      every kernel of the port); the warm batched sort (dense, median of 5)
      beside the same 8 requests as 8 sequential warm sort() calls, under
-     both policies, and a profile of one warm batched sort.
+     both policies, and a profile of one warm batched sort;
+  7. recovery: `sort` of 16,000,000 PRESORTED and 16,000,000 REVERSE
+     int32 keys (repro_torch.data.distributions) under on_overflow
+     "raise" (the overflow is recorded; the result stays inexact),
+     "retry" (equal to np.sort; the RecoveryStats fields are printed) and
+     "spill" (equal to np.sort, overflow 0), each retry and spill run
+     launching every kernel of the path and not the counting K4, and
+     giving the same shards and counts as kernel_policy="torch"; then
+     `sort_batched` of 8 PRESORTED/REVERSE rows of 2,000,000 keys under
+     retry and spill, each row equal to np.sort of the row. The spill
+     merge's largest buffer is reckoned before the run, and the peak of
+     allocated device memory is read for each retry and spill run under
+     each policy;
+  8. permutations: (a) MoE dispatch at Phi-3.5-MoE's routing (16 experts,
+     top-2; src/repro/configs/phi35_moe.py): `sort_kv` of 16,000,000
+     expert ids in [0, 16) with the token of each slot as the value (4 key
+     bits + 24 tag bits: int32 packing, the kernels), held to the stable
+     NumPy order, launch-gated as the main paths; (b) `argsort` of
+     WEAK_SCALING's UNIF keys (30 + 24 bits: int64 packing) and (c) `sort`
+     of 16,000,000 standard-normal float64 keys, both on the torch route:
+     equal to NumPy, zero kernel launches, every output tensor on the
+     card; (d) `argsort` of the PRESORTED keys raising RuntimeError from
+     gather_perm_checked under "raise" and equal to np.arange under
+     "retry";
+  9. times: the warm medians (host clock around torch.cuda.synchronize())
+     of retry and spill on the PRESORTED keys and of the MoE sort_kv, and
+     a torch.profiler breakdown of one warm call of each.
 
 Every measurement line is one JSON object carrying the card's name and
 power limit. The line before the last is the card line; the kernels line
@@ -404,11 +433,39 @@ def kernel_phase(torch, card, floor_ms):
             f"strided_compare_exchange(flip={flip})",
             MK.strided_compare_exchange(x, d, flip),
             MK.strided_compare_exchange_plain(x, d, flip)))
+    # ... and #7 K3 with #8 K2's tail at the post-exchange merges of 8
+    # rows: 8 runs of 2^18..2^21 keys (dense at capacity_scale 1..4, the
+    # batched spill's 2p runs of 2^18) and 16 runs of 2^21 (the spill
+    # merge), K3 at every distance above K2's segment, both relayouts
+    merge_shapes = []
+    tail_err = 0
+    for log_n in (22, 23, 24, 25):
+        xr = keys((P, 1 << log_n))
+        dr = 1 << (log_n - 1)
+        while 2 * dr > seg:
+            for flip in (True, False):
+                err = max(err, check(
+                    f"strided_compare_exchange[(8, 2^{log_n}), d={dr}, "
+                    f"flip={flip}]",
+                    MK.strided_compare_exchange(xr, dr, flip),
+                    MK.strided_compare_exchange_plain(xr, dr, flip)))
+            dr //= 2
+        tail_err = max(tail_err, check(
+            f"bitonic_merge_smem[tail,(8, 2^{log_n})]",
+            BK.bitonic_merge_smem(xr, seg, False),
+            BK.bitonic_merge_plain(xr, seg, False)))
+        merge_shapes.append([P, 1 << log_n])
+        del xr
+    tail_row = next(r for r in rows if r["site"] == 8)
+    tail_row["max_abs_err"] = max(tail_row["max_abs_err"], tail_err)
+    tail_row["shapes_checked"] = [[P, ROW]] + merge_shapes
     row(7, "strided_compare_exchange", "K3", "strided_compare_exchange",
         "sort", f"{PALLAS}/merge/kernel.py:49", err,
         lambda: MK.strided_compare_exchange(x, d, True),
         lambda: MK.strided_compare_exchange_plain(x, d, True),
-        None, 2 * 4 * n, n)
+        None, 2 * 4 * n, n, timed_shape=[P, ROW], timed_distance=d,
+        shapes_checked=[[P, ROW]] + merge_shapes,
+        distances_checked="every distance above 16,384 at the merge shapes")
 
     # #5 K4s: one HSS round's histogram, 8 x 2,000,000 sorted keys x 256,
     # against its plain version and the counting K4
@@ -426,7 +483,7 @@ def kernel_phase(torch, card, floor_ms):
         f"{PALLAS}/histogram/kernel.py:35", err,
         lambda: HK.probe_rank_count(sorted_rows, probes),
         lambda: HK.probe_ranks_plain(sorted_rows, probes),
-        lambda: torch.searchsorted(sorted_rows, probes, side="left"),
+        None,   # searchsorted needs sorted keys: not the count's function
         4 * (sorted_rows.numel() + 2 * probes.numel()),
         2 * sorted_rows.numel() * PROBES,
         note="off the main path: assume_sorted=False")
@@ -538,7 +595,7 @@ def kernel_phase(torch, card, floor_ms):
         "sort_batched", f"{PALLAS}/histogram/kernel.py:64", err,
         lambda: HK.probe_rank_count(kb, qb),
         lambda: HK.probe_ranks_plain(kb, qb),
-        lambda: torch.searchsorted(kb, qb, side="left"),
+        None,   # searchsorted needs sorted keys: not the count's function
         4 * (kb.numel() + 2 * qb.numel()), 2 * kb.numel() * PROBES,
         rows_limit_checked=70_000,
         note="off the main path: assume_sorted=False")
@@ -823,6 +880,235 @@ def batched_timing_phase(torch, np, card):
                  exchange="dense")
 
 
+def recovery_inputs(np):
+    from repro_torch.data.distributions import make_adversarial
+
+    for name in ("PRESORTED", "REVERSE"):
+        yield name.lower(), make_adversarial(name, N_WEAK, seed=0)
+
+
+def launched(torch, fn):
+    """fn() with every launch count set to 0 just before it; returns
+    (result, the counts just after)."""
+    from repro_torch.kernels import cuda
+
+    cuda.reset_launches()
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(cuda.launches)
+
+
+def same_as_torch_policy(torch, out, ref) -> bool:
+    return (torch.equal(out.shards, ref.shards)
+            and torch.equal(out.counts, ref.counts))
+
+
+def recovery_phase(torch, np, card):
+    """Presorted and reversed keys under raise, retry and spill, unbatched
+    and batched; returns the launch counts of each recovery path."""
+    from repro_torch.data.distributions import make_adversarial
+    from repro_torch.sort import SortSpec, sort, sort_batched
+
+    # the spill merge: each of p destinations merges 2p runs of
+    # pow2_ceil(n_local) = 2^21 keys, int32
+    reckoned = P * 2 * P * ROW * 4
+    emit({"measure": "recovery_memory_reckoned",
+          "spill_merge_bytes": reckoned, "card": card})
+    paths = {}
+    peaks = []
+
+    def peak_of(fn):
+        """fn() and the peak of allocated device memory while it ran."""
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        peaks.append(torch.cuda.max_memory_allocated())
+        return out, peaks[-1]
+
+    for name, x in recovery_inputs(np):
+        want = np.sort(x)
+        raised = sort(x, SortSpec(shards=P, eps=EPS))
+        ovf_raise = int(raised.overflow)
+        raise_exact = bool(np.array_equal(raised.gather(), want))
+        del raised
+        for policy in ("retry", "spill"):
+            spec = SortSpec(shards=P, eps=EPS, on_overflow=policy)
+            (out, launches), peak = peak_of(
+                lambda: launched(torch, lambda: sort(x, spec)))
+            path = f"sort[{policy}]"
+            paths.setdefault(path, launches)
+            check_path_launches(f"{path} {name}", launches)
+            if int(out.overflow) != 0 or not np.array_equal(out.gather(),
+                                                            want):
+                fail(f"{path} {name}: not equal to np.sort (overflow "
+                     f"{int(out.overflow)})")
+            ref, ref_peak = peak_of(lambda: sort(
+                x, dataclasses.replace(spec, kernel_policy="torch")))
+            if not same_as_torch_policy(torch, out, ref):
+                fail(f"{path} {name}: kernel and torch policies disagree")
+            recovery = (None if out.recovery is None
+                        else dataclasses.asdict(out.recovery))
+            if policy == "retry" and (recovery is None
+                                      or recovery["attempts"] < 2):
+                fail(f"{path} {name}: retry recorded no escalation "
+                     f"({recovery})")
+            emit({"measure": "recovery", "input": name, "n": N_WEAK,
+                  "policy": policy, "raise_overflow": ovf_raise,
+                  "raise_exact": raise_exact, "overflow": int(out.overflow),
+                  "recovery": recovery,
+                  "rounds_used": int(out.stats.rounds_used),
+                  "launches": launches, "policies_agree": True,
+                  "max_allocated_bytes": peak,
+                  "torch_policy_max_allocated_bytes": ref_peak,
+                  "card": card})
+            del out, ref
+    emit({"measure": "recovery_memory", "max_allocated_bytes": max(peaks),
+          "card": card})
+
+    xs = np.stack([make_adversarial("PRESORTED" if b % 2 == 0 else
+                                    "REVERSE", N_REQ, seed=b)
+                   for b in range(B)])
+    for policy in ("retry", "spill"):
+        spec = SortSpec(shards=P, eps=EPS, on_overflow=policy)
+        out, launches = launched(torch, lambda: sort_batched(xs, spec))
+        path = f"sort_batched[{policy}]"
+        paths[path] = launches
+        check_path_launches(path, launches)
+        max_count, limit = check_batched(np, path, out, xs)
+        ref = sort_batched(xs, dataclasses.replace(spec,
+                                                   kernel_policy="torch"))
+        if not same_as_torch_policy(torch, out, ref):
+            fail(f"{path}: kernel and torch policies disagree")
+        emit({"measure": "recovery_batched", "input": "presorted_reverse",
+              "batch": B, "n": N_REQ, "policy": policy,
+              "overflow": out.overflow.cpu().tolist(),
+              "max_count": max_count, "limit": limit,
+              "recovery": (None if out.recovery is None
+                           else dataclasses.asdict(out.recovery)),
+              "launches": launches, "policies_agree": True, "card": card})
+    return paths
+
+
+def moe_inputs(np):
+    """Phi-3.5-MoE routing: 8,000,000 tokens, top-2 of 16 experts, so
+    16,000,000 (expert id, token) slots."""
+    ids = np.random.default_rng(5).integers(0, 16, N_WEAK).astype(np.int32)
+    tokens = np.arange(N_WEAK, dtype=np.int32) // 2
+    return ids, tokens
+
+
+def check_torch_route(name, launches, tensors):
+    """The inverse gate: no kernel launched, every tensor on the card."""
+    if any(launches.values()):
+        fail(f"{name}: kernels launched on the torch route: {launches}")
+    off = [i for i, t in enumerate(tensors) if t.device.type != "cuda"]
+    if off:
+        fail(f"{name}: output tensors {off} are not on the card")
+
+
+def permutation_phase(torch, np, card):
+    """sort_kv of the MoE dispatch on the kernels; argsort of wide keys and
+    sort of float64 keys on the torch route; argsort of presorted keys
+    under raise and retry. Returns the sort_kv path's launch counts."""
+    from repro_torch.data.distributions import (make_adversarial,
+                                                make_distribution)
+    from repro_torch.kernels import dispatch
+    from repro_torch.sort import SortSpec, argsort, sort, sort_kv
+
+    spec = SortSpec(shards=P, eps=EPS)
+    ids, tokens = moe_inputs(np)
+    (keys, vals), kv_launches = launched(
+        torch, lambda: sort_kv(ids, tokens, spec))
+    check_path_launches("sort_kv", kv_launches)
+    order = np.argsort(ids, kind="stable")
+    if not (np.array_equal(keys, ids[order])
+            and np.array_equal(vals, tokens[order])):
+        fail("sort_kv: not the stable NumPy order")
+    emit({"measure": "permutation", "case": "moe_dispatch_sort_kv",
+          "n": N_WEAK, "experts": 16, "top_k": 2, "packing": "int32",
+          "launches": kv_launches, "equal": True, "card": card})
+    del keys, vals, order
+
+    x = make_distribution("UNIF", N_WEAK, seed=0)
+    order, launches = launched(torch, lambda: argsort(x, spec))
+    out, more = launched(torch, lambda: sort(
+        x, dataclasses.replace(spec, stable=True)))
+    check_torch_route("argsort", {k: launches[k] + more[k]
+                                  for k in launches},
+                      [out.shards, out.counts, out.indices])
+    if not np.array_equal(order, np.argsort(x, kind="stable")):
+        fail("argsort of the UNIF keys differs from np.argsort")
+    emit({"measure": "permutation", "case": "argsort_unif_int64_packing",
+          "n": N_WEAK, "packing": str(out.indices.dtype),
+          "route": dispatch.resolve_policy("auto", "cuda", out.indices.dtype),
+          "launches": launches, "equal": True, "card": card})
+    del order, out
+
+    f = np.random.default_rng(6).standard_normal(N_WEAK)
+    out, launches = launched(torch, lambda: sort(f, spec))
+    check_torch_route("sort[float64]", launches, [out.shards, out.counts])
+    if not np.array_equal(out.gather().view(np.int64),
+                          np.sort(f).view(np.int64)):
+        fail("sort of float64 keys is not bit-equal to np.sort")
+    emit({"measure": "permutation", "case": "sort_normal_float64",
+          "n": N_WEAK, "route": dispatch.resolve_policy(
+              "auto", "cuda", out.shards.dtype),
+          "overflow": int(out.overflow), "launches": launches,
+          "equal": True, "card": card})
+    del out, f
+
+    x = make_adversarial("PRESORTED", N_WEAK, seed=0)
+    try:
+        argsort(x, spec)
+    except RuntimeError as exc:
+        if "dropped" not in str(exc):
+            raise
+        raised = str(exc)
+    else:
+        fail("argsort of presorted keys under 'raise' did not raise")
+    order = argsort(x, dataclasses.replace(spec, on_overflow="retry"))
+    if not np.array_equal(order, np.arange(N_WEAK)):
+        fail("argsort of presorted keys under 'retry' is not np.arange")
+    emit({"measure": "permutation", "case": "argsort_presorted",
+          "n": N_WEAK, "raise": raised[:120], "retry_equal": True,
+          "card": card})
+    return {"sort_kv": kv_launches}
+
+
+def recovery_timing_phase(torch, np, card):
+    from repro_torch.data.distributions import make_adversarial
+    from repro_torch.sort import SortSpec, sort, sort_kv
+
+    def median_ms(fn, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), times
+
+    x = make_adversarial("PRESORTED", N_WEAK, seed=0)
+    for policy in ("retry", "spill"):
+        spec = SortSpec(shards=P, eps=EPS, on_overflow=policy)
+        med, runs = median_ms(lambda: sort(x, spec))
+        emit({"measure": "recovery_e2e_warm", "input": "presorted_int32",
+              "n": N_WEAK, "policy": policy, "median_ms": med,
+              "runs_ms": runs, "card": card})
+        profile_line(torch, lambda: sort(x, spec), card,
+                     measure="recovery_profile", input="presorted_int32",
+                     policy=policy)
+    ids, tokens = moe_inputs(np)
+    spec = SortSpec(shards=P, eps=EPS)
+    med, runs = median_ms(lambda: sort_kv(ids, tokens, spec))
+    emit({"measure": "sort_kv_e2e_warm", "input": "moe_dispatch",
+          "n": N_WEAK, "median_ms": med, "runs_ms": runs, "card": card})
+    profile_line(torch, lambda: sort_kv(ids, tokens, spec), card,
+                 measure="sort_kv_profile", input="moe_dispatch")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -857,11 +1143,14 @@ def main() -> int:
     cascade_line(torch, card)
     paths = {"sort": slice_phase(torch, np, card),
              "sort_batched": batched_phase(torch, np, card)}
+    timing_phase(torch, np, card)
+    batched_timing_phase(torch, np, card)
+    paths.update(recovery_phase(torch, np, card))
+    paths.update(permutation_phase(torch, np, card))
     for r in rows:
         r["launches_by_path"] = {k: v[r["counter"]] for k, v in paths.items()}
         r["launches"] = r["launches_by_path"][r["path"]]
-    timing_phase(torch, np, card)
-    batched_timing_phase(torch, np, card)
+    recovery_timing_phase(torch, np, card)
 
     print(json.dumps({"kernels": rows}))
     print(card)

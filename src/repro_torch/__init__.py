@@ -8,12 +8,21 @@ has a hand-written CUDA counterpart under `repro_torch/kernels/csrc`, and a
 plain PyTorch version beside it that the CPU runs.
 
     from repro_torch.sort import SortSpec, sort, sort_batched
+    from repro_torch import argsort, sort_kv
     out = sort(x, SortSpec(shards=8))           # on the card by default
     out.gather()                                # flat sorted NumPy array
     outs = sort_batched(xs)                     # (B, n): B requests at once
+    order = argsort(x)                          # stable permutation
+    keys, vals = sort_kv(keys, vals)            # payloads ride along
 
 Subpackages mirror `repro`: core/ (splitters, exchange, hss), kernels/
 (bitonic_sort, merge, histogram, dispatch), sort/ (spec, partitioners,
 driver, adapters, grouping, api), data/ (the paper's input distributions),
-parallel/ (the Comm seam). Nothing here imports jax or repro.
+parallel/ (the Comm seam). Nothing here imports jax or repro. The package
+exports the permutation front doors; `sort` itself stays the subpackage's
+name (`repro_torch.sort`), so it is not re-exported here.
 """
+from repro_torch.sort.api import (
+    RecoveryStats, argsort, gather_perm_checked, sort_kv)
+
+__all__ = ["RecoveryStats", "argsort", "gather_perm_checked", "sort_kv"]

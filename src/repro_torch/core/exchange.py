@@ -1,16 +1,23 @@
 """Key redistribution (the data-exchange phase, paper Section 3.1 step 3).
 
-Counterpart of `repro.core.exchange`, two strategies:
+Counterpart of `repro.core.exchange`, three strategies:
 
-  dense      a capacity-padded all_to_all. Each source cuts its sorted
-             shard into p destination slices by searchsorted against the
-             splitters, sends at most `pair_cap` keys per (source,
-             destination) pair, and each destination k-way merges the p
-             sorted runs it receives. Keys past a pair's capacity are
-             dropped AND counted, so callers can detect it.
-  allgather  exact: every shard is gathered, and each destination keeps its
-             key-range window of every source run (two searchsorteds per
-             run) and merges the p windows.
+  dense        a capacity-padded all_to_all. Each source cuts its sorted
+               shard into p destination slices by searchsorted against
+               the splitters, sends at most `pair_cap` keys per (source,
+               destination) pair, and each destination k-way merges the p
+               sorted runs it receives. Keys past a pair's capacity are
+               dropped AND counted, so callers can detect it.
+  dense_spill  the dense channel plus an exact spill channel: the keys a
+               pair's capacity would drop are compacted into a side
+               buffer, all_gathered, and each destination takes its
+               key-range window of every source's spill run and merges
+               those p windows with the p dense runs. Only receive-side
+               truncation (out_cap) can still drop keys. This is
+               `SortSpec(on_overflow="spill")`.
+  allgather    exact: every shard is gathered, and each destination keeps
+               its key-range window of every source run (two
+               searchsorteds per run) and merges the p windows.
 
 HSS's balanced splitting guarantees at most (1+eps)*N/p keys per
 destination, which is what makes the static `out_cap` sound.
@@ -18,8 +25,10 @@ destination, which is what makes the static `out_cap` sound.
 The batched forms take (p, B, n_local) shards and (B, p-1) splitters — the
 shard axis leading, so `Comm` moves all B requests in one call per phase
 (`BATCH_FUSED_STRATEGIES`) — and every destination's work runs at once.
-The unbatched `exchange` is the batched one at B = 1. dense_spill and
-ragged come with ROADMAP queue 1 item 8, batched and unbatched alike.
+dense_spill's batched form runs one request at a time, as the reference's
+does (exchange.py:430), so its collectives grow with B. The unbatched
+`exchange` is the batched one at B = 1. ragged comes with ROADMAP queue 1
+item 4, batched and unbatched alike.
 """
 from __future__ import annotations
 
@@ -32,11 +41,15 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.merge.ops import cap_to, gather_runs
 from repro_torch.parallel.comm import Comm
 
-#: Collectives of one exchange, the same at any B. dense: payload + counts
+#: Collectives of one exchange of one request. dense: payload + counts
 #: all_to_all, the send-side overflow psum and the receive-side truncation
-#: psum; allgather: payload + counts all_gather and the truncation psum.
+#: psum; dense_spill: the dense channel's two all_to_all, the spill
+#: buffer's and spill counts' all_gather and the truncation psum;
+#: allgather: payload + counts all_gather and the truncation psum. The
+#: batch-fused strategies make the same calls at any B.
 EXCHANGE_COLLECTIVES = {
     "dense": {"all_to_all": 2, "all_gather": 0, "psum": 2},
+    "dense_spill": {"all_to_all": 2, "all_gather": 2, "psum": 1},
     "allgather": {"all_to_all": 0, "all_gather": 2, "psum": 1},
 }
 
@@ -94,25 +107,15 @@ def _rows_valid(n_valid, batch: int, n: int, device) -> torch.Tensor:
                            device=device).expand(batch)
 
 
-def exchange_dense_batched(local_sorted: torch.Tensor,
-                           splitter_keys: torch.Tensor, *, comm: Comm,
-                           cfg: ExchangeConfig, eps: float, n_valid=None):
-    """local_sorted (p, B, n_local), splitter_keys (B, p-1) -> (out (p, B,
-    out_cap) sorted sentinel-padded rows, n_valid (p, B), overflow (B,):
-    dropped keys, send and receive side)."""
+def _dense_send(local_sorted: torch.Tensor, starts: torch.Tensor,
+                sent_counts: torch.Tensor, cap: int, comm: Comm):
+    """The dense channel: each (source, request) row sends at most `cap`
+    keys of each destination slice, sentinel padded, in one all_to_all of
+    the keys and one of the counts. local_sorted (p, B, n), starts and
+    sent_counts (p_src, B, p_dst) -> (recv (p_dst, p_src, B, cap),
+    recv_counts (p_dst, p_src, B))."""
     p, batch, n = local_sorted.shape
     dev = local_sorted.device
-    cap = cfg.pair_cap(n, p)
-    out_cap = cfg.out_cap(n, p, eps)
-    sent_hi = hi_sentinel(local_sorted.dtype)
-
-    starts, counts = destination_slices(
-        local_sorted, splitter_keys,
-        _rows_valid(n_valid, batch, n, dev))          # (p_src, B, p_dst)
-    sent_counts = torch.minimum(counts, torch.tensor(cap, dtype=torch.int32,
-                                                     device=dev))
-    overflow = comm.psum((counts - sent_counts).sum(dim=-1,
-                                                    dtype=torch.int32))
     # the send buffer in all_to_all's layout (p_src, p_dst, B, cap); its
     # flat gather index into the shards is built once
     starts = starts.permute(0, 2, 1)
@@ -124,11 +127,60 @@ def exchange_dense_batched(local_sorted: torch.Tensor,
                             max=n - 1)
     vals = local_sorted.reshape(-1)[idx]
     del idx
-    buf = torch.where(pos < sent_counts[..., None], vals, sent_hi)
+    buf = torch.where(pos < sent_counts[..., None], vals,
+                      hi_sentinel(local_sorted.dtype))
     del vals
+    return comm.all_to_all(buf), comm.all_to_all(sent_counts)
 
-    recv = comm.all_to_all(buf)                       # (p_dst, p_src, B, cap)
-    recv_counts = comm.all_to_all(sent_counts)        # (p_dst, p_src, B)
+
+def _gather_windows(runs: torch.Tensor, n_valid: torch.Tensor,
+                    splitter_keys: torch.Tensor, comm: Comm, slot: int):
+    """Every destination's key range [lo, hi) as a contiguous window of
+    each gathered sorted run, by two searchsorteds per (run,
+    destination): runs (p_src, B, n), n_valid (p_src, B), splitter_keys
+    (B, p-1) -> (windows (p_dst, B, p_src, slot) sentinel padded, counts
+    (p_dst, B, p_src)). slot must bound every window."""
+    p, batch, n = runs.shape
+    dev = runs.device
+    me = comm.axis_index(dev)                                 # (p_dst,)
+    lo = splitter_keys[:, torch.clamp(me - 1, min=0)]         # (B, p_dst)
+    hi = splitter_keys[:, torch.clamp(me, max=p - 2)]
+    a = torch.searchsorted(runs, lo.expand(p, batch, p).contiguous(),
+                           side="left").to(torch.int32)
+    b = torch.searchsorted(runs, hi.expand(p, batch, p).contiguous(),
+                           side="left").to(torch.int32)
+    a = torch.where(me > 0, a, 0)                 # (p_src, B, p_dst)
+    b = torch.where(me < p - 1, b, n)
+    ends = torch.minimum(b, n_valid[..., None])
+    starts = torch.minimum(a, ends).permute(2, 1, 0)
+    counts = (ends.permute(2, 1, 0) - starts)     # (p_dst, B, p_src)
+    # each request's p source runs back to back; every (destination,
+    # request) row gathers its p windows at once
+    flat = runs.transpose(0, 1).reshape(batch, p * n)
+    src = torch.arange(p, dtype=torch.int32, device=dev) * n
+    return gather_runs(flat, src + starts, counts, slot), counts
+
+
+def exchange_dense_batched(local_sorted: torch.Tensor,
+                           splitter_keys: torch.Tensor, *, comm: Comm,
+                           cfg: ExchangeConfig, eps: float, n_valid=None):
+    """local_sorted (p, B, n_local), splitter_keys (B, p-1) -> (out (p, B,
+    out_cap) sorted sentinel-padded rows, n_valid (p, B), overflow (B,):
+    dropped keys, send and receive side)."""
+    p, batch, n = local_sorted.shape
+    dev = local_sorted.device
+    cap = cfg.pair_cap(n, p)
+    out_cap = cfg.out_cap(n, p, eps)
+
+    starts, counts = destination_slices(
+        local_sorted, splitter_keys,
+        _rows_valid(n_valid, batch, n, dev))          # (p_src, B, p_dst)
+    sent_counts = torch.minimum(counts, torch.tensor(cap, dtype=torch.int32,
+                                                     device=dev))
+    overflow = comm.psum((counts - sent_counts).sum(dim=-1,
+                                                    dtype=torch.int32))
+    recv, recv_counts = _dense_send(local_sorted, starts, sent_counts, cap,
+                                    comm)   # (p_dst, p_src, B, cap)
     # p sorted sentinel-tailed runs of cap keys per (destination, request)
     merged = dispatch.merge_runs(recv.transpose(1, 2),
                                  policy=cfg.kernel_policy)
@@ -139,6 +191,92 @@ def exchange_dense_batched(local_sorted: torch.Tensor,
     trunc = torch.clamp(n_recv - out_cap, min=0)
     overflow = overflow + comm.psum(trunc)
     return out, n_recv - trunc, overflow
+
+
+def exchange_dense_spill(local_sorted: torch.Tensor,
+                         splitter_keys: torch.Tensor, *, comm: Comm,
+                         cfg: ExchangeConfig, eps: float, n_valid=None):
+    """The dense exchange plus an exact spill channel, for one request:
+    local_sorted (p, n_local), splitter_keys (p-1,) -> (out (p, out_cap),
+    n_valid (p,), overflow scalar: receive-side truncation only).
+
+    The dense channel is `exchange_dense_batched`'s. A key spills when its
+    offset in its destination slice is past the pair's capacity; each
+    source compacts its spilled keys (a local sort of the masked row keeps
+    them sorted), the spill rows and their counts are all_gathered, and
+    each destination takes its key-range window of every spill row, as
+    the allgather exchange does. The windows land where the dense slices
+    would have sent those keys, so the merge of the p dense runs and the p
+    windows equals an uncapped dense exchange."""
+    p, n = local_sorted.shape
+    dev = local_sorted.device
+    cap = cfg.pair_cap(n, p)
+    out_cap = cfg.out_cap(n, p, eps)
+    sent_hi = hi_sentinel(local_sorted.dtype)
+    nv = torch.as_tensor(n if n_valid is None else n_valid,
+                         dtype=torch.int32, device=dev)
+
+    starts, counts = destination_slices(local_sorted, splitter_keys,
+                                        nv)                 # (p_src, p_dst)
+    sent_counts = torch.minimum(counts, torch.tensor(cap, dtype=torch.int32,
+                                                     device=dev))
+    recv, recv_counts = _dense_send(local_sorted[:, None], starts[:, None],
+                                    sent_counts[:, None], cap,
+                                    comm)   # (p_dst, p_src, 1, cap)
+
+    # -- the spill channel: position i spills iff its offset in its
+    # destination slice is past that pair's capacity
+    at = torch.arange(n, dtype=torch.int32, device=dev).expand(p, n)
+    dest = torch.searchsorted(starts[:, 1:].contiguous(), at.contiguous(),
+                              side="right")
+    offset = at - torch.gather(starts, 1, dest)
+    spilled = (offset >= torch.gather(sent_counts, 1, dest)) & (at < nv)
+    del dest, offset
+    n_spill = spilled.sum(dim=-1, dtype=torch.int32)          # (p_src,)
+    spill = dispatch.local_sort(torch.where(spilled, local_sorted, sent_hi),
+                                policy=cfg.kernel_policy)
+    del spilled
+    # slot = n bounds every window; it is rounded up to the merge's power
+    # of two, which only adds sentinels past every run (they sort to the
+    # tail and cap_to cuts them), so the cascade neither pads nor slices
+    slot = pow2_ceil(n)
+    windows, s_counts = _gather_windows(
+        comm.all_gather(spill[:, None]), comm.all_gather(n_spill[:, None]),
+        splitter_keys[None], comm, slot)          # (p_dst, 1, p_src, slot)
+    del spill
+
+    # -- both channels as 2p runs of slot keys per destination
+    runs = torch.full((p, 1, 2 * p, slot), sent_hi, dtype=recv.dtype,
+                      device=dev)
+    runs[:, :, :p, :cap] = recv.transpose(1, 2)
+    runs[:, :, p:] = windows
+    del recv, windows
+    out = cap_to(dispatch.merge_runs(runs, policy=cfg.kernel_policy),
+                 out_cap)
+    del runs
+    n_recv = (recv_counts.sum(dim=1, dtype=torch.int32)
+              + s_counts.sum(dim=-1, dtype=torch.int32))      # (p_dst, 1)
+    trunc = torch.clamp(n_recv - out_cap, min=0)
+    return out[:, 0], (n_recv - trunc)[:, 0], comm.psum(trunc)[0]
+
+
+def exchange_dense_spill_batched(local_sorted: torch.Tensor,
+                                 splitter_keys: torch.Tensor, *, comm: Comm,
+                                 cfg: ExchangeConfig, eps: float,
+                                 n_valid=None):
+    """dense_spill over (p, B, n_local) shards and (B, p-1) splitters, one
+    request at a time (the spill windows do not batch-fuse, as in the
+    reference): B times one request's collectives. Returns as
+    `exchange_dense_batched`."""
+    p, batch, n = local_sorted.shape
+    nv = _rows_valid(n_valid, batch, n, local_sorted.device)
+    outs = [exchange_dense_spill(local_sorted[:, b].contiguous(),
+                                 splitter_keys[b], comm=comm, cfg=cfg,
+                                 eps=eps, n_valid=nv[b])
+            for b in range(batch)]
+    out, n_out, overflow = zip(*outs)
+    return (torch.stack(out, dim=1), torch.stack(n_out, dim=1),
+            torch.stack(overflow))
 
 
 def exchange_allgather_batched(local_sorted: torch.Tensor,
@@ -155,31 +293,13 @@ def exchange_allgather_batched(local_sorted: torch.Tensor,
     everything = comm.all_gather(local_sorted)                # (p, B, n)
     nv = comm.all_gather(
         _rows_valid(n_valid, batch, n, dev).expand(p, batch))  # (p_src, B)
-    # Every destination's key range [lo, hi) at once: a contiguous window
-    # of each sorted source run, two searchsorteds per (run, destination).
-    me = comm.axis_index(dev)                                 # (p_dst,)
-    lo = splitter_keys[:, torch.clamp(me - 1, min=0)]         # (B, p_dst)
-    hi = splitter_keys[:, torch.clamp(me, max=p - 2)]
-    a = torch.searchsorted(everything, lo.expand(p, batch, p).contiguous(),
-                           side="left").to(torch.int32)
-    b = torch.searchsorted(everything, hi.expand(p, batch, p).contiguous(),
-                           side="left").to(torch.int32)
-    a = torch.where(me > 0, a, 0)                 # (p_src, B, p_dst)
-    b = torch.where(me < p - 1, b, n)
-    ends = torch.minimum(b, nv[..., None])
-    starts = torch.minimum(a, ends)
-    counts = (ends - starts).permute(2, 1, 0)     # (p_dst, B, p_src)
+    # slot = n bounds every window; it is rounded up to the merge's power
+    # of two, which only adds sentinels past every window (they sort to
+    # the tail and cap_to cuts them), so the cascade does not pad a
+    # second copy.
+    runs, counts = _gather_windows(everything, nv, splitter_keys, comm,
+                                   pow2_ceil(n))  # (p_dst, B, p_src, slot)
     n_out = counts.sum(dim=-1, dtype=torch.int32)             # (p_dst, B)
-
-    # Each request's p source runs back to back; every (destination,
-    # request) row gathers its p windows at once. slot = n bounds every
-    # window; it is rounded up to the merge's power of two here, which
-    # only adds sentinels past every window (they sort to the tail and
-    # cap_to cuts them), so the cascade does not pad a second copy.
-    flat = everything.transpose(0, 1).reshape(batch, p * n)
-    src = torch.arange(p, dtype=torch.int32, device=dev) * n
-    runs = gather_runs(flat, src + starts.permute(2, 1, 0), counts,
-                       pow2_ceil(n))              # (p_dst, B, p_src, slot)
     merged = dispatch.merge_runs(runs, policy=cfg.kernel_policy)
     del runs
     out = cap_to(merged, out_cap)
@@ -189,6 +309,7 @@ def exchange_allgather_batched(local_sorted: torch.Tensor,
 
 _STRATEGIES_BATCHED = {
     "dense": exchange_dense_batched,
+    "dense_spill": exchange_dense_spill_batched,
     "allgather": exchange_allgather_batched,
 }
 
@@ -205,7 +326,7 @@ def exchange_batched(local_sorted: torch.Tensor,
     if fn is None:
         raise NotImplementedError(
             f"exchange strategy {cfg.strategy!r} is not ported yet "
-            "(ROADMAP queue 1 item 8); the port has "
+            "(ROADMAP queue 1 item 4); the port has "
             f"{sorted(_STRATEGIES_BATCHED)}")
     return fn(local_sorted, splitter_keys, comm=comm, cfg=cfg, eps=eps,
               n_valid=n_valid)

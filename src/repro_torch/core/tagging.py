@@ -1,16 +1,18 @@
-"""Order-preserving key encodings onto int32 (paper Section 6.3 support).
+"""Order-preserving key encodings onto signed ints (paper Section 6.3
+support).
 
-Counterpart of `repro.core.tagging` for 32-bit keys. The core sorts int32
-only, so the front door maps every key type onto it first:
+Counterpart of `repro.core.tagging`. The core sorts int32 or int64, so the
+front door maps every key type onto one of them first:
 
   float32 -> int32  the IEEE-754 bijection (negative floats bitwise NOT,
                     nonnegative floats get the sign bit, then recentre);
+  float64 -> int64  the same bijection on 64 bits; exact for every bit
+                    pattern, NaN payloads, +-0 and +-inf included;
   uint32  -> int32  a flip of the top bit, which maps unsigned order onto
                     signed order (torch has no uint32 `lt` or
                     `searchsorted`, so the flip happens before the core).
 
-`tag_bits` is the packing budget of implicit duplicate tagging. The
-float64/int64 bijection and int64 packing come with the next slice.
+`tag_bits` is the packing budget of implicit duplicate tagging.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import torch
 
 _SIGN = -2147483648          # 0x80000000 as an int32 bit pattern
 _LOW31 = 0x7FFFFFFF
+_SIGN64 = -2 ** 63           # 0x8000000000000000 as an int64 bit pattern
+_LOW63 = 2 ** 63 - 1
 
 
 def float32_to_sortable_int32(x: torch.Tensor) -> torch.Tensor:
@@ -33,6 +37,19 @@ def sortable_int32_to_float32(s: torch.Tensor) -> torch.Tensor:
     u = s ^ _SIGN
     i = torch.where(u >= 0, torch.bitwise_not(u), u & _LOW31)
     return i.view(torch.float32)
+
+
+def float64_to_sortable_int64(x: torch.Tensor) -> torch.Tensor:
+    """Order-preserving bijection float64 -> int64 (IEEE-754 trick)."""
+    i = x.view(torch.int64)
+    u = torch.where(i < 0, torch.bitwise_not(i), i | _SIGN64)
+    return u ^ _SIGN64
+
+
+def sortable_int64_to_float64(s: torch.Tensor) -> torch.Tensor:
+    u = s ^ _SIGN64
+    i = torch.where(u >= 0, torch.bitwise_not(u), u & _LOW63)
+    return i.view(torch.float64)
 
 
 def uint32_to_sortable_int32(x: torch.Tensor) -> torch.Tensor:

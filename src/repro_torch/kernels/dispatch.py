@@ -4,12 +4,16 @@ One selection layer over the sort hot spots — `local_sort`, `probe_ranks`
 and the post-exchange `merge_runs` — so the CPU tests and the card share
 one code path. The policy decides what runs:
 
-  "auto"    (default) the CUDA kernels on a CUDA tensor, the torch
-            primitives on a CPU one.
+  "auto"    (default) the CUDA kernels on a CUDA tensor of keys no wider
+            than 4 bytes, the torch primitives on a CPU tensor and on
+            64-bit keys (int64 packing, float64 and int64 keys), as the
+            reference sends those to XLA: no Pallas kernel sorts 64-bit
+            keys, so the kernels here take int32 only.
   "kernel"  always the kernel wrappers: on a CUDA tensor they launch the
             hand-written kernels; on a CPU tensor they run the kernels'
             plain PyTorch versions (the counterpart of Pallas interpret
-            mode, repro/kernels/__init__.py:28).
+            mode, repro/kernels/__init__.py:28). On 64-bit keys they raise
+            TypeError; nothing gives way to the torch route.
   "torch"   always the torch primitives (`torch.sort`,
             `torch.searchsorted`), the counterpart of "xla".
 
@@ -37,13 +41,16 @@ POLICIES = ("auto", "kernel", "torch")
 AUTO_SORT_MAX_N = 1 << 22
 
 
-def resolve_policy(policy: str, device) -> str:
-    """-> "kernel" | "torch" for a tensor on `device`."""
+def resolve_policy(policy: str, device, dtype: torch.dtype | None = None
+                   ) -> str:
+    """-> "kernel" | "torch" for keys of `dtype` on `device`."""
     if policy not in POLICIES:
         raise ValueError(
             f"unknown kernel_policy {policy!r}; available: {POLICIES}")
     if policy != "auto":
         return policy
+    if dtype is not None and dtype.itemsize > 4:
+        return "torch"
     return "kernel" if torch.device(device).type == "cuda" else "torch"
 
 
@@ -59,7 +66,7 @@ def local_sort(x: torch.Tensor, *, policy: str = "auto",
     applies to the row length."""
     if policy == "auto" and x.shape[-1] > AUTO_SORT_MAX_N:
         policy = "torch"
-    if resolve_policy(policy, x.device) == "torch":
+    if resolve_policy(policy, x.device, x.dtype) == "torch":
         return torch.sort(x, dim=-1).values
     return bops.local_sort(x, block=block or bops.DEFAULT_BLOCK)
 
@@ -82,7 +89,7 @@ def probe_ranks(keys: torch.Tensor, probes: torch.Tensor, *,
     if probes.shape[-1] == 0:
         return torch.zeros(probes.shape, dtype=torch.int32,
                            device=keys.device)
-    if resolve_policy(policy, keys.device) == "torch":
+    if resolve_policy(policy, keys.device, keys.dtype) == "torch":
         if assume_sorted:
             return torch.searchsorted(keys.contiguous(), probes.contiguous(),
                                       side="left").to(torch.int32)
@@ -95,7 +102,7 @@ def merge_runs(runs: torch.Tensor, *, policy: str = "auto") -> torch.Tensor:
 
     Bit-identical to `torch.sort` of each row; the kernel path merges in
     log(k) passes instead of re-sorting."""
-    if resolve_policy(policy, runs.device) == "torch":
+    if resolve_policy(policy, runs.device, runs.dtype) == "torch":
         return torch.sort(runs.reshape(runs.shape[:-2] + (-1,)),
                           dim=-1).values
     return mops.merge_sorted_runs(runs)

@@ -1,23 +1,32 @@
 """Dtype and duplicate-tagging adapters (counterpart of repro.sort.adapters).
 
-The core sorts distinct int32 keys. This module maps user keys onto that
-contract and back:
+The core sorts distinct int32 or int64 keys. This module maps user keys
+onto that contract and back:
 
-  * float32 keys go through the IEEE-754 bijection, uint32 keys through a
-    top-bit flip (repro_torch.core.tagging), int32 keys as they are;
-  * duplicate keys — always for `stable=True`, auto-detected otherwise —
-    are made distinct by implicit tagging (paper Section 6.3): keys are
-    rebased to their observed range and packed as (key << b) | index into
-    int32, so the tag doubles as the argsort permutation on the way out.
-    Packing into int32 only is the reference's behaviour with jax x64 off
-    (adapters.py:368-381); int64 packing, float64 keys, argsort and
-    sort_kv come with the next slice;
+  * float32 and float64 keys go through the IEEE-754 bijections onto
+    int32 and int64, uint32 keys through a top-bit flip onto int32
+    (repro_torch.core.tagging), int32 and int64 keys as they are;
+  * duplicate keys — always for `stable=True`, `argsort` and `sort_kv`,
+    auto-detected otherwise — are made distinct by implicit tagging
+    (paper Section 6.3): keys are rebased to their observed range and
+    packed as (key << b) | index, into int32 when key bits + tag bits
+    <= 30 and into int64 when <= 62, so the tag doubles as the argsort
+    permutation on the way out;
   * non-divisible inputs are padded before packing with the maximum real
     key, so pads sort to the global tail and decode trims them by index.
 
-Inside the plan every key is in the encoded int32 domain (for uint32, the
-flipped one), so `key_min`/`key_max` and the rebase are plain int32
-arithmetic whatever the user's dtype.
+The port has no x64 switch: required tagging (stable, argsort, sort_kv,
+tag=True, sentinel-valued keys) packs into int64 where the reference does
+so under `jax.enable_x64(True)`; with x64 off the reference raises there
+instead. Auto-detected duplicates are tagged only when the packing fits
+int32, and sort untagged otherwise, as the reference does with x64 off:
+untagged keys stay on the kernel route, where int64 packing would take
+the whole sort to the torch route (kernels.dispatch: the kernels take
+int32 only).
+
+Inside the plan every key is in the encoded domain (int32 for 32-bit keys,
+for uint32 the flipped one; int64 for 64-bit keys), so `key_min`/`key_max`
+and the rebase are plain integer arithmetic whatever the user's dtype.
 
 The batched engine's (B, n) requests share one plan (adapters.py:302): a
 duplicate in any row tags every row, and the rebase offset and packing
@@ -34,33 +43,38 @@ import torch
 
 from repro_torch.core.common import hi_sentinel
 from repro_torch.core.tagging import (
-    float32_to_sortable_int32, sortable_int32_to_float32,
-    sortable_int32_to_uint32, tag_bits, uint32_to_sortable_int32)
+    float32_to_sortable_int32, float64_to_sortable_int64,
+    sortable_int32_to_float32, sortable_int32_to_uint32,
+    sortable_int64_to_float64, tag_bits, uint32_to_sortable_int32)
 from repro_torch.sort.spec import SortSpec
 
-KEY_DTYPES = (torch.int32, torch.uint32, torch.float32)
-_INT32_MAX = torch.iinfo(torch.int32).max
+KEY_DTYPES = (torch.int32, torch.uint32, torch.float32, torch.int64,
+              torch.float64)
 
 
 def to_core(x: torch.Tensor) -> torch.Tensor:
-    """User keys -> order-preserving int32."""
+    """User keys -> order-preserving int32 (32-bit keys) or int64."""
     if x.dtype == torch.float32:
         return float32_to_sortable_int32(x)
+    if x.dtype == torch.float64:
+        return float64_to_sortable_int64(x)
     if x.dtype == torch.uint32:
         return uint32_to_sortable_int32(x)
     return x
 
 
 def _encoded_hi(dtype: torch.dtype) -> int:
-    """The encoded int32 of `dtype`'s +sentinel (+inf for float32)."""
+    """The encoded value of `dtype`'s +sentinel (+inf for floats)."""
     host = torch.tensor([hi_sentinel(dtype)], dtype=dtype)
     return int(to_core(host)[0])
 
 
 def from_core(enc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Order-preserving int32 -> user keys of `dtype`."""
+    """Order-preserving int32/int64 -> user keys of `dtype`."""
     if dtype == torch.float32:
         return sortable_int32_to_float32(enc)
+    if dtype == torch.float64:
+        return sortable_int64_to_float64(enc)
     if dtype == torch.uint32:
         return sortable_int32_to_uint32(enc)
     return enc
@@ -78,8 +92,13 @@ class SortOutput:
     overflow dropped-key count (0 => exact, the contract callers check).
     splitter_keys / splitter_ranks / stats  partitioner diagnostics
              (splitter keys decoded back to the key domain).
+    recovery how the overflow policy resolved the sort
+             (repro_torch.sort.RecoveryStats), attached by "retry"; None
+             otherwise.
     n        number of real input keys.
     """
+
+    recovery = None
 
     def __init__(self, shards, counts, indices, overflow, splitter_keys,
                  splitter_ranks, stats, n):
@@ -114,8 +133,11 @@ class BatchedSortOutput:
     shards (B, p, cap), counts (B, p), indices (B, p, cap) | None, overflow
     (B,), splitter_keys / splitter_ranks (B, p-1), stats with per-round
     fields (k, B) and rounds_used (B,); n is the per-request key count.
-    `request(b)` views one request as a SortOutput (stats stay batched).
+    `request(b)` views one request as a SortOutput (stats stay batched);
+    `recovery`, the batch's, is carried onto every view.
     """
+
+    recovery = None
 
     def __init__(self, shards, counts, indices, overflow, splitter_keys,
                  splitter_ranks, stats, n):
@@ -134,11 +156,13 @@ class BatchedSortOutput:
 
     def request(self, b: int) -> SortOutput:
         """Request b's result as a SortOutput view."""
-        return SortOutput(
+        out = SortOutput(
             self.shards[b], self.counts[b],
             None if self.indices is None else self.indices[b],
             self.overflow[b], self.splitter_keys[b], self.splitter_ranks[b],
             self.stats, self.n)
+        out.recovery = self.recovery
+        return out
 
     def gather(self, b: int) -> np.ndarray:
         """Request b's keys, globally sorted, as one (n,) NumPy array."""
@@ -160,13 +184,14 @@ class AdapterPlan:
     out_dtype: torch.dtype  # user-facing key dtype
     tagged: bool = False
     tag_b: int = 0
-    key_min: int = 0       # rebase offset in the encoded int32 domain
+    key_min: int = 0       # rebase offset in the encoded domain
     key_max: int = 0
+    pack_dtype: torch.dtype = torch.int32   # the tagged keys' dtype
     _enc: torch.Tensor | None = None   # encoded keys, cached by make_plan
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """Keys (n,), or (B, n) for the batched engine -> the
-        distinct-int32 core domain; every row gets its own index tags."""
+        """Keys (n,), or (B, n) for the batched engine -> the distinct
+        int32/int64 core domain; every row gets its own index tags."""
         enc = self._enc if self._enc is not None else to_core(x)
         if not self.tagged:
             return enc       # pads (hi sentinel) are appended by the driver
@@ -174,8 +199,10 @@ class AdapterPlan:
             pad = torch.full(enc.shape[:-1] + (self.n_pad,), self.key_max,
                              dtype=enc.dtype, device=enc.device)
             enc = torch.cat([enc, pad], dim=-1)
-        e = (enc.to(torch.int64) - self.key_min).to(torch.int32)
-        idx = torch.arange(e.shape[-1], dtype=torch.int32, device=e.device)
+        # the rebased key fits the pack dtype (make_plan checked the bits)
+        e = (enc.to(torch.int64) - self.key_min).to(self.pack_dtype)
+        idx = torch.arange(e.shape[-1], dtype=self.pack_dtype,
+                           device=e.device)
         return (e << self.tag_b) | idx
 
     def encode_probes(self, probes) -> torch.Tensor:
@@ -184,7 +211,7 @@ class AdapterPlan:
         if not self.tagged:
             return probes
         return ((probes.to(torch.int64) - self.key_min) << self.tag_b
-                ).to(torch.int32)
+                ).to(self.pack_dtype)
 
     def decode_batched(self, raw) -> BatchedSortOutput:
         """The raw batched driver tuple (shards (B, p, cap), counts (B, p),
@@ -210,18 +237,22 @@ class AdapterPlan:
         # the encoded domain (torch's uint32 kernels are few)
         shards = torch.where(valid, shards, _encoded_hi(self.out_dtype))
         # p == 1's empty splitter keys keep the reference's encoded dtype:
-        # int32 for float32 keys, the key dtype otherwise
-        if skeys.numel() or self.out_dtype == torch.uint32:
+        # the pack dtype when tagged, int32/int64 for float keys, the key
+        # dtype otherwise
+        if skeys.numel() or (self.out_dtype == torch.uint32
+                             and not self.tagged):
             skeys = from_core(skeys, self.out_dtype)
         return BatchedSortOutput(
             from_core(shards, self.out_dtype), counts, indices, overflow,
             skeys, sranks, stats, self.n)
 
     def _unrebase(self, rebased: torch.Tensor) -> torch.Tensor:
-        """Rebased int32 -> encoded int32, wrapping mod 2^32 as the
-        reference's int32/uint32 arithmetic does (only sentinel slots and
-        sentinel splitter keys ever wrap)."""
+        """Rebased pack dtype -> the encoded domain, wrapping mod 2^32 (or
+        2^64) as the reference's fixed-width arithmetic does (only
+        sentinel slots and sentinel splitter keys ever wrap)."""
         wide = rebased.to(torch.int64) + self.key_min
+        if self._enc.dtype == torch.int64:
+            return wide
         return ((wide + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
 
 
@@ -234,13 +265,16 @@ def as_keys(x, device) -> torch.Tensor:
     return x.to(device).contiguous()
 
 
-def _needs_tags(x: torch.Tensor, spec: SortSpec):
+def _needs_tags(x: torch.Tensor, spec: SortSpec, want_indices: bool):
     """-> (wanted, required). Required tagging errors out when the packing
     budget does not fit; merely wanted tagging (auto duplicate detection)
-    falls back to untagged, which still sorts correctly."""
+    falls back to untagged, which still sorts correctly. `want_indices`
+    (argsort, sort_kv) always tags."""
     if spec.tag is not None:
+        if not spec.tag and want_indices:
+            raise ValueError("argsort/sort_kv require tagging (tag=False set)")
         return spec.tag, spec.tag
-    if spec.stable:
+    if spec.stable or want_indices:
         return True, True
     # auto duplicate detection, as the reference does it with a plain
     # jnp.sort outside any kernel: sort each row, compare neighbours (float
@@ -251,7 +285,8 @@ def _needs_tags(x: torch.Tensor, spec: SortSpec):
     return bool((s[..., 1:] == s[..., :-1]).any()), False
 
 
-def make_plan(x: torch.Tensor, spec: SortSpec, p: int) -> AdapterPlan:
+def make_plan(x: torch.Tensor, spec: SortSpec, p: int,
+              want_indices: bool = False) -> AdapterPlan:
     """Inspect the input, (n,) or a (B, n) batch, and decide bijection,
     tagging and padding: one plan for the whole batch, its key range taken
     over all B rows."""
@@ -259,18 +294,17 @@ def make_plan(x: torch.Tensor, spec: SortSpec, p: int) -> AdapterPlan:
     if n == 0 or x.numel() == 0:
         raise ValueError("cannot sort an empty array")
     if x.dtype not in KEY_DTYPES:
-        raise NotImplementedError(
-            f"key dtype {x.dtype} is not ported yet: the port sorts int32, "
-            "uint32 and float32 (int64/float64 come with int64 packing, "
-            "ROADMAP queue 1)")
+        raise ValueError(
+            f"unsupported key dtype {x.dtype}: the port sorts int32, "
+            "uint32, float32, int64 and float64 keys")
     n_pad = (-n) % p
     plan = AdapterPlan(n=n, n_pad=n_pad, out_dtype=x.dtype)
     enc = to_core(x)
     plan._enc = enc
 
-    wanted, required = _needs_tags(x, spec)
+    wanted, required = _needs_tags(x, spec, want_indices)
     key_max = int(enc.max())
-    if key_max == _INT32_MAX:
+    if key_max == torch.iinfo(enc.dtype).max:
         # keys whose encoded value equals the hi sentinel of the untagged
         # path (dtype max, or a float NaN payload mapping onto it) would be
         # dropped as padding; tagging rebases them below it
@@ -287,15 +321,19 @@ def make_plan(x: torch.Tensor, spec: SortSpec, p: int) -> AdapterPlan:
     key_bits = max(1, (key_max - key_min).bit_length())
     b = tag_bits(p, (n + n_pad) // p)
     total = key_bits + b
-    if total > 30:            # one bit of headroom below the int32 sentinel
-        if not required:
-            return plan       # auto-tagging does not fit: sort untagged
-        raise ValueError(
-            f"key range needs {key_bits} bits + {b} tag bits > 30: int64 "
-            "packing is not ported yet (ROADMAP queue 1); pass tag=False "
-            "for known-distinct keys")
+    # one bit of headroom below each pack dtype's sentinel
+    if total <= 30:
+        pack_dtype = torch.int32
+    elif not required:
+        return plan           # auto-tagging does not fit int32: untagged
+    elif total <= 62:
+        pack_dtype = torch.int64
+    else:
+        raise ValueError(f"key_bits={key_bits} + tag_bits={b} > 62: "
+                         "compress the key range before sorting")
     plan.tagged = True
     plan.tag_b = b
     plan.key_min = key_min
     plan.key_max = key_max
+    plan.pack_dtype = pack_dtype
     return plan

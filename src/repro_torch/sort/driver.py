@@ -7,7 +7,7 @@ the collective seam and the sampling draws, runs the shard-level
 `sort_fn`, and strips the pads back out of the counts. The reference
 compiles the shard program once per shape and keeps it in an executable
 cache; eager PyTorch has no trace to cache, and the cache's hit-rate
-counters come with the serving slice (ROADMAP queue 1 item 11).
+counters come with the serving slice (ROADMAP queue 1 item 7).
 
 Shard s of request b holds columns s*n_local .. (s+1)*n_local of row b,
 as in the reference, so request b lands on the same shards as an
@@ -120,11 +120,16 @@ def run_batched(sort_fn, xs: torch.Tensor, *, p: int, seed: int = 0,
 
 def _draws(uniform, p: int, n_local: int, seed: int, device):
     """The round -> (p, n_local) draws: the seeded generator, or the
-    injected source moved onto the device."""
+    injected source moved onto the device. Injected draws keep a float64
+    dtype (the reference's under jax x64), so that `u < prob` compares as
+    the reference's does."""
     if uniform is None:
         return default_uniform(p, n_local, seed, device)
-    return lambda j: torch.as_tensor(uniform(j), dtype=torch.float32,
-                                     device=device)
+
+    def draws(j):
+        u = torch.as_tensor(uniform(j), device=device)
+        return u if u.dtype == torch.float64 else u.to(torch.float32)
+    return draws
 
 
 def masked_concat(shards: torch.Tensor, counts: torch.Tensor) -> np.ndarray:

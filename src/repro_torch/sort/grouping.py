@@ -3,7 +3,7 @@
 The port's own copy of `group_by_length` from `repro.sort.grouping`
 (grouping.py:25-77), numpy-free plain Python, so that `repro_torch` needs
 nothing of the JAX package. The rest of that module (the counting-sort
-dispatch helpers of MoE routing) comes with ROADMAP queue 1 item 10.
+dispatch helpers of MoE routing) comes with ROADMAP queue 1 item 6.
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ and differ only in how the p-1 splitters are found. A `Partitioner`
 implements `splitters_batched`; `sharded_batched` runs the skeleton over
 the batched engine's (p, B, n_local) rows with one collective per phase
 whatever B is (an unbatched sort is B = 1). The port registers "hss"; the
-baselines follow with ROADMAP queue 1 item 8.
+baselines follow with ROADMAP queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -87,7 +87,7 @@ def get_partitioner(name: str) -> Partitioner:
     except KeyError:
         raise NotImplementedError(
             f"sort algorithm {name!r} is not ported yet (ROADMAP queue 1 "
-            f"item 8); available: {sorted(_REGISTRY)}") from None
+            f"item 4); available: {sorted(_REGISTRY)}") from None
 
 
 def available_algorithms() -> tuple[str, ...]:

@@ -18,31 +18,41 @@ from repro_torch.core.exchange import ExchangeConfig
 
 ALGORITHMS = ("hss",)
 
-ON_OVERFLOW = ("raise",)
+ON_OVERFLOW = ("raise", "retry", "spill")
 
 
 @dataclasses.dataclass(frozen=True)
 class SortSpec:
     """Everything `sort()` needs.
 
-      algorithm      "hss" (the other partitioners: ROADMAP queue 1 item 8).
+      algorithm      "hss" (the other partitioners: ROADMAP queue 1 item 4).
       eps            load-balance slack: each shard <= (1+eps) N/p keys.
       rounds, sample_per_shard, adaptive   forwarded to HSSConfig.
-      exchange       "dense" or "allgather" (dense_spill and ragged: ROADMAP
-                     queue 1 item 8).
+      exchange       "dense", "dense_spill" or "allgather" (ragged: ROADMAP
+                     queue 1 item 4).
       pair_factor    dense: per-(src, dst) capacity multiplier.
       out_slack      output-buffer slack on the (1+eps) capacity.
       on_overflow    "raise": `sort()` reports the overflow counter for the
-                     caller to check; retry and spill come with ROADMAP
-                     queue 1 item 9.
+                     caller to check; `argsort`/`sort_kv` raise on a short
+                     gather. "retry": the counter is read on the host once
+                     per launch and, while nonzero, the sort runs again
+                     with `capacity_scale` doubled, warm-started from the
+                     failed attempt's splitters; after
+                     `max_overflow_retries` escalations one last attempt
+                     runs on the spill channel, and only if that truncates
+                     too does it raise. "spill": the dense exchange is
+                     swapped for dense_spill, which drops no key on the
+                     send side.
+      max_overflow_retries  escalations of "retry" before the spill attempt.
       capacity_scale uniform multiplier on every static buffer.
       shards         p, the number of emulated shards.
       device         where the sort runs: "cuda" (default) or "cpu".
       batch          route `sort()` through the batched engine: a (B, n)
                      array or a list of 1-D arrays (see `sort_batched`).
       stable, tag    duplicate tagging (paper Sec. 6.3): stable=True or
-                     tag=True always tags, tag=False never does, tag=None
-                     tags when duplicates are detected and the packing fits.
+                     tag=True always tags (`argsort`/`sort_kv` force it),
+                     tag=False never does, tag=None tags when duplicates
+                     are detected and the packing fits int32.
       kernel_policy  "auto" | "kernel" | "torch" (repro_torch.kernels
                      .dispatch); every choice gives the same bits.
       seed           seed of the sampling rounds' torch.Generator.
@@ -58,6 +68,7 @@ class SortSpec:
     pair_factor: float = 3.0
     out_slack: float = 1.0
     on_overflow: str = "raise"
+    max_overflow_retries: int = 3
     capacity_scale: float = 1.0
     shards: int = 8
     device: str = "cuda"
@@ -70,11 +81,28 @@ class SortSpec:
 
     def __post_init__(self):
         if self.on_overflow not in ON_OVERFLOW:
-            raise NotImplementedError(
-                f"on_overflow={self.on_overflow!r} is not ported yet "
-                "(ROADMAP queue 1 item 9); the port has 'raise'")
+            raise ValueError(
+                f"on_overflow must be one of {ON_OVERFLOW}, "
+                f"got {self.on_overflow!r}")
         if self.shards < 1:
             raise ValueError(f"shards must be >= 1, got {self.shards}")
+
+    def resolved_exchange(self) -> str:
+        """The exchange after the overflow policy: "spill" swaps the
+        capacity-dropping dense exchange for dense_spill; the exact
+        strategies stay as they are."""
+        if self.on_overflow == "spill" and self.exchange == "dense":
+            return "dense_spill"
+        return self.exchange
+
+    def overflow_structurally_zero(self) -> bool:
+        """True when the exchange cannot drop keys on the send side and
+        the (1+eps) guarantee sizes the receive buffers, so the overflow
+        counter needs no host check on the happy path. The reference's
+        predicate, strategy for strategy: "ragged" counts although the
+        port refuses it until ROADMAP queue 1 item 4."""
+        return self.resolved_exchange() in ("ragged", "dense_spill",
+                                            "allgather")
 
     def hss_config(self) -> HSSConfig:
         return HSSConfig(eps=self.eps, rounds=self.rounds,
@@ -84,7 +112,7 @@ class SortSpec:
                          kernel_policy=self.kernel_policy)
 
     def exchange_config(self) -> ExchangeConfig:
-        return ExchangeConfig(strategy=self.exchange,
+        return ExchangeConfig(strategy=self.resolved_exchange(),
                               pair_factor=self.pair_factor,
                               out_slack=self.out_slack,
                               capacity_scale=self.capacity_scale,

@@ -127,4 +127,4 @@ def test_bad_inputs_raise():
         tsort.sort_batched(np.zeros((2, 0), np.int32), spec)
     with pytest.raises(NotImplementedError):
         tsort.sort_batched(np.zeros((2, 8), np.int32), spec,
-                           exchange="dense_spill")
+                           exchange="ragged")

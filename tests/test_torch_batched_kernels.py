@@ -183,7 +183,7 @@ def test_auto_policy_row_ceiling(monkeypatch):
         raise AssertionError("kernel path")
 
     monkeypatch.setattr(td, "resolve_policy",
-                        lambda policy, device: "kernel"
+                        lambda policy, device, dtype=None: "kernel"
                         if policy == "auto" else policy)
     monkeypatch.setattr(td.bops, "local_sort", kernels_called)
     long_rows = torch.zeros((2, td.AUTO_SORT_MAX_N + 1), dtype=torch.int32)

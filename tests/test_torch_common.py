@@ -1,6 +1,7 @@
 """The port's substrate against the reference: common, tagging, the uint32
 flip, the Comm seam, the distributions copy, and the port's boundaries
-(no jax/repro imports, the card as default device, unported options)."""
+(no jax/repro imports, the card as default device, unported options and
+refused ones)."""
 import ast
 import math
 from pathlib import Path
@@ -14,6 +15,7 @@ import repro.core.common as rc
 import repro.core.tagging as rt
 import repro_torch.core.common as tc
 import repro_torch.core.tagging as tt
+import repro.sort as rsort
 import repro_torch.sort as tsort
 from repro.data import distributions as rdist
 from repro_torch.data import distributions as tdist
@@ -194,17 +196,22 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
 
 
 def test_unported_options_raise_not_implemented():
+    """ragged and the other partitioners are not ported yet; an unknown
+    overflow policy and an unsupported key dtype are refused as the
+    reference refuses them."""
     x = np.arange(64, dtype=np.int32)
-    with pytest.raises(NotImplementedError):
-        tsort.sort(x, tsort.SortSpec(device="cpu", exchange="dense_spill"))
     with pytest.raises(NotImplementedError):
         tsort.sort(x, tsort.SortSpec(device="cpu", exchange="ragged"))
     with pytest.raises(NotImplementedError):
         tsort.sort(x, tsort.SortSpec(device="cpu", algorithm="ams"))
-    with pytest.raises(NotImplementedError):
-        tsort.SortSpec(on_overflow="retry")
-    with pytest.raises(NotImplementedError):
-        tsort.sort(x.astype(np.float64), tsort.SortSpec(device="cpu"))
+    with pytest.raises(ValueError, match="on_overflow"):
+        tsort.SortSpec(on_overflow="drop")
+    with pytest.raises(ValueError, match="on_overflow"):
+        rsort.SortSpec(on_overflow="drop")
+    with pytest.raises(ValueError, match="unsupported"):
+        tsort.sort(x.astype(np.float16), tsort.SortSpec(device="cpu"))
+    with pytest.raises(ValueError, match="unsupported"):
+        rsort.sort(x.astype(np.float16), rsort.SortSpec())
 
 
 def test_sentinel_keys_force_tagging():

@@ -253,3 +253,100 @@ def test_cuda_sort_matches_numpy_and_torch_policy(card, dtype):
     assert torch.equal(out.shards.view(torch.int32),
                        ref.shards.view(torch.int32))
     assert torch.equal(out.counts, ref.counts)
+
+
+def _presorted(n, reverse=False):
+    x = np.linspace(0, 2 ** 30 - 1, n).astype(np.int32)
+    return x[::-1].copy() if reverse else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("policy", ["retry", "spill"])
+def test_cuda_sort_recovers_presorted_input(card, policy, reverse):
+    """Presorted keys overflow the dense exchange; retry and spill end
+    exact through the kernels, and the torch policy gives the same
+    shards."""
+    from repro_torch.sort import SortSpec, sort
+
+    x = _presorted(8 * 65536, reverse)
+    assert int(sort(x, SortSpec(shards=8)).overflow) > 0
+    cuda.reset_launches()
+    out = sort(x, SortSpec(shards=8, on_overflow=policy))
+    _assert_main_path_launches()
+    assert int(out.overflow) == 0
+    np.testing.assert_array_equal(out.gather(), np.sort(x))
+    if policy == "retry":
+        assert out.recovery.attempts > 1
+    ref = sort(x, SortSpec(shards=8, on_overflow=policy,
+                           kernel_policy="torch"))
+    assert torch.equal(out.shards, ref.shards)
+    assert torch.equal(out.counts, ref.counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["retry", "spill"])
+def test_cuda_sort_batched_recovers_presorted_rows(card, policy):
+    from repro_torch.sort import SortSpec, sort_batched
+
+    xs = np.stack([_presorted(8 * 16384, reverse=b % 2 == 1)
+                   for b in range(4)])
+    cuda.reset_launches()
+    out = sort_batched(xs, SortSpec(shards=8, on_overflow=policy))
+    _assert_main_path_launches()
+    assert int(out.overflow.max()) == 0
+    for b in range(4):
+        np.testing.assert_array_equal(out.gather(b), np.sort(xs[b]))
+
+
+@pytest.mark.cuda
+def test_cuda_argsort_and_sort_kv_through_the_kernels(card):
+    """Keys in [0, 16): 4 key bits + tags pack into int32, so the tagged
+    sort runs on the kernels."""
+    from repro_torch.sort import SortSpec, argsort, sort_kv
+
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, 16, 8 * 32768).astype(np.int32)
+    tokens = np.arange(ids.shape[0]) // 2
+    cuda.reset_launches()
+    keys, vals = sort_kv(ids, tokens, SortSpec(shards=8,
+                                               on_overflow="retry"))
+    _assert_main_path_launches()
+    order = np.argsort(ids, kind="stable")
+    np.testing.assert_array_equal(keys, ids[order])
+    np.testing.assert_array_equal(vals, tokens[order])
+    np.testing.assert_array_equal(
+        argsort(ids, SortSpec(shards=8, on_overflow="spill")), order)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_keys_take_the_torch_route(card):
+    """int64 packing and float64 keys launch no kernel; every output
+    tensor stays on the card."""
+    from repro_torch.sort import SortSpec, argsort, sort
+
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 2 ** 30, 8 * 32768).astype(np.int32)
+    f = rng.standard_normal(8 * 32768)
+    cuda.reset_launches()
+    order = argsort(x, SortSpec(shards=8))
+    out = sort(x, SortSpec(shards=8, stable=True))
+    fout = sort(f, SortSpec(shards=8))
+    assert sum(cuda.launches.values()) == 0, dict(cuda.launches)
+    np.testing.assert_array_equal(order, np.argsort(x, kind="stable"))
+    assert out.indices.dtype == torch.int64
+    for t in (out.shards, out.counts, out.indices, fout.shards,
+              fout.counts):
+        assert t.device.type == "cuda"
+    np.testing.assert_array_equal(fout.gather(), np.sort(f))
+
+
+@pytest.mark.cuda
+def test_cuda_explicit_kernel_policy_on_int64_raises(card):
+    from repro_torch.kernels import dispatch
+
+    rows = torch.arange(64, dtype=torch.int64, device="cuda").reshape(2, 32)
+    with pytest.raises(TypeError, match="int32"):
+        dispatch.local_sort(rows, policy="kernel")
+    with pytest.raises(TypeError, match="int32"):
+        dispatch.merge_runs(rows.reshape(2, 2, 16), policy="kernel")

@@ -10,13 +10,15 @@ throughout.
 """
 import numpy as np
 import pytest
+import torch
 
 import repro.sort as rsort
 import repro_torch.sort as tsort
 from repro.data import distributions as rdist
 from repro_torch.data import distributions as tdist
 from torch_parity import (
-    assert_sort_outputs_equal, auto_mesh, port_spec, reference_uniform)
+    assert_sort_outputs_equal, auto_mesh, port_spec, reference_uniform,
+    sort_both)
 
 N_RAGGED = 4099          # not a multiple of any p > 1 tested here
 
@@ -59,13 +61,17 @@ def test_dtype_extreme_float32_matches_reference():
 
 
 def test_dtype_extreme_int32_refused_by_both():
-    """int32 min..max keys force tagging (sentinel collision) and the
-    32-bit range cannot pack into int32: both sides refuse."""
+    """Neither package packs int32 min..max keys into int32: they force
+    tagging (sentinel collision) and 32 key bits plus the tag bits pass
+    30. The reference refuses them with x64 off; the port packs them into
+    int64, as the reference does under x64, and the two agree there."""
     x = tdist.make_adversarial("DTYPE_EXTREME", N_RAGGED, seed=5)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="x64"):
         rsort.sort(x, rsort.SortSpec(mesh=auto_mesh(8)))
-    with pytest.raises(ValueError):
-        tsort.sort(x, tsort.SortSpec(device="cpu"))
+    got, want = sort_both(x, 8, x64=True)
+    assert_sort_outputs_equal(got, want, x64=True)
+    assert got.indices.dtype == torch.int64
+    np.testing.assert_array_equal(got.gather(), np.sort(x))
 
 
 def _keys(dtype, n, seed):

@@ -12,13 +12,24 @@ process on the CPU and exchange only NumPy arrays:
     (:164) — as a round -> (p, n_local) float32 source the port takes;
   * `port_spec(ref_spec, p)`: a reference SortSpec mapped field by field
     onto the port's, on the CPU;
-  * `sort_batched_both(xs, p, ...)`: the reference's and the port's
-    `sort_batched` on the same (B, n) keys, the reference's draws injected;
+  * `sort_batched_both(xs, p, ...)`, `sort_both`, `argsort_both` and
+    `sort_kv_both`: the reference's and the port's front door on the same
+    keys, the reference's draws injected; `x64=True` runs the reference
+    under `jax.enable_x64(True)`, where it packs into int64 and takes
+    float64 and int64 keys, as the port always does (every attempt of a
+    retry takes the same draws in both packages, so one stream serves);
   * `assert_bits_equal` / `assert_sort_outputs_equal` /
-    `assert_batched_outputs_equal`: zero-tolerance comparisons (float
-    arrays are compared as their bit patterns).
+    `assert_batched_outputs_equal` / `assert_recovery_equal`:
+    zero-tolerance comparisons (float arrays are compared as their bit
+    patterns). Under x64 the reference widens its counters (overflow,
+    gamma_size, n_satisfied, rounds_used) to int64; with `x64=True` the
+    counters are compared by value, the keys and indices still by dtype
+    and bits.
 """
 from __future__ import annotations
+
+import contextlib
+import dataclasses
 
 import jax
 import jax.random as jr
@@ -78,6 +89,7 @@ def port_spec(ref: RefSortSpec, p: int, **overrides) -> tsort.SortSpec:
         sample_per_shard=ref.sample_per_shard, adaptive=ref.adaptive,
         exchange=ref.exchange, pair_factor=ref.pair_factor,
         out_slack=ref.out_slack, on_overflow=ref.on_overflow,
+        max_overflow_retries=ref.max_overflow_retries,
         capacity_scale=ref.capacity_scale, stable=ref.stable, tag=ref.tag,
         kernel_policy=_POLICY[ref.kernel_policy], seed=ref.seed,
         initial_probes=ref.initial_probes, shards=p, device="cpu")
@@ -103,14 +115,51 @@ def reference_draws(ref_spec: RefSortSpec, p: int, n: int):
     return reference_uniform(ref_spec.seed, p, -(-n // p), k)
 
 
-def sort_batched_both(xs, p: int, port_overrides=None, **spec_kw):
-    """(port, reference) BatchedSortOutputs of one (B, n) batch."""
+def _x64(on: bool):
+    return jax.enable_x64(True) if on else contextlib.nullcontext()
+
+
+def _run_both(ref_fn, port_fn, n: int, p: int, port_overrides, x64: bool,
+              spec_kw):
+    """(port, reference) results of one front-door call: the reference
+    under `ref_spec` (x64 if asked), the port under its counterpart with
+    the reference's draws injected."""
     ref_spec = RefSortSpec(mesh=auto_mesh(p), **spec_kw)
-    want = rsort.sort_batched(xs, ref_spec)
-    got = tsort.sort_batched(
-        xs, port_spec(ref_spec, p, **(port_overrides or {})),
-        uniform=reference_draws(ref_spec, p, xs.shape[1]))
+    with _x64(x64):
+        want = ref_fn(ref_spec)
+        draws = reference_draws(ref_spec, p, n)
+    got = port_fn(port_spec(ref_spec, p, **(port_overrides or {})), draws)
     return got, want
+
+
+def sort_batched_both(xs, p: int, port_overrides=None, x64=False,
+                      **spec_kw):
+    """(port, reference) BatchedSortOutputs of one (B, n) batch."""
+    return _run_both(lambda s: rsort.sort_batched(xs, s),
+                     lambda s, u: tsort.sort_batched(xs, s, uniform=u),
+                     xs.shape[1], p, port_overrides, x64, spec_kw)
+
+
+def sort_both(x, p: int, port_overrides=None, x64=False, **spec_kw):
+    """(port, reference) SortOutputs of one 1-D key array."""
+    return _run_both(lambda s: rsort.sort(x, s),
+                     lambda s, u: tsort.sort(x, s, uniform=u),
+                     x.shape[0], p, port_overrides, x64, spec_kw)
+
+
+def argsort_both(x, p: int, port_overrides=None, x64=False, **spec_kw):
+    """(port, reference) argsort permutations."""
+    return _run_both(lambda s: rsort.argsort(x, s),
+                     lambda s, u: tsort.argsort(x, s, uniform=u),
+                     x.shape[0], p, port_overrides, x64, spec_kw)
+
+
+def sort_kv_both(keys, values, p: int, port_overrides=None, x64=False,
+                 **spec_kw):
+    """(port, reference) (sorted_keys, sorted_values) pairs."""
+    return _run_both(lambda s: rsort.sort_kv(keys, values, s),
+                     lambda s, u: tsort.sort_kv(keys, values, s, uniform=u),
+                     keys.shape[0], p, port_overrides, x64, spec_kw)
 
 
 def to_numpy(a) -> np.ndarray:
@@ -135,39 +184,78 @@ def assert_bits_equal(got, want, what: str = ""):
     np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=what)
 
 
-def assert_stats_equal(got, want):
+def assert_counters_equal(got, want, what: str = "", x64: bool = False):
+    """An integer counter: bits and dtype, or by value under x64 (where
+    the reference widens counters to int64)."""
+    if not x64:
+        assert_bits_equal(got, want, what)
+        return
+    got, want = to_numpy(got), to_numpy(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    np.testing.assert_array_equal(got.astype(np.int64),
+                                  want.astype(np.int64), err_msg=what)
+
+
+def assert_stats_equal(got, want, x64: bool = False):
     if want is None:
         assert got is None
         return
     for name in want._fields:
-        assert_bits_equal(getattr(got, name), getattr(want, name), name)
+        assert_counters_equal(getattr(got, name), getattr(want, name), name,
+                              x64)
 
 
-def assert_sort_outputs_equal(got, want):
-    """Every field of a port SortOutput against the reference's."""
-    for name in ("shards", "counts", "splitter_keys", "splitter_ranks",
-                 "overflow"):
+def assert_recovery_equal(got, want):
+    """RecoveryStats field for field (None against None)."""
+    if want is None:
+        assert got is None
+        return
+    assert got is not None
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def assert_sort_outputs_equal(got, want, x64: bool = False):
+    """Every field of a port SortOutput against the reference's (its
+    gathers run under x64 too when it ran so)."""
+    with _x64(x64):
+        _assert_sort_outputs_equal(got, want, x64)
+
+
+def _assert_sort_outputs_equal(got, want, x64):
+    for name in ("shards", "splitter_keys"):
         assert_bits_equal(getattr(got, name), getattr(want, name), name)
+    for name in ("counts", "splitter_ranks", "overflow"):
+        assert_counters_equal(getattr(got, name), getattr(want, name), name,
+                              x64)
     assert (got.indices is None) == (want.indices is None)
     if want.indices is not None:
         assert_bits_equal(got.indices, want.indices, "indices")
         assert_bits_equal(got.gather_indices(), want.gather_indices(),
                           "gather_indices")
-    assert_stats_equal(got.stats, want.stats)
+    assert_stats_equal(got.stats, want.stats, x64)
     assert_bits_equal(got.gather(), want.gather(), "gather")
+    assert_recovery_equal(got.recovery, want.recovery)
 
 
-def assert_batched_outputs_equal(got, want):
+def assert_batched_outputs_equal(got, want, x64: bool = False):
     """Every field of a port BatchedSortOutput against the reference's,
-    and every request's gather."""
+    and every request's gather (under x64 when the reference ran so)."""
+    with _x64(x64):
+        _assert_batched_outputs_equal(got, want, x64)
+
+
+def _assert_batched_outputs_equal(got, want, x64):
     assert got.batch == want.batch
-    for name in ("shards", "counts", "splitter_keys", "splitter_ranks",
-                 "overflow"):
+    for name in ("shards", "splitter_keys"):
         assert_bits_equal(getattr(got, name), getattr(want, name), name)
+    for name in ("counts", "splitter_ranks", "overflow"):
+        assert_counters_equal(getattr(got, name), getattr(want, name), name,
+                              x64)
     assert (got.indices is None) == (want.indices is None)
     if want.indices is not None:
         assert_bits_equal(got.indices, want.indices, "indices")
-    assert_stats_equal(got.stats, want.stats)
+    assert_stats_equal(got.stats, want.stats, x64)
+    assert_recovery_equal(got.recovery, want.recovery)
     for b in range(want.batch):
         assert_bits_equal(got.gather(b), want.gather(b), f"gather({b})")
         if want.indices is not None:
