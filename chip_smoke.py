@@ -84,6 +84,39 @@ Phases, in order; any failure raises and the script exits non-zero:
   9. times: the warm medians (host clock around torch.cuda.synchronize())
      of retry and spill on the PRESORTED keys and of the MoE sort_kv, and
      a torch.profiler breakdown of one warm call of each.
+  10. the paper's baselines and the ragged exchange: (a) `sort` of the
+     WEAK_SCALING keys under algorithm "sample_random", "sample_regular",
+     "ams" and "multistage": under "raise" the overflow, max count,
+     n_satisfied and the collective log are printed, the path's kernels
+     gated and the torch policy must agree; under "retry" the gather
+     must equal np.sort; ams (where its scan succeeded) and multistage
+     must meet the balance bound, the sample sorts' balance is printed;
+     (b) HSS with exchange="ragged" on the same keys: equal to np.sort,
+     overflow 0, within the bound, the same shards and counts as the
+     allgather exchange and the torch policy; (c) ragged on 16,000,000
+     PRESORTED keys under "raise": equal to np.sort, overflow 0; the
+     ragged merge's branch is read from its counter
+     (`merge.ops.ragged_branches`): the merge tree on (b), the full sort
+     on (c); (d) `sort_batched` of the
+     batched cell under each algorithm: under "retry" each gather(b)
+     equals np.sort, and with tag=False under "raise" row b equals
+     sort() of row b;
+  11. times: the warm medians of `sort` on the WEAK_SCALING keys under
+     each algorithm and HSS+ragged beside HSS+dense in the same call,
+     and a torch.profiler breakdown and the peak device memory of one
+     warm multistage call and one warm ragged call;
+  12. every kernel (K1, K2 by role, K3, K4s) against its plain version,
+     exactly, at every shape and parameter the main paths of phases 4-5
+     and 7-10 called it with (recorded as they ran, `kernel_shapes`):
+     multistage's stage 2 searching 8 rows of 4,200,008 keys with
+     sentinel tails, ams's 960 probes a row, ragged's full sort of (8,
+     2^22) buffers and the like. Each row of the kernels line lists the
+     (rows, n) checked in `shapes_checked`.
+
+Each path's kernels are gated (`check_path_launches`): every kernel it
+launches by the code, none other. The HSS paths launch K1-K3 and K4s; the
+sample sorts rank nothing, so they launch no K4s (`PATH_KERNELS`); no
+path launches the counting K4.
 
 Every measurement line is one JSON object carrying the card's name and
 power limit. The line before the last is the card line; the kernels line
@@ -91,6 +124,7 @@ comes before it; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -127,6 +161,17 @@ SHORT_REPS = 200
 # host enqueues them (about 20 ms at the H100's clock), so a kernel shorter
 # than its host-side call is timed back to back on the device.
 HEAD_START_CYCLES = 40_000_000
+#: The paper's baselines and multistage (phase 10).
+BASELINES = ("sample_random", "sample_regular", "ams", "multistage")
+#: The kernels each path of phase 10 launches, from the code: every local
+#: sort (the shards', the sample buffers', the gathered probes') runs K1,
+#: K2 in both roles and K3 at these sizes; ams, multistage and HSS rank a
+#: sample with K4s; the sample sorts rank nothing. No path counts (K4).
+SORTING = ("bitonic_sort_blocks", "bitonic_merge_smem.reverse",
+           "bitonic_merge_smem.tail", "strided_compare_exchange")
+RANKING = SORTING + ("probe_rank_search",)
+PATH_KERNELS = {"sample_random": SORTING, "sample_regular": SORTING,
+                "ams": RANKING, "multistage": RANKING, "ragged": RANKING}
 # The CUDA functions of csrc/sort_kernels.cu, as the profiler names them.
 PORT_KERNELS = ("bitonic_sort_warp_kernel", "bitonic_merge_smem_kernel",
                 "bitonic_merge_warp_kernel", "strided_ce_kernel",
@@ -626,15 +671,18 @@ def cascade_line(torch, card):
               "card": card})
 
 
-def check_path_launches(name: str, launches: dict):
-    """Every kernel of the main path launched; the counting K4 did not."""
+def check_path_launches(name: str, launches: dict, expected=None):
+    """Every kernel the path launches by the code (`expected`; default
+    the HSS paths' set, every kernel but the counting K4) launched, and
+    no other."""
     from repro_torch.kernels import cuda
 
-    missing = [k for k, v in launches.items()
-               if v == 0 and k not in cuda.OFF_MAIN_PATH]
+    if expected is None:
+        expected = [k for k in cuda.COUNTERS if k not in cuda.OFF_MAIN_PATH]
+    missing = [k for k in expected if not launches.get(k)]
     if missing:
         fail(f"{name}: kernels never launched: {missing}")
-    stray = [k for k in cuda.OFF_MAIN_PATH if launches.get(k)]
+    stray = [k for k, v in launches.items() if v and k not in expected]
     if stray:
         fail(f"{name}: off-path kernels launched: {stray}")
 
@@ -848,26 +896,28 @@ def timing_phase(torch, np, card):
                  input="weak_scaling_int32")
 
 
+def median_ms(torch, fn, reps=5):
+    """The median and the samples of `reps` warm calls on the host clock,
+    each waited for with torch.cuda.synchronize()."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
 def batched_timing_phase(torch, np, card):
     from repro_torch.sort import SortSpec, sort, sort_batched
 
     xs = batched_inputs(np)
-
-    def median_ms(fn, reps=5):
-        fn()
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times), times
-
     for policy in ("auto", "torch"):
         spec = SortSpec(shards=P, eps=EPS, kernel_policy=policy)
-        batched, runs_b = median_ms(lambda: sort_batched(xs, spec))
-        seq, runs_s = median_ms(lambda: [sort(x, spec) for x in xs])
+        batched, runs_b = median_ms(torch, lambda: sort_batched(xs, spec))
+        seq, runs_s = median_ms(torch, lambda: [sort(x, spec) for x in xs])
         emit({"measure": "sort_batched_e2e_warm", "input": "unif_int32",
               "exchange": "dense", "batch": B, "n": N_REQ, "policy": policy,
               "batched_median_ms": batched, "batched_runs_ms": runs_b,
@@ -1079,21 +1129,10 @@ def recovery_timing_phase(torch, np, card):
     from repro_torch.data.distributions import make_adversarial
     from repro_torch.sort import SortSpec, sort, sort_kv
 
-    def median_ms(fn, reps=5):
-        fn()
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times), times
-
     x = make_adversarial("PRESORTED", N_WEAK, seed=0)
     for policy in ("retry", "spill"):
         spec = SortSpec(shards=P, eps=EPS, on_overflow=policy)
-        med, runs = median_ms(lambda: sort(x, spec))
+        med, runs = median_ms(torch, lambda: sort(x, spec))
         emit({"measure": "recovery_e2e_warm", "input": "presorted_int32",
               "n": N_WEAK, "policy": policy, "median_ms": med,
               "runs_ms": runs, "card": card})
@@ -1102,11 +1141,301 @@ def recovery_timing_phase(torch, np, card):
                      policy=policy)
     ids, tokens = moe_inputs(np)
     spec = SortSpec(shards=P, eps=EPS)
-    med, runs = median_ms(lambda: sort_kv(ids, tokens, spec))
+    med, runs = median_ms(torch, lambda: sort_kv(ids, tokens, spec))
     emit({"measure": "sort_kv_e2e_warm", "input": "moe_dispatch",
           "n": N_WEAK, "median_ms": med, "runs_ms": runs, "card": card})
     profile_line(torch, lambda: sort_kv(ids, tokens, spec), card,
                  measure="sort_kv_profile", input="moe_dispatch")
+
+
+def with_comm_log(fn):
+    """fn() with the collective seam that `sort.driver.run_batched` builds
+    recorded: (result, its calls by "axis:collective")."""
+    from repro_torch.sort import driver
+
+    made = []
+    real = driver.Comm
+
+    def record(p):
+        made.append(real(p))
+        return made[-1]
+
+    driver.Comm = record
+    try:
+        out = fn()
+    finally:
+        driver.Comm = real
+    return out, {f"{a}:{c}": k for (a, c), k in made[-1].axis_log.items()}
+
+
+@contextlib.contextmanager
+def kernel_shapes(seen: set):
+    """While the block runs, add each call of the four kernel wrappers to
+    `seen` as (counter, rows, n, parameters): the block (K1), the segment
+    (K2, counted by role), the distance and flip (K3) or the probe count
+    (K4s). The wrappers still launch; nothing is synchronised."""
+    from repro_torch.kernels.bitonic_sort import kernel as BK
+    from repro_torch.kernels.histogram import kernel as HK
+    from repro_torch.kernels.histogram import ops as hops
+    from repro_torch.kernels.merge import kernel as MK
+
+    real = {"sort_blocks": BK.sort_blocks,
+            "bitonic_merge_smem": BK.bitonic_merge_smem,
+            "strided_compare_exchange": MK.strided_compare_exchange,
+            "probe_rank_search": HK.probe_rank_search}
+
+    def sort_blocks(x, block):
+        seen.add(("bitonic_sort_blocks", *x.shape, block))
+        return real["sort_blocks"](x, block)
+
+    def bitonic_merge_smem(x, seg, reverse_second_half):
+        role = "reverse" if reverse_second_half else "tail"
+        seen.add((f"bitonic_merge_smem.{role}", *x.shape, seg))
+        return real["bitonic_merge_smem"](x, seg, reverse_second_half)
+
+    def strided_compare_exchange(x, d, flip=False):
+        seen.add(("strided_compare_exchange", *x.shape, d, bool(flip)))
+        return real["strided_compare_exchange"](x, d, flip)
+
+    def probe_rank_search(keys, probes):
+        seen.add(("probe_rank_search", *keys.shape, probes.shape[1]))
+        return real["probe_rank_search"](keys, probes)
+
+    wrappers = {"sort_blocks": sort_blocks,
+                "bitonic_merge_smem": bitonic_merge_smem,
+                "strided_compare_exchange": strided_compare_exchange,
+                "probe_rank_search": probe_rank_search}
+    # every module that holds a wrapper by name, the callers' imports too
+    patched = [(mod, name) for mod in (BK, MK, HK, hops) for name in real
+               if getattr(mod, name, None) is real[name]]
+    for mod, name in patched:
+        setattr(mod, name, wrappers[name])
+    try:
+        yield seen
+    finally:
+        for mod, name in patched:
+            setattr(mod, name, real[name])
+
+
+def path_shapes_phase(torch, seen: set, card, device="cuda"):
+    """Phase 12: each kernel against its plain version, exactly, at every
+    (rows, n, parameters) that the main paths called it with (`seen`, from
+    `kernel_shapes`): K1, K2's tail and K3 on random keys, K2's reverse
+    role on sorted runs of half a segment, K4s on sorted rows whose tails
+    hold 0 to 3/8 of the row in hi sentinels (the padded rows of
+    multistage's stage 2 and the exchanges) against probes drawn half from
+    the row, some hi sentinels among them. Returns the (rows, n) checked
+    for each counter."""
+    from repro_torch.kernels.bitonic_sort import kernel as BK
+    from repro_torch.kernels.histogram import kernel as HK
+    from repro_torch.kernels.merge import kernel as MK
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    hi = 2 ** 31 - 1
+
+    def keys(*shape):
+        return torch.randint(-2 ** 31, hi, shape, generator=gen,
+                             device=device, dtype=torch.int32)
+
+    def search_inputs(rows, n, m):
+        k = torch.sort(keys(rows, n), dim=-1).values
+        for r in range(rows):
+            tail = (r % 4) * n // 8
+            if tail:
+                k[r, n - tail:] = hi
+        pick = torch.randint(0, n, (rows, m - m // 2), generator=gen,
+                             device=device)
+        q = torch.cat([torch.gather(k, 1, pick), keys(rows, m // 2)], dim=1)
+        q[:, :m // 8] = hi
+        return k, torch.sort(q, dim=-1).values
+
+    t0 = time.perf_counter()
+    shapes = {}
+    for sig in sorted(seen):
+        counter, rows, n = sig[:3]
+        if counter == "bitonic_sort_blocks":
+            x = keys(rows, n)
+            got, want = BK.sort_blocks(x, sig[3]), BK.sort_blocks_plain(
+                x, sig[3])
+        elif counter.startswith("bitonic_merge_smem"):
+            seg, reverse = sig[3], counter.endswith("reverse")
+            x = keys(rows, n)
+            if reverse:
+                x = torch.sort(x.view(rows, -1, seg // 2),
+                               dim=-1).values.view(rows, n)
+            got = BK.bitonic_merge_smem(x, seg, reverse)
+            want = BK.bitonic_merge_plain(x, seg, reverse)
+        elif counter == "strided_compare_exchange":
+            x = keys(rows, n)
+            got = MK.strided_compare_exchange(x, *sig[3:])
+            want = MK.strided_compare_exchange_plain(x, *sig[3:])
+        elif counter == "probe_rank_search":
+            k, q = search_inputs(rows, n, sig[3])
+            got = HK.probe_rank_search(k, q)
+            want = HK.probe_ranks_search_plain(k, q)
+        else:
+            fail(f"path_shapes_phase: no inputs for {counter}")
+        if not torch.equal(got, want):
+            fail(f"{counter}{list(sig[1:])} disagrees with its plain "
+                 "version at a main path's shape")
+        shapes.setdefault(counter, set()).add((rows, n))
+        del got, want
+    emit({"measure": "path_shapes", "checked": len(seen),
+          "seconds": time.perf_counter() - t0,
+          "signatures": {c: [list(s[1:]) for s in sorted(seen) if s[0] == c]
+                         for c in sorted(shapes)},
+          "card": card})
+    return {c: sorted(map(list, v)) for c, v in shapes.items()}
+
+
+def baselines_phase(torch, np, card):
+    """Phase 10: the four other algorithms and the ragged exchange on the
+    WEAK_SCALING keys, ragged on PRESORTED keys, and the batched cell
+    under each algorithm; returns each path's launch counts."""
+    from repro_torch.data.distributions import (make_adversarial,
+                                                make_distribution)
+    from repro_torch.kernels.merge import ops as mops
+    from repro_torch.sort import SortSpec, sort, sort_batched
+
+    x = make_distribution("UNIF", N_WEAK, seed=0)
+    want = np.sort(x)
+    limit = (1 + EPS) * N_WEAK / P + 1
+    paths = {}
+    for algo in BASELINES:
+        spec = SortSpec(shards=P, eps=EPS, algorithm=algo)
+        (out, comm), launches = launched(
+            torch, lambda: with_comm_log(lambda: sort(x, spec)))
+        path = f"sort[{algo}]"
+        paths[path] = launches
+        check_path_launches(path, launches, PATH_KERNELS[algo])
+        counts = out.counts.cpu().numpy()
+        overflow = int(out.overflow)
+        n_sat = int(out.stats.n_satisfied[0])
+        if (algo == "multistage" or (algo == "ams" and n_sat == P - 1)) \
+                and counts.max() > limit:
+            fail(f"{path}: max count {counts.max()} past {limit}")
+        ref = sort(x, dataclasses.replace(spec, kernel_policy="torch"))
+        if not same_as_torch_policy(torch, out, ref):
+            fail(f"{path}: kernel and torch policies disagree")
+        raise_exact = bool(np.array_equal(out.gather(), want))
+        del out, ref
+        retried = sort(x, dataclasses.replace(spec, on_overflow="retry"))
+        if int(retried.overflow) or not np.array_equal(retried.gather(),
+                                                       want):
+            fail(f"{path}: retry is not equal to np.sort")
+        emit({"measure": "baseline", "algorithm": algo, "n": N_WEAK,
+              "raise_overflow": overflow, "raise_exact": raise_exact,
+              "max_count": int(counts.max()), "limit": limit,
+              "n_satisfied": n_sat, "comm_log": comm, "launches": launches,
+              "policies_agree": True,
+              "retry": dataclasses.asdict(retried.recovery),
+              "card": card})
+        del retried
+
+    spec = SortSpec(shards=P, eps=EPS, exchange="ragged")
+    mops.ragged_branches.clear()
+    (out, comm), launches = launched(
+        torch, lambda: with_comm_log(lambda: sort(x, spec)))
+    branches = dict(mops.ragged_branches)
+    if branches != {"merge_tree": 1}:
+        fail(f"sort[ragged]: the merge took {branches}; every run fits "
+             "the slot, so the merge tree must run once")
+    paths["sort[ragged]"] = launches
+    check_path_launches("sort[ragged]", launches, PATH_KERNELS["ragged"])
+    counts = out.counts.cpu().numpy()
+    if (int(out.overflow) or counts.max() > limit
+            or not np.array_equal(out.gather(), want)):
+        fail(f"sort[ragged]: overflow {int(out.overflow)}, max count "
+             f"{counts.max()}, or not equal to np.sort")
+    for other in (dataclasses.replace(spec, exchange="allgather"),
+                  dataclasses.replace(spec, kernel_policy="torch")):
+        if not same_as_torch_policy(torch, out, sort(x, other)):
+            fail(f"sort[ragged]: differs from {other.exchange}, "
+                 f"{other.kernel_policy}")
+    emit({"measure": "ragged", "input": "weak_scaling_int32", "n": N_WEAK,
+          "overflow": 0, "max_count": int(counts.max()), "limit": limit,
+          "comm_log": comm, "launches": launches, "branches": branches,
+          "equal_to_allgather": True, "policies_agree": True,
+          "card": card})
+    del out, want
+
+    y = make_adversarial("PRESORTED", N_WEAK, seed=0)
+    mops.ragged_branches.clear()
+    out, launches = launched(torch, lambda: sort(y, spec))
+    branches = dict(mops.ragged_branches)
+    if branches != {"full_sort": 1}:
+        fail(f"sort[ragged] presorted: the merge took {branches}; each "
+             "shard's run outgrows the slot, so the full sort must run once")
+    paths["sort[ragged,presorted]"] = launches
+    check_path_launches("sort[ragged,presorted]", launches,
+                        PATH_KERNELS["ragged"])
+    counts = out.counts.cpu().numpy()
+    if (int(out.overflow) or counts.max() > limit
+            or not np.array_equal(out.gather(), np.sort(y))):
+        fail(f"sort[ragged] presorted: overflow {int(out.overflow)}, max "
+             f"count {counts.max()}, or not equal to np.sort")
+    emit({"measure": "ragged", "input": "presorted_int32", "n": N_WEAK,
+          "overflow": 0, "max_count": int(counts.max()), "limit": limit,
+          "launches": launches, "branches": branches, "card": card})
+    del out, y
+
+    xs = batched_inputs(np)
+    sorted_rows = np.sort(xs, axis=1)
+    for algo in BASELINES:
+        spec = SortSpec(shards=P, eps=EPS, algorithm=algo,
+                        on_overflow="retry")
+        out, launches = launched(torch, lambda: sort_batched(xs, spec))
+        path = f"sort_batched[{algo}]"
+        paths[path] = launches
+        check_path_launches(path, launches, PATH_KERNELS[algo])
+        for b in range(B):
+            if not np.array_equal(out.gather(b), sorted_rows[b]):
+                fail(f"{path}: request {b} differs from np.sort")
+        untagged = SortSpec(shards=P, eps=EPS, algorithm=algo, tag=False)
+        batched = sort_batched(xs, untagged)
+        for b in range(B):
+            one, view = sort(xs[b], untagged), batched.request(b)
+            if not all(torch.equal(getattr(view, f), getattr(one, f))
+                       for f in ("shards", "counts", "splitter_keys",
+                                 "overflow")):
+                fail(f"{path}: row {b} differs from sort() of that row "
+                     "(tag=False)")
+        emit({"measure": "baseline_batched", "algorithm": algo, "batch": B,
+              "n": N_REQ, "retry": dataclasses.asdict(out.recovery),
+              "raise_overflow": batched.overflow.cpu().tolist(),
+              "max_count": int(out.counts.max()), "launches": launches,
+              "rows_equal_sort_untagged": True, "card": card})
+    return paths
+
+
+def baselines_timing_phase(torch, np, card):
+    """Phase 11: each algorithm's warm sort beside HSS's, HSS+ragged; a
+    profile and the peak memory of multistage and of ragged."""
+    from repro_torch.data.distributions import make_distribution
+    from repro_torch.sort import SortSpec, sort
+
+    x = make_distribution("UNIF", N_WEAK, seed=0)
+    cases = [("hss", "dense"), ("hss", "ragged")] + [
+        (algo, "dense") for algo in BASELINES]
+    for algo, exchange in cases:
+        spec = SortSpec(shards=P, eps=EPS, algorithm=algo,
+                        exchange=exchange)
+        med, runs = median_ms(torch, lambda: sort(x, spec))
+        emit({"measure": "baseline_e2e_warm", "input": "weak_scaling_int32",
+              "algorithm": algo, "exchange": exchange, "median_ms": med,
+              "runs_ms": runs, "card": card})
+    for algo, exchange in (("multistage", "dense"), ("hss", "ragged")):
+        spec = SortSpec(shards=P, eps=EPS, algorithm=algo,
+                        exchange=exchange)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sort(x, spec)
+        torch.cuda.synchronize()
+        profile_line(torch, lambda: sort(x, spec), card,
+                     measure="baseline_profile", input="weak_scaling_int32",
+                     algorithm=algo, exchange=exchange,
+                     max_allocated_bytes=torch.cuda.max_memory_allocated())
 
 
 def main() -> int:
@@ -1141,16 +1470,26 @@ def main() -> int:
 
     rows = kernel_phase(torch, card, empty_launch_line(torch, card))
     cascade_line(torch, card)
-    paths = {"sort": slice_phase(torch, np, card),
-             "sort_batched": batched_phase(torch, np, card)}
+    seen = set()            # every kernel call's shape on the main paths
+    with kernel_shapes(seen):
+        paths = {"sort": slice_phase(torch, np, card),
+                 "sort_batched": batched_phase(torch, np, card)}
     timing_phase(torch, np, card)
     batched_timing_phase(torch, np, card)
-    paths.update(recovery_phase(torch, np, card))
-    paths.update(permutation_phase(torch, np, card))
+    with kernel_shapes(seen):
+        paths.update(recovery_phase(torch, np, card))
+        paths.update(permutation_phase(torch, np, card))
+        paths.update(baselines_phase(torch, np, card))
+    recovery_timing_phase(torch, np, card)
+    baselines_timing_phase(torch, np, card)
+    shapes = path_shapes_phase(torch, seen, card)
     for r in rows:
         r["launches_by_path"] = {k: v[r["counter"]] for k, v in paths.items()}
         r["launches"] = r["launches_by_path"][r["path"]]
-    recovery_timing_phase(torch, np, card)
+        if r["counter"] in shapes:
+            r["shapes_checked"] = sorted(
+                {tuple(s) for s in r.get("shapes_checked", [])}
+                | {tuple(s) for s in shapes[r["counter"]]})
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -14,15 +14,20 @@ plain PyTorch version beside it that the CPU runs.
     outs = sort_batched(xs)                     # (B, n): B requests at once
     order = argsort(x)                          # stable permutation
     keys, vals = sort_kv(keys, vals)            # payloads ride along
+    sort(x, SortSpec(algorithm="ams"))          # available_algorithms()
+    sort(x, SortSpec(exchange="ragged"))        # the exact alltoallv
 
-Subpackages mirror `repro`: core/ (splitters, exchange, hss), kernels/
-(bitonic_sort, merge, histogram, dispatch), sort/ (spec, partitioners,
-driver, adapters, grouping, api), data/ (the paper's input distributions),
-parallel/ (the Comm seam). Nothing here imports jax or repro. The package
-exports the permutation front doors; `sort` itself stays the subpackage's
-name (`repro_torch.sort`), so it is not re-exported here.
+Subpackages mirror `repro`: core/ (splitters, exchange, hss, sample_sort,
+ams, multistage), kernels/ (bitonic_sort, merge, histogram, dispatch),
+sort/ (spec, partitioners, driver, adapters, grouping, api), data/ (the
+paper's input distributions), parallel/ (the Comm seam). Nothing here imports jax or repro. The package
+exports the permutation front doors and `available_algorithms`; `sort`
+itself stays the subpackage's name (`repro_torch.sort`), so it is not
+re-exported here.
 """
 from repro_torch.sort.api import (
     RecoveryStats, argsort, gather_perm_checked, sort_kv)
+from repro_torch.sort.partitioners import available_algorithms
 
-__all__ = ["RecoveryStats", "argsort", "gather_perm_checked", "sort_kv"]
+__all__ = ["RecoveryStats", "argsort", "available_algorithms",
+           "gather_perm_checked", "sort_kv"]

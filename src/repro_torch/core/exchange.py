@@ -18,6 +18,13 @@ Counterpart of `repro.core.exchange`, three strategies:
   allgather    exact: every shard is gathered, and each destination keeps
                its key-range window of every source run (two
                searchsorteds per run) and merges the p windows.
+  ragged       exact alltoallv: the slice counts and the receive offsets
+               go through two all_to_alls, every slice lands back to back
+               in its destination's out_cap buffer through one
+               `Comm.ragged_all_to_all`, and each destination merges the
+               p runs at their offsets (`dispatch.merge_ragged`: a merge
+               tree of `ragged_slot` keys a run, or a full sort of the
+               buffer when a run exceeds it).
 
 HSS's balanced splitting guarantees at most (1+eps)*N/p keys per
 destination, which is what makes the static `out_cap` sound.
@@ -26,9 +33,17 @@ The batched forms take (p, B, n_local) shards and (B, p-1) splitters — the
 shard axis leading, so `Comm` moves all B requests in one call per phase
 (`BATCH_FUSED_STRATEGIES`) — and every destination's work runs at once.
 dense_spill's batched form runs one request at a time, as the reference's
-does (exchange.py:430), so its collectives grow with B. The unbatched
-`exchange` is the batched one at B = 1. ragged comes with ROADMAP queue 1
-item 4, batched and unbatched alike.
+does (exchange.py:430), so its collectives grow with B. ragged's batched
+form moves all B requests in one call per phase: the reference loops over
+requests (exchange.py:415) because the TPU collective takes one chunk per
+peer, and the index gather here has no such limit. The unbatched
+`exchange` is the batched one at B = 1.
+
+Where the received keys total more than out_cap, ragged cuts them at the
+buffer's end and counts the cut as overflow (one psum), as dense counts
+its receive-side truncation; the reference leaves that case to the TPU
+runtime and reports overflow 0 (ROADMAP queue 3). With no cut, its keys,
+counts and zero overflow are the reference's.
 """
 from __future__ import annotations
 
@@ -45,16 +60,20 @@ from repro_torch.parallel.comm import Comm
 #: all_to_all, the send-side overflow psum and the receive-side truncation
 #: psum; dense_spill: the dense channel's two all_to_all, the spill
 #: buffer's and spill counts' all_gather and the truncation psum;
-#: allgather: payload + counts all_gather and the truncation psum. The
-#: batch-fused strategies make the same calls at any B.
+#: allgather: payload + counts all_gather and the truncation psum; ragged:
+#: counts + offsets all_to_all around one ragged_all_to_all, and the
+#: truncation psum the reference lacks. The batch-fused strategies make
+#: the same calls at any B.
 EXCHANGE_COLLECTIVES = {
     "dense": {"all_to_all": 2, "all_gather": 0, "psum": 2},
     "dense_spill": {"all_to_all": 2, "all_gather": 2, "psum": 1},
     "allgather": {"all_to_all": 0, "all_gather": 2, "psum": 1},
+    "ragged": {"all_to_all": 2, "all_gather": 0, "ragged_all_to_all": 1,
+               "psum": 1},
 }
 
 #: Batched strategies whose collective count does not grow with B.
-BATCH_FUSED_STRATEGIES = ("dense", "allgather")
+BATCH_FUSED_STRATEGIES = ("dense", "allgather", "ragged")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +93,12 @@ class ExchangeConfig:
         return round_up(
             int((1.0 + eps) * self.out_slack * self.capacity_scale * n_local)
             + 8, 8)
+
+    def ragged_slot(self, n_local: int, p: int, eps: float) -> int:
+        """The ragged merge tree's static run capacity: twice the balanced
+        per-pair load. A longer run (the splitting broke its eps
+        guarantee) sends the merge to its full-sort branch."""
+        return min(n_local, max(16, int(2.0 * (1.0 + eps) * n_local / p)))
 
 
 def destination_slices(local_sorted: torch.Tensor,
@@ -99,12 +124,15 @@ def destination_slices(local_sorted: torch.Tensor,
     return starts, ends - starts
 
 
-def _rows_valid(n_valid, batch: int, n: int, device) -> torch.Tensor:
-    """The batched n_valid parameter as a (B,) vector: None means every
-    slot is real; a scalar applies to every request; (B,) passes."""
+def _rows_valid(n_valid, p: int, batch: int, n: int,
+                device) -> torch.Tensor:
+    """The batched n_valid parameter as a (p, B) tensor: None means every
+    slot is real; a scalar applies to every row; (B,) gives each request
+    one count on every shard; (p, B) gives each (shard, request) row its
+    own (multistage's second stage)."""
     nv = n if n_valid is None else n_valid
     return torch.as_tensor(nv, dtype=torch.int32,
-                           device=device).expand(batch)
+                           device=device).expand(p, batch)
 
 
 def _dense_send(local_sorted: torch.Tensor, starts: torch.Tensor,
@@ -174,7 +202,7 @@ def exchange_dense_batched(local_sorted: torch.Tensor,
 
     starts, counts = destination_slices(
         local_sorted, splitter_keys,
-        _rows_valid(n_valid, batch, n, dev))          # (p_src, B, p_dst)
+        _rows_valid(n_valid, p, batch, n, dev))       # (p_src, B, p_dst)
     sent_counts = torch.minimum(counts, torch.tensor(cap, dtype=torch.int32,
                                                      device=dev))
     overflow = comm.psum((counts - sent_counts).sum(dim=-1,
@@ -197,8 +225,9 @@ def exchange_dense_spill(local_sorted: torch.Tensor,
                          splitter_keys: torch.Tensor, *, comm: Comm,
                          cfg: ExchangeConfig, eps: float, n_valid=None):
     """The dense exchange plus an exact spill channel, for one request:
-    local_sorted (p, n_local), splitter_keys (p-1,) -> (out (p, out_cap),
-    n_valid (p,), overflow scalar: receive-side truncation only).
+    local_sorted (p, n_local), splitter_keys (p-1,), n_valid None, a
+    scalar or (p,) -> (out (p, out_cap), n_valid (p,), overflow scalar:
+    receive-side truncation only).
 
     The dense channel is `exchange_dense_batched`'s. A key spills when its
     offset in its destination slice is past the pair's capacity; each
@@ -214,7 +243,7 @@ def exchange_dense_spill(local_sorted: torch.Tensor,
     out_cap = cfg.out_cap(n, p, eps)
     sent_hi = hi_sentinel(local_sorted.dtype)
     nv = torch.as_tensor(n if n_valid is None else n_valid,
-                         dtype=torch.int32, device=dev)
+                         dtype=torch.int32, device=dev).expand(p)
 
     starts, counts = destination_slices(local_sorted, splitter_keys,
                                         nv)                 # (p_src, p_dst)
@@ -230,7 +259,8 @@ def exchange_dense_spill(local_sorted: torch.Tensor,
     dest = torch.searchsorted(starts[:, 1:].contiguous(), at.contiguous(),
                               side="right")
     offset = at - torch.gather(starts, 1, dest)
-    spilled = (offset >= torch.gather(sent_counts, 1, dest)) & (at < nv)
+    spilled = ((offset >= torch.gather(sent_counts, 1, dest))
+               & (at < nv[:, None]))
     del dest, offset
     n_spill = spilled.sum(dim=-1, dtype=torch.int32)          # (p_src,)
     spill = dispatch.local_sort(torch.where(spilled, local_sorted, sent_hi),
@@ -269,10 +299,10 @@ def exchange_dense_spill_batched(local_sorted: torch.Tensor,
     reference): B times one request's collectives. Returns as
     `exchange_dense_batched`."""
     p, batch, n = local_sorted.shape
-    nv = _rows_valid(n_valid, batch, n, local_sorted.device)
+    nv = _rows_valid(n_valid, p, batch, n, local_sorted.device)
     outs = [exchange_dense_spill(local_sorted[:, b].contiguous(),
                                  splitter_keys[b], comm=comm, cfg=cfg,
-                                 eps=eps, n_valid=nv[b])
+                                 eps=eps, n_valid=nv[:, b])
             for b in range(batch)]
     out, n_out, overflow = zip(*outs)
     return (torch.stack(out, dim=1), torch.stack(n_out, dim=1),
@@ -291,8 +321,7 @@ def exchange_allgather_batched(local_sorted: torch.Tensor,
     out_cap = cfg.out_cap(n, p, eps)
 
     everything = comm.all_gather(local_sorted)                # (p, B, n)
-    nv = comm.all_gather(
-        _rows_valid(n_valid, batch, n, dev).expand(p, batch))  # (p_src, B)
+    nv = comm.all_gather(_rows_valid(n_valid, p, batch, n, dev))  # (p_src, B)
     # slot = n bounds every window; it is rounded up to the merge's power
     # of two, which only adds sentinels past every window (they sort to
     # the tail and cap_to cuts them), so the cascade does not pad a
@@ -307,10 +336,47 @@ def exchange_allgather_batched(local_sorted: torch.Tensor,
     return out, n_out - trunc, comm.psum(trunc)
 
 
+def exchange_ragged_batched(local_sorted: torch.Tensor,
+                            splitter_keys: torch.Tensor, *, comm: Comm,
+                            cfg: ExchangeConfig, eps: float, n_valid=None):
+    """The exact alltoallv over (p, B, n_local) shards and (B, p-1)
+    splitters (counterpart of exchange.py:279-308 and :415-427); returns
+    as `exchange_dense_batched`. overflow counts the received keys cut at
+    out_cap, which the (1+eps) guarantee rules out."""
+    p, batch, n = local_sorted.shape
+    dev = local_sorted.device
+    out_cap = cfg.out_cap(n, p, eps)
+
+    starts, counts = destination_slices(
+        local_sorted, splitter_keys,
+        _rows_valid(n_valid, p, batch, n, dev))       # (p_src, B, p_dst)
+    # recv_counts[d, b, s]: keys destination d takes from source s
+    recv_counts = comm.all_to_all(counts.permute(0, 2, 1)).permute(0, 2, 1)
+    recv_offsets = (torch.cumsum(recv_counts, -1, dtype=torch.int32)
+                    - recv_counts)                    # (p_dst, B, p_src)
+    # send_offsets[s, b, d]: where source s's slice lands in d's buffer
+    send_offsets = comm.all_to_all(
+        recv_offsets.permute(0, 2, 1)).permute(0, 2, 1)
+    buf = torch.full((p, batch, out_cap), hi_sentinel(local_sorted.dtype),
+                     dtype=local_sorted.dtype, device=dev)
+    buf = comm.ragged_all_to_all(local_sorted, buf, starts, counts,
+                                 send_offsets)        # (p_dst, B, out_cap)
+    n_recv = recv_counts.sum(dim=-1, dtype=torch.int32)
+    # the runs as written: a run past out_cap was cut at the buffer's end
+    kept = torch.clamp(torch.clamp(recv_offsets + recv_counts, max=out_cap)
+                       - recv_offsets, min=0)
+    out = dispatch.merge_ragged(buf, recv_offsets, kept,
+                                policy=cfg.kernel_policy,
+                                slot=cfg.ragged_slot(n, p, eps))
+    trunc = torch.clamp(n_recv - out_cap, min=0)
+    return out, n_recv - trunc, comm.psum(trunc)
+
+
 _STRATEGIES_BATCHED = {
     "dense": exchange_dense_batched,
     "dense_spill": exchange_dense_spill_batched,
     "allgather": exchange_allgather_batched,
+    "ragged": exchange_ragged_batched,
 }
 
 
@@ -320,13 +386,13 @@ def exchange_batched(local_sorted: torch.Tensor,
                      n_valid=None):
     """Redistribute B requests at once: local_sorted (p, B, n_local),
     splitter_keys (B, p-1) -> (out (p, B, out_cap), n_valid (p, B),
-    overflow (B,)). n_valid may be None, a scalar or a (B,) vector."""
+    overflow (B,)). n_valid may be None, a scalar, a (B,) vector or a
+    (p, B) count per (shard, request) row."""
     cfg = cfg or ExchangeConfig()
     fn = _STRATEGIES_BATCHED.get(cfg.strategy)
     if fn is None:
-        raise NotImplementedError(
-            f"exchange strategy {cfg.strategy!r} is not ported yet "
-            "(ROADMAP queue 1 item 4); the port has "
+        raise ValueError(
+            f"unknown exchange strategy {cfg.strategy!r}; available: "
             f"{sorted(_STRATEGIES_BATCHED)}")
     return fn(local_sorted, splitter_keys, comm=comm, cfg=cfg, eps=eps,
               n_valid=n_valid)

@@ -93,9 +93,11 @@ def refine(state: SplitterState, probes: torch.Tensor,
 
     probes (..., M) sorted ascending (sentinel-padded tail), probe_ranks
     (..., M) nondecreasing (sentinels rank N), state (..., p-1): leading
-    axes are independent requests."""
+    axes are independent requests. targets (p-1,) or (..., p-1), and tol
+    an int or a tensor broadcasting against them (multistage's per-row
+    n)."""
     probe_ranks = probe_ranks.contiguous()
-    tgt = targets.expand(probe_ranks.shape[:-1] + targets.shape)
+    tgt = targets.expand(probe_ranks.shape[:-1] + targets.shape[-1:])
     j = torch.searchsorted(probe_ranks, tgt.contiguous(), side="left")
     j = torch.clamp(j, max=probe_ranks.shape[-1] - 1)
     cand_hi_rank = torch.gather(probe_ranks, -1, j)
@@ -161,10 +163,13 @@ def _sample_round(local_sorted: torch.Tensor, state: SplitterState,
                   kernel_policy: str = "auto"):
     """Bernoulli-sample each (shard, request) row's active-interval keys
     into a sorted, sentinel-padded (p, B, min(cap, n_local)) buffer; all B
-    requests share the shard's draws u (p, n_local). Returns (vals,
-    sampled (p, B), overflow (p, B))."""
+    requests share the shard's draws u (p, n_local), or each row has its
+    own, u (p, B, n_local). Returns (vals, sampled (p, B), overflow (p,
+    B))."""
     in_g = gamma_membership(local_sorted, state)
-    mask = in_g & (u[:, None, :] < prob[:, None])
+    if u.dim() == 2:
+        u = u[:, None, :]
+    mask = in_g & (u < prob[:, None])
     n_hit = mask.sum(dim=-1, dtype=torch.int32)
     vals = torch.where(mask, local_sorted, hi_sentinel(local_sorted.dtype))
     # The full sort of the masked buffer keeps parity with the reference

@@ -1,8 +1,8 @@
 """Kernel-policy dispatch (counterpart of repro.kernels.dispatch).
 
 One selection layer over the sort hot spots — `local_sort`, `probe_ranks`
-and the post-exchange `merge_runs` — so the CPU tests and the card share
-one code path. The policy decides what runs:
+and the post-exchange `merge_runs` and `merge_ragged` — so the CPU tests
+and the card share one code path. The policy decides what runs:
 
   "auto"    (default) the CUDA kernels on a CUDA tensor of keys no wider
             than 4 bytes, the torch primitives on a CPU tensor and on
@@ -108,8 +108,21 @@ def merge_runs(runs: torch.Tensor, *, policy: str = "auto") -> torch.Tensor:
     return mops.merge_sorted_runs(runs)
 
 
-# The reference's batched names (dispatch.py:67-157): the same functions.
+def merge_ragged(buf: torch.Tensor, starts: torch.Tensor,
+                 counts: torch.Tensor, *, policy: str = "auto",
+                 slot: int | None = None) -> torch.Tensor:
+    """Sort each row of (..., cap) holding sorted runs at traced offsets
+    (starts, counts (..., k)), the hi sentinel elsewhere. Bit-identical to
+    `torch.sort` of each row; see kernels.merge.ops.merge_ragged_runs for
+    the slot and its full-sort branch."""
+    if resolve_policy(policy, buf.device, buf.dtype) == "torch":
+        return torch.sort(buf, dim=-1).values
+    return mops.merge_ragged_runs(buf, starts, counts, slot=slot)
+
+
+# The reference's batched names (dispatch.py:67-179): the same functions.
 local_sort_batched_fn = local_sort_fn
 local_sort_batched = local_sort
 probe_ranks_batched = probe_ranks
 merge_runs_batched = merge_runs
+merge_ragged_batched = merge_ragged

@@ -9,6 +9,8 @@ merge_sorted_runs  (..., k, r) sorted runs -> (..., k*r) sorted rows;
                    merge_sorted_runs_batched, merge/ops.py:105).
 gather_runs        runs at traced offsets of each row -> a sentinel-padded
                    (..., k, slot) buffer; the allgather exchange's windows.
+merge_ragged_runs  each row holds k sorted runs at traced offsets ->
+                   the sorted row; the ragged exchange's merge.
 cap_to             slice or sentinel-pad rows to a static capacity (the
                    reference's cap_to and _cap_rows_to in one).
 
@@ -17,10 +19,13 @@ output equals a full sort of the same entries bit for bit.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from repro_torch.core.common import hi_sentinel, pow2_ceil
 from repro_torch.kernels.bitonic_sort import kernel as BK
+from repro_torch.kernels.bitonic_sort import ops as bops
 from repro_torch.kernels.merge import kernel as MK
 
 
@@ -99,3 +104,40 @@ def cap_to(merged: torch.Tensor, cap: int) -> torch.Tensor:
                                          hi_sentinel(merged.dtype),
                                          dtype=merged.dtype,
                                          device=merged.device)], dim=-1)
+
+
+#: Calls of `merge_ragged_runs` by the branch they took ("merge_tree" or
+#: "full_sort"), for a run to read which one its merges went through.
+ragged_branches: Counter = Counter()
+
+
+def merge_ragged_runs(buf: torch.Tensor, starts: torch.Tensor,
+                      counts: torch.Tensor,
+                      slot: int | None = None) -> torch.Tensor:
+    """Sort each row of (..., cap) that holds k sorted runs at traced
+    offsets (starts and counts (..., k); every other slot holds the hi
+    sentinel): bit-identical to a full sort of the row (counterpart of
+    the reference's merge_ragged_runs and merge_ragged_runs_batched,
+    merge/ops.py:164-234; the leading axes are rows).
+
+    `slot` is the merge tree's static per-run capacity, rounded up to a
+    power of two (memory is k*slot a row); None is the whole row, which
+    fits every run. A run past the slot (the splitting broke its eps
+    guarantee) sends the call to a full local sort of the buffers. The
+    reference picks the branch with a lax.cond on the device; here the
+    branch is read on the host, once per call for all rows, as the
+    splitter rounds' early exit is (core/splitters.py). Both branches
+    run the kernels; each call adds one to `ragged_branches` under the
+    branch it took."""
+    cap = buf.shape[-1]
+    slot = pow2_ceil(cap if slot is None else min(slot, cap))
+    if slot < cap and bool((counts > slot).any()):
+        ragged_branches["full_sort"] += 1
+        return bops.local_sort(buf)
+    ragged_branches["merge_tree"] += 1
+    return cap_to(merge_sorted_runs(gather_runs(buf, starts, counts, slot)),
+                  cap)
+
+
+#: The reference's batched name; `merge_ragged_runs` already takes rows.
+merge_ragged_runs_batched = merge_ragged_runs

@@ -10,14 +10,23 @@ tensor op over that axis:
   psum        (p, ...)    -> (...)        sum over shards, dtype kept
   all_to_all  (p_src, p_dst, ...) -> (p_dst, p_src, ...)
               split axis 0, concat axis 0: a transpose of the two shard axes
+  ragged_all_to_all  (p_src, B, n) -> (p_dst, B, cap): the exact
+              alltoallv, each (source, destination) chunk at its own size,
+              as one index gather (no host sync)
   axis_index  () -> (p,)                  each shard's index
+
+`along(axis, r1, r2)` views the p = r1*r2 shards as a 2-D (outer, inner)
+grid, shard s = outer*r2 + inner (the reference's row-major mesh), and
+gives the collectives over one axis: the other axis folds into the batch
+axis, so one call still moves every group and request.
 
 The batched engine keeps the shard axis leading, (p, B, ...), so the same
 three collectives carry B requests: each is still one logged call.
 
 A value the reference keeps replicated on every shard (gathered probes,
 psum results, the splitter state) is held ONCE here, not p times. Every
-call is counted in `log`, so tests can hold the port to the reference's
+call is counted in `axis_log` by (axis, collective), and `log` sums it by
+collective, so tests can hold the port to the reference's
 per-round collective contracts (repro.core.splitters.ROUND_COLLECTIVES,
 repro.core.exchange.EXCHANGE_COLLECTIVES).
 """
@@ -31,34 +40,120 @@ import torch
 class Comm:
     """Collectives over `p` emulated shards, with a call log."""
 
+    axis = "sort"       # the name its calls are logged under
+
     def __init__(self, p: int):
         if p < 1:
             raise ValueError(f"need at least one shard, got p={p}")
         self.p = p
-        self.log: Counter = Counter()
+        self.axis_log: Counter = Counter()
 
-    def _check(self, x: torch.Tensor, name: str):
+    @property
+    def log(self) -> Counter:
+        """Calls by collective, summed over the axes."""
+        out: Counter = Counter()
+        for (_, name), k in self.axis_log.items():
+            out[name] += k
+        return out
+
+    def _call(self, x: torch.Tensor, name: str):
         if x.shape[0] != self.p:
             raise ValueError(
                 f"{name}: leading (shard) axis {x.shape[0]} != p={self.p}")
+        self.axis_log[(self.axis, name)] += 1
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        self._check(x, "all_gather")
-        self.log["all_gather"] += 1
+        self._call(x, "all_gather")
         return x
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        self._check(x, "psum")
-        self.log["psum"] += 1
+        self._call(x, "psum")
         return x.sum(dim=0, dtype=x.dtype)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
-        self._check(x, "all_to_all")
         if x.shape[1] != self.p:
             raise ValueError(
                 f"all_to_all: destination axis {x.shape[1]} != p={self.p}")
-        self.log["all_to_all"] += 1
+        self._call(x, "all_to_all")
         return x.transpose(0, 1).contiguous()
+
+    def ragged_all_to_all(self, operand: torch.Tensor, output: torch.Tensor,
+                          input_offsets: torch.Tensor,
+                          send_sizes: torch.Tensor,
+                          output_offsets: torch.Tensor) -> torch.Tensor:
+        """The exact alltoallv (counterpart of jax.lax.ragged_all_to_all):
+        source s sends operand[s, b, input_offsets[s, b, d] :][:
+        send_sizes[s, b, d]] to destination d, which receives it at
+        output_offsets[s, b, d] of its row b of `output`. operand (p_src,
+        B, n); the offsets and sizes (p_src, B, p_dst); output (p_dst, B,
+        cap) holds the fill of every slot no chunk covers. Chunks land in
+        each destination row in source order, back to back, as the
+        exchange lays them out; a chunk past `cap` is cut there (no write
+        lands outside the buffer).
+
+        On one device it is a gather: slot j of a destination row takes
+        the last source whose chunk starts at or before j (a searchsorted
+        over that row's receive offsets)."""
+        p, batch, n = operand.shape
+        self._call(operand, "ragged_all_to_all")
+        cap = output.shape[-1]
+        dev = operand.device
+        off = output_offsets.permute(2, 1, 0).to(torch.int64).contiguous()
+        size = send_sizes.permute(2, 1, 0).to(torch.int64)
+        start = input_offsets.permute(2, 1, 0).to(torch.int64)
+        j = torch.arange(cap, dtype=torch.int64, device=dev).expand(
+            p, batch, cap).contiguous()
+        src = torch.clamp(torch.searchsorted(off, j, right=True) - 1, min=0)
+        rel = j - torch.gather(off, -1, src)
+        del j
+        hit = (rel >= 0) & (rel < torch.gather(size, -1, src))
+        row = src * batch + torch.arange(batch, dtype=torch.int64,
+                                         device=dev)[:, None]
+        idx = row * n + torch.gather(start, -1, src) + rel
+        del src, rel, row
+        vals = operand.reshape(-1)[torch.clamp(idx, 0, operand.numel() - 1)]
+        return torch.where(hit, vals, output)
+
+    def along(self, axis: str, r1: int, r2: int) -> "AxisComm":
+        """The collectives over one axis of the (r1, r2) grid: "outer" (r1
+        shards that share an inner index) or "inner" (r2 shards that share
+        an outer index). Calls are logged here too."""
+        if r1 * r2 != self.p:
+            raise ValueError(f"grid ({r1}, {r2}) != p={self.p} shards")
+        return AxisComm(self, axis, r1, r2)
 
     def axis_index(self, device=None) -> torch.Tensor:
         return torch.arange(self.p, dtype=torch.int32, device=device)
+
+
+class AxisComm(Comm):
+    """`Comm` over one axis of a (r1, r2) shard grid (`Comm.along`).
+
+    `fold` lays (p, B, ...) shard rows out as (r_axis, r_other*B, ...):
+    the axis's shards lead and row other*B + b is request b of the group
+    at index `other` of the other axis; `unfold` is its inverse, and
+    `rows` repeats a per-request (B, ...) value for every group. Its log
+    is the parent's, so a pipeline's totals stay in one place."""
+
+    def __init__(self, parent: Comm, axis: str, r1: int, r2: int):
+        if axis not in ("outer", "inner"):
+            raise ValueError(f"axis must be 'outer' or 'inner', got {axis!r}")
+        self.p, self.other = (r1, r2) if axis == "outer" else (r2, r1)
+        self.axis, self.r1, self.r2 = axis, r1, r2
+        self.axis_log = parent.axis_log
+
+    def fold(self, x: torch.Tensor) -> torch.Tensor:
+        grid = x.reshape((self.r1, self.r2) + x.shape[1:])
+        if self.axis == "inner":
+            grid = grid.transpose(0, 1)
+        return grid.reshape((self.p, -1) + x.shape[2:]).contiguous()
+
+    def unfold(self, x: torch.Tensor) -> torch.Tensor:
+        grid = x.reshape((self.p, self.other, -1) + x.shape[2:])
+        if self.axis == "inner":
+            grid = grid.transpose(0, 1)
+        return grid.reshape((self.r1 * self.r2, -1)
+                            + x.shape[2:]).contiguous()
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        return x.repeat((self.other,) + (1,) * (x.dim() - 1))

@@ -8,6 +8,8 @@
     order = argsort(x)                 # stable permutation, NumPy
     keys, vals = sort_kv(keys, vals)   # payloads ride along
     out = sort(x, on_overflow="retry") # exact; out.recovery says how
+    out = sort(x, algorithm="multistage")  # see available_algorithms()
+    out = sort(x, exchange="ragged")   # the exact alltoallv
 
 The shared host driver lives in repro_torch.sort.driver, the dtype and
 duplicate adapters in repro_torch.sort.adapters, the partitioner registry

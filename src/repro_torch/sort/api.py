@@ -4,6 +4,9 @@
     from repro_torch.sort import SortSpec, argsort, sort, sort_batched
     out = sort(x)                                 # HSS, 8 shards, on the card
     out = sort(x, SortSpec(shards=4, device="cpu"))
+    out = sort(x, algorithm="ams")                # or sample_random,
+                                                  # sample_regular, multistage
+    out = sort(x, exchange="ragged")              # the exact alltoallv
     out = sort(x, kernel_policy="torch")          # kwargs override the spec
     out.gather()                                  # flat sorted NumPy array
     out = sort(x, on_overflow="retry")            # exact; see out.recovery
@@ -94,11 +97,13 @@ def sort(x, spec: SortSpec | None = None, *, uniform=None,
     spec's overflow policy. With `SortSpec(batch=True)` the input goes to
     `sort_batched` instead.
 
-    `uniform` (optional) injects the sampling draws: round j ->
-    (p, n_local) float32 U[0, 1) array, row s for shard s, in place of the
-    seeded generator (the parity tests feed the reference's draws). Every
-    attempt of the retry policy takes the same draws, as every attempt of
-    the reference's reseeds from `spec.seed`."""
+    `uniform` (optional) injects the sampling draws: (j, n) -> (p, n)
+    float32 U[0, 1) array, draw j of n keys a shard, row s for shard s, in
+    place of the seeded generator (the parity tests feed the reference's
+    draws; `repro_torch.sort.partitioners` says how each algorithm
+    numbers its draws). Every attempt of the retry policy takes the same
+    draws, as every attempt of the reference's reseeds from
+    `spec.seed`."""
     spec = _as_spec(spec, overrides)
     if spec.batch:
         return sort_batched(x, spec, uniform=uniform)
@@ -200,7 +205,10 @@ def _host_overflow(out) -> int:
 def _warm_started(spec: SortSpec, out) -> SortSpec:
     """A failed attempt's splitter keys as warm-start probes, so the retry
     ranks p-1 known-good keys before it samples (the ChaNGa trick,
-    pointed at recovery)."""
+    pointed at recovery). HSS only: it is the one partitioner that takes
+    probes (repro/sort/api.py:273)."""
+    if spec.algorithm != "hss":
+        return spec
     sk = out.splitter_keys
     if sk is None or sk.numel() == 0:
         return spec

@@ -17,6 +17,8 @@ rows; the result comes back in the reference's layout, (B, p, ...).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -68,12 +70,22 @@ def strip_sentinel_counts(shards: torch.Tensor, counts: torch.Tensor,
     return counts + restored
 
 
-def default_uniform(p: int, n_local: int, seed: int, device):
-    """Round j -> (p, n_local) float32 U[0, 1) draws from one seeded
+def factor_stages(p: int) -> tuple[int, int]:
+    """(r1, r2) with r1*r2 == p and r1 the largest divisor <= sqrt(p): the
+    default (outer, inner) grid of multistage (driver.py:178-184)."""
+    r1 = 1
+    for d in range(1, math.isqrt(p) + 1):
+        if p % d == 0:
+            r1 = d
+    return r1, p // r1
+
+
+def default_uniform(p: int, seed: int, device):
+    """(j, n) -> (p, n) float32 U[0, 1) draws from one seeded
     `torch.Generator` on `device` (each call draws the next block)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return lambda j: torch.rand((p, n_local), generator=gen, device=device)
+    return lambda j, n: torch.rand((p, n), generator=gen, device=device)
 
 
 def run_batched(sort_fn, xs: torch.Tensor, *, p: int, seed: int = 0,
@@ -86,9 +98,12 @@ def run_batched(sort_fn, xs: torch.Tensor, *, p: int, seed: int = 0,
     (B,), stats): a `Partitioner.sharded_batched`. Returns the raw batched
     tuple (shards (B, p, cap), counts (B, p), keys, ranks, overflow,
     stats). `local_sort_fn` is the (B, n) -> (B, n) sort of the p == 1
-    short-circuit, whose counts are `n_real` (default n). `uniform` (round
-    j -> (p, n_local) float32 array) overrides the seeded draws, shared by
-    every request; tests inject the reference's own.
+    short-circuit, whose counts are `n_real` (default n). `uniform` ((j,
+    n) -> (p, n) float32 array: draw j, n per shard; row s is shard s =
+    outer*r2 + inner on multistage's grid, as driver.py:290-292 numbers
+    it) overrides the seeded draws, shared by every request; tests inject
+    the reference's own. Each algorithm numbers its draws (see its
+    partitioner).
     """
     dev = xs.device
     batch, n = xs.shape
@@ -109,7 +124,7 @@ def run_batched(sort_fn, xs: torch.Tensor, *, p: int, seed: int = 0,
     n_local = xs.shape[1] // p
     rows = xs.reshape(batch, p, n_local).transpose(0, 1).contiguous()
     out, counts, keys, ranks, ovf, stats = sort_fn(
-        rows, Comm(p), _draws(uniform, p, n_local, seed, dev))
+        rows, Comm(p), _draws(uniform, p, seed, dev))
     out = out.transpose(0, 1).contiguous()
     counts = counts.transpose(0, 1).contiguous()
     if n_pad:   # our sentinel pads may have been counted as keys
@@ -118,16 +133,19 @@ def run_batched(sort_fn, xs: torch.Tensor, *, p: int, seed: int = 0,
     return out, counts, keys, ranks, ovf, stats
 
 
-def _draws(uniform, p: int, n_local: int, seed: int, device):
-    """The round -> (p, n_local) draws: the seeded generator, or the
-    injected source moved onto the device. Injected draws keep a float64
-    dtype (the reference's under jax x64), so that `u < prob` compares as
-    the reference's does."""
+def _draws(uniform, p: int, seed: int, device):
+    """The (j, n) -> (p, n) draws: the seeded generator, or the injected
+    source moved onto the device. Injected draws keep a float64 dtype (the
+    reference's under jax x64), so that `u < prob` compares as the
+    reference's does."""
     if uniform is None:
-        return default_uniform(p, n_local, seed, device)
+        return default_uniform(p, seed, device)
 
-    def draws(j):
-        u = torch.as_tensor(uniform(j), device=device)
+    def draws(j, n):
+        u = torch.as_tensor(uniform(j, n), device=device)
+        if tuple(u.shape) != (p, n):
+            raise ValueError(f"injected draws {j}: shape {tuple(u.shape)}, "
+                             f"want {(p, n)}")
         return u if u.dtype == torch.float64 else u.to(torch.float32)
     return draws
 

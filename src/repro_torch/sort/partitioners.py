@@ -5,31 +5,45 @@ one three-phase skeleton — local sort, splitter determination, exchange —
 and differ only in how the p-1 splitters are found. A `Partitioner`
 implements `splitters_batched`; `sharded_batched` runs the skeleton over
 the batched engine's (p, B, n_local) rows with one collective per phase
-whatever B is (an unbatched sort is B = 1). The port registers "hss"; the
-baselines follow with ROADMAP queue 1 item 4.
+whatever B is (an unbatched sort is B = 1). Multistage runs two nested
+exchanges, so it overrides the whole `sharded_batched`.
+
+The draws (`ShardCtx.uniform`, (j, n) -> (p, n)) are numbered per
+algorithm, as each of the reference's consumes its per-shard key: HSS
+takes draw j in round j (one split a round); sample_random and ams take
+draw 0 once, of n_local keys (the key itself, no split);
+sample_regular takes none; multistage takes stage 1's rounds as draws
+0..k1-1 and stage 2's as k1.., of the stage-1 output row's length (the
+key split in two, then one split a round in each stage).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
+from repro_torch.core.ams import ams_splitters
 from repro_torch.core.exchange import exchange_batched
-from repro_torch.core.splitters import (
-    SplitterStats, Uniform, hss_splitters_batched)
+from repro_torch.core.multistage import two_stage_sort_batched
+from repro_torch.core.sample_sort import (
+    default_regular_s, default_total_sample, random_sample_splitters,
+    regular_sample_splitters)
+from repro_torch.core.splitters import SplitterStats, hss_splitters_batched
 from repro_torch.kernels import dispatch
 from repro_torch.parallel.comm import Comm
+from repro_torch.sort.driver import factor_stages
 from repro_torch.sort.spec import SortSpec
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    """Everything a partitioner sees besides the keys."""
+    """Everything a partitioner sees besides the keys. uniform: (j, n) ->
+    (p, n) draws, row s for shard s."""
 
     spec: SortSpec
     comm: Comm
-    uniform: Uniform
+    uniform: Callable[[int, int], torch.Tensor]
     initial_probes: Any = None
 
 
@@ -44,6 +58,10 @@ def null_stats_batched(batch: int, n_satisfied=None,
                          n_satisfied=sat,
                          rounds_used=torch.ones((batch,), dtype=torch.int32,
                                                 device=device))
+
+
+def _zeros(batch: int, device) -> torch.Tensor:
+    return torch.zeros((batch,), dtype=torch.int32, device=device)
 
 
 class Partitioner:
@@ -85,9 +103,9 @@ def get_partitioner(name: str) -> Partitioner:
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise NotImplementedError(
-            f"sort algorithm {name!r} is not ported yet (ROADMAP queue 1 "
-            f"item 4); available: {sorted(_REGISTRY)}") from None
+        raise ValueError(
+            f"unknown sort algorithm {name!r}; available: "
+            f"{sorted(_REGISTRY)}") from None
 
 
 def available_algorithms() -> tuple[str, ...]:
@@ -99,9 +117,73 @@ class HSSPartitioner(Partitioner):
     """Histogram Sort with Sampling (the paper's algorithm, Section 4)."""
 
     def splitters_batched(self, local_sorted, ctx):
+        n_local = local_sorted.shape[-1]
         keys, ranks, stats = hss_splitters_batched(
             local_sorted, comm=ctx.comm, cfg=ctx.spec.hss_config(),
-            uniform=ctx.uniform, initial_probes=ctx.initial_probes)
-        return (keys, ranks,
-                torch.zeros((keys.shape[0],), dtype=torch.int32,
-                            device=keys.device), stats)
+            uniform=lambda j: ctx.uniform(j, n_local),
+            initial_probes=ctx.initial_probes)
+        return keys, ranks, _zeros(keys.shape[0], keys.device), stats
+
+
+@register_partitioner("sample_random")
+class RandomSamplePartitioner(Partitioner):
+    """Random-sampling sample sort (Blelloch et al.; Theorem 3.1)."""
+
+    def splitters_batched(self, local_sorted, ctx):
+        p, batch, n_local = local_sorted.shape
+        total = ctx.spec.total_sample or default_total_sample(
+            p, n_local, ctx.spec.eps)
+        keys, overflow = random_sample_splitters(
+            local_sorted, comm=ctx.comm, total_sample=total,
+            u=ctx.uniform(0, n_local), kernel_policy=ctx.spec.kernel_policy)
+        return (keys, torch.zeros_like(keys, dtype=torch.int32), overflow,
+                null_stats_batched(batch, device=keys.device))
+
+
+@register_partitioner("sample_regular")
+class RegularSamplePartitioner(Partitioner):
+    """Regular-sampling sample sort (PSRS; Theorem 3.2). Deterministic."""
+
+    def splitters_batched(self, local_sorted, ctx):
+        p, batch, _ = local_sorted.shape
+        keys = regular_sample_splitters(
+            local_sorted, comm=ctx.comm,
+            s=ctx.spec.s or default_regular_s(p, ctx.spec.eps),
+            kernel_policy=ctx.spec.kernel_policy)
+        return (keys, torch.zeros_like(keys, dtype=torch.int32),
+                _zeros(batch, keys.device),
+                null_stats_batched(batch, device=keys.device))
+
+
+@register_partitioner("ams")
+class AMSPartitioner(Partitioner):
+    """Single-stage AMS scanning baseline (Section 3.6, Appendix A);
+    stats.n_satisfied is p-1 where the scan succeeded, else 0."""
+
+    def splitters_batched(self, local_sorted, ctx):
+        p, batch, n_local = local_sorted.shape
+        keys, ranks, overflow, ok = ams_splitters(
+            local_sorted, comm=ctx.comm, eps=ctx.spec.eps,
+            u=ctx.uniform(0, n_local), total_sample=ctx.spec.total_sample,
+            kernel_policy=ctx.spec.kernel_policy)
+        sat = torch.where(ok, p - 1, 0).to(torch.int32)
+        return keys, ranks, overflow, null_stats_batched(
+            batch, sat, device=keys.device)
+
+
+@register_partitioner("multistage")
+class MultistagePartitioner(Partitioner):
+    """Two-stage HSS (Sections 5.3/6.1): group split + intra-group sort.
+    It has no final splitters of its own: keys and ranks come back (B, 0),
+    the stats as placeholders, as the reference's do."""
+
+    def sharded_batched(self, local, ctx):
+        r1, r2 = ctx.spec.stages or factor_stages(ctx.spec.shards)
+        out, n_valid, overflow = two_stage_sort_batched(
+            local, comm=ctx.comm, r1=r1, r2=r2, uniform=ctx.uniform,
+            hss_cfg=ctx.spec.hss_config(), ex_cfg=ctx.spec.exchange_config())
+        batch, dev = local.shape[1], local.device
+        return (out, n_valid,
+                torch.zeros((batch, 0), dtype=local.dtype, device=dev),
+                torch.zeros((batch, 0), dtype=torch.int32, device=dev),
+                overflow, null_stats_batched(batch, device=dev))

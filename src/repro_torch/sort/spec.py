@@ -1,9 +1,10 @@
 """SortSpec: the configuration object of the `repro_torch.sort` front door.
 
-Counterpart of `repro.sort.spec.SortSpec`, with the fields the main path
-reads. The reference's `mesh` gives way to `shards` (p, emulated as the
-leading axis of one tensor) and `device` ("cuda" by default; the tests
-pass "cpu").
+Counterpart of `repro.sort.spec.SortSpec`, with the fields the ported
+paths read. The reference's `mesh` gives way to `shards` (p, emulated as
+the leading axis of one tensor), `stages` (multistage's (r1, r2) grid,
+the reference's 2-D mesh shape) and `device` ("cuda" by default; the
+tests pass "cpu").
 
     from repro_torch.sort import SortSpec, sort
     out = sort(x, SortSpec(shards=8, eps=0.05))
@@ -16,7 +17,7 @@ from typing import Any
 from repro_torch.core.common import HSSConfig
 from repro_torch.core.exchange import ExchangeConfig
 
-ALGORITHMS = ("hss",)
+ALGORITHMS = ("hss", "sample_random", "sample_regular", "ams", "multistage")
 
 ON_OVERFLOW = ("raise", "retry", "spill")
 
@@ -25,11 +26,18 @@ ON_OVERFLOW = ("raise", "retry", "spill")
 class SortSpec:
     """Everything `sort()` needs.
 
-      algorithm      "hss" (the other partitioners: ROADMAP queue 1 item 4).
+      algorithm      one of ALGORITHMS (repro_torch.sort.partitioners):
+                     "hss", the baselines "sample_random",
+                     "sample_regular" and "ams", or "multistage".
       eps            load-balance slack: each shard <= (1+eps) N/p keys.
-      rounds, sample_per_shard, adaptive   forwarded to HSSConfig.
-      exchange       "dense", "dense_spill" or "allgather" (ragged: ROADMAP
-                     queue 1 item 4).
+      rounds, sample_per_shard, adaptive   forwarded to HSSConfig (hss
+                     and multistage).
+      total_sample   sample_random and ams: the overall sample size
+                     (None: each algorithm's theory size).
+      s              sample_regular: keys sampled a shard (None: p/eps).
+      stages         multistage: the (r1, r2) grid, r1*r2 == shards
+                     (None: `driver.factor_stages(shards)`).
+      exchange       "dense", "dense_spill", "ragged" or "allgather".
       pair_factor    dense: per-(src, dst) capacity multiplier.
       out_slack      output-buffer slack on the (1+eps) capacity.
       on_overflow    "raise": `sort()` reports the overflow counter for the
@@ -64,6 +72,9 @@ class SortSpec:
     rounds: int = 0
     sample_per_shard: int = 0
     adaptive: bool = True
+    total_sample: int | None = None
+    s: int | None = None
+    stages: tuple[int, int] | None = None
     exchange: str = "dense"
     pair_factor: float = 3.0
     out_slack: float = 1.0
@@ -86,6 +97,11 @@ class SortSpec:
                 f"got {self.on_overflow!r}")
         if self.shards < 1:
             raise ValueError(f"shards must be >= 1, got {self.shards}")
+        if self.stages is not None and (
+                len(self.stages) != 2
+                or self.stages[0] * self.stages[1] != self.shards):
+            raise ValueError(f"stages {self.stages} must be two factors of "
+                             f"shards={self.shards}")
 
     def resolved_exchange(self) -> str:
         """The exchange after the overflow policy: "spill" swaps the
@@ -99,8 +115,7 @@ class SortSpec:
         """True when the exchange cannot drop keys on the send side and
         the (1+eps) guarantee sizes the receive buffers, so the overflow
         counter needs no host check on the happy path. The reference's
-        predicate, strategy for strategy: "ragged" counts although the
-        port refuses it until ROADMAP queue 1 item 4."""
+        predicate, strategy for strategy."""
         return self.resolved_exchange() in ("ragged", "dense_spill",
                                             "allgather")
 

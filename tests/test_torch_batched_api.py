@@ -125,6 +125,6 @@ def test_bad_inputs_raise():
         tsort.sort_batched(np.zeros(8, np.int32), spec)
     with pytest.raises(ValueError):
         tsort.sort_batched(np.zeros((2, 0), np.int32), spec)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown exchange"):
         tsort.sort_batched(np.zeros((2, 8), np.int32), spec,
-                           exchange="ragged")
+                           exchange="ragged_v2")

@@ -227,15 +227,21 @@ def test_hss_sort_sharded_allgather_matches_reference():
 
 
 def test_unported_exchanges_raise():
+    """Every reference strategy is ported: an unknown name raises
+    ValueError, as the reference's does. The collective tables are the
+    reference's, except that ragged batch-fuses (one index gather moves
+    every request) and counts its out_cap truncation in one psum."""
     rows = torch.zeros((2, 1, 16), dtype=torch.int32)
     keys = torch.zeros((1, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="unknown exchange"):
         tex.exchange_batched(rows, keys, comm=Comm(2),
-                             cfg=tex.ExchangeConfig(strategy="ragged"))
-    assert tex.BATCH_FUSED_STRATEGIES == rex.BATCH_FUSED_STRATEGIES
-    assert tex.EXCHANGE_COLLECTIVES == {
-        k: rex.EXCHANGE_COLLECTIVES[k]
-        for k in ("dense", "dense_spill", "allgather")}
+                             cfg=tex.ExchangeConfig(strategy="mpi"))
+    assert tex.BATCH_FUSED_STRATEGIES == (rex.BATCH_FUSED_STRATEGIES
+                                          + ("ragged",))
+    ragged = dict(rex.EXCHANGE_COLLECTIVES["ragged"])
+    ragged["psum"] += 1
+    assert tex.EXCHANGE_COLLECTIVES == {**rex.EXCHANGE_COLLECTIVES,
+                                        "ragged": ragged}
 
 
 # ------------------------------------------------------- collective log

@@ -196,14 +196,16 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
 
 
 def test_unported_options_raise_not_implemented():
-    """ragged and the other partitioners are not ported yet; an unknown
-    overflow policy and an unsupported key dtype are refused as the
-    reference refuses them."""
+    """Every reference algorithm and exchange is ported: unknown names, an
+    unknown overflow policy and an unsupported key dtype are refused as
+    the reference refuses them."""
     x = np.arange(64, dtype=np.int32)
-    with pytest.raises(NotImplementedError):
-        tsort.sort(x, tsort.SortSpec(device="cpu", exchange="ragged"))
-    with pytest.raises(NotImplementedError):
-        tsort.sort(x, tsort.SortSpec(device="cpu", algorithm="ams"))
+    with pytest.raises(ValueError, match="unknown exchange"):
+        tsort.sort(x, tsort.SortSpec(device="cpu", exchange="mpi"))
+    with pytest.raises(ValueError, match="unknown sort algorithm"):
+        tsort.sort(x, tsort.SortSpec(device="cpu", algorithm="radix"))
+    assert tsort.available_algorithms() == tuple(sorted(rsort.ALGORITHMS))
+    assert tsort.ALGORITHMS == rsort.ALGORITHMS
     with pytest.raises(ValueError, match="on_overflow"):
         tsort.SortSpec(on_overflow="drop")
     with pytest.raises(ValueError, match="on_overflow"):

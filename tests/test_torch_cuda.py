@@ -350,3 +350,53 @@ def test_cuda_explicit_kernel_policy_on_int64_raises(card):
         dispatch.local_sort(rows, policy="kernel")
     with pytest.raises(TypeError, match="int32"):
         dispatch.merge_runs(rows.reshape(2, 2, 16), policy="kernel")
+
+
+#: The kernels each algorithm launches (chip_smoke.PATH_KERNELS): the
+#: sample sorts rank nothing, so they launch no K4s.
+_RANKS = {"sample_random": False, "sample_regular": False, "ams": True,
+          "multistage": True, "hss": True}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm,exchange", [
+    ("sample_random", "dense"), ("sample_regular", "dense"),
+    ("ams", "dense"), ("multistage", "dense"), ("hss", "ragged")])
+def test_cuda_algorithms_match_numpy_and_torch_policy(card, algorithm,
+                                                      exchange):
+    """Under retry each algorithm ends exact through the kernels, with the
+    same shards as the torch policy, and launches K4s only if it ranks."""
+    from repro_torch.sort import SortSpec, sort
+
+    x = np.random.default_rng(3).integers(0, 2 ** 31 - 1,
+                                          8 * 65536 + 5).astype(np.int32)
+    spec = SortSpec(shards=8, algorithm=algorithm, exchange=exchange,
+                    on_overflow="retry")
+    cuda.reset_launches()
+    out = sort(x, spec)
+    got = dict(cuda.launches)
+    assert all(got[k] > 0 for k in ("bitonic_sort_blocks",
+                                    "strided_compare_exchange")), got
+    assert (got["probe_rank_search"] > 0) == _RANKS[algorithm], got
+    assert got["probe_rank_count"] == 0, got
+    assert int(out.overflow) == 0
+    np.testing.assert_array_equal(out.gather(), np.sort(x))
+    ref = sort(x, SortSpec(shards=8, algorithm=algorithm, exchange=exchange,
+                           on_overflow="retry", kernel_policy="torch"))
+    assert torch.equal(out.shards, ref.shards)
+    assert torch.equal(out.counts, ref.counts)
+
+
+@pytest.mark.cuda
+def test_cuda_ragged_presorted_takes_the_full_sort_branch(card):
+    """Each shard's run (65,536 keys) outgrows the ragged merge's slot
+    (2^15): the full local sort of the buffers, exact, no overflow."""
+    from repro_torch.kernels.merge import ops as mops
+    from repro_torch.sort import SortSpec, sort
+
+    x = _presorted(8 * 65536)
+    mops.ragged_branches.clear()
+    out = sort(x, SortSpec(shards=8, exchange="ragged"))
+    assert dict(mops.ragged_branches) == {"full_sort": 1}
+    assert int(out.overflow) == 0
+    np.testing.assert_array_equal(out.gather(), np.sort(x))

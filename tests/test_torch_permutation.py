@@ -276,6 +276,6 @@ def test_explicit_kernel_policy_on_int64_raises():
 
 def test_package_exports_the_front_doors():
     for name in ("argsort", "sort_kv", "RecoveryStats",
-                 "gather_perm_checked"):
+                 "gather_perm_checked", "available_algorithms"):
         assert getattr(repro_torch, name) is getattr(tsort, name)
     assert repro_torch.sort is tsort          # still the subpackage

@@ -6,12 +6,17 @@ process on the CPU and exchange only NumPy arrays:
   * `auto_mesh(p)`: the reference's 1-D sort mesh with an Auto axis (the
     default Explicit axes of jax.make_mesh break the reference's gather,
     ROADMAP queue 3 item 1);
-  * `reference_uniform(seed, p, n_local, k)`: the reference's own sampling
+  * `reference_uniform(seed, p, n_local, k)`: the reference's own HSS
     draws — jr.fold_in(jr.key(seed), shard) (sort/driver.py:292), one
     jr.split per round (core/splitters.py:217), jr.uniform(sub, (n_local,))
-    (:164) — as a round -> (p, n_local) float32 source the port takes;
+    (:164) — as a (j, n) -> (p, n) float32 source the port takes;
+    `reference_draws(ref_spec, p, n)` gives each algorithm's: HSS's;
+    sample_random's and ams's one unsplit jr.uniform of the shard key
+    (sample_sort.py:42, ams.py:66); multistage's split of the key into
+    two stage keys, each split once a round (multistage.py:92, :57);
+  * `auto_mesh2d(r1, r2)`: multistage's (outer, inner) Auto mesh;
   * `port_spec(ref_spec, p)`: a reference SortSpec mapped field by field
-    onto the port's, on the CPU;
+    onto the port's, on the CPU (a 2-D mesh's shape as `stages`);
   * `sort_batched_both(xs, p, ...)`, `sort_both`, `argsort_both` and
     `sort_kv_both`: the reference's and the port's front door on the same
     keys, the reference's draws injected; `x64=True` runs the reference
@@ -38,6 +43,7 @@ import torch
 from jax.sharding import AxisType
 
 import repro.sort as rsort
+import repro.sort.driver as rdriver
 import repro_torch.sort as tsort
 from repro.core.common import HSSConfig
 from repro.core.exchange import ExchangeConfig
@@ -51,17 +57,71 @@ def auto_mesh(p: int):
                          devices=jax.devices()[:p])
 
 
+def auto_mesh2d(r1: int, r2: int):
+    return jax.make_mesh((r1, r2), ("outer", "inner"),
+                         axis_types=(AxisType.Auto,) * 2,
+                         devices=jax.devices()[:r1 * r2])
+
+
 def reference_uniform(seed: int, p: int, n_local: int, k: int):
-    """Round j -> (p, n_local) float32: the reference's per-shard draws."""
-    keys = [jr.fold_in(jr.key(seed), s) for s in range(p)]
+    """(j, n) -> (p, n_local) float32: the reference's per-shard HSS
+    draws of round j < k."""
+    return _round_draws([jr.fold_in(jr.key(seed), s) for s in range(p)],
+                        n_local, k)
+
+
+def _round_draws(keys, n_local: int, k: int):
+    """One jr.split of each shard key a round, jr.uniform of the subkey."""
+    keys = list(keys)
     rounds = []
     for _ in range(k):
         row = []
-        for s in range(p):
+        for s in range(len(keys)):
             keys[s], sub = jr.split(keys[s])
             row.append(np.asarray(jr.uniform(sub, (n_local,))))
         rounds.append(np.stack(row))
-    return lambda j: rounds[j]
+    return lambda j, n=None: rounds[j]
+
+
+def _lazy_round_draws(keys):
+    """As `_round_draws`, of whatever length the port asks for (the
+    multistage stage-2 rows grow with a retry's capacity_scale)."""
+    keys, subs, memo = list(keys), [], {}
+    wide = jax.numpy.asarray(0.5).dtype == np.float64   # made under x64
+
+    def draws(j, n):
+        with _x64(wide):
+            while len(subs) <= j:
+                split = [jr.split(key) for key in keys]
+                keys[:] = [a for a, _ in split]
+                subs.append([b for _, b in split])
+            if (j, n) not in memo:
+                memo[j, n] = np.stack([np.asarray(jr.uniform(sub, (n,)))
+                                       for sub in subs[j]])
+        return memo[j, n]
+    return draws
+
+
+def reference_draws(ref_spec: RefSortSpec, p: int, n: int):
+    """The reference's draws for a sort of n keys per request under
+    ref_spec, numbered as the port's partitioners take them."""
+    n_local = -(-n // p)
+    keys = [jr.fold_in(jr.key(ref_spec.seed), s) for s in range(p)]
+    algo = ref_spec.algorithm
+    if algo in ("sample_random", "ams"):
+        u = np.stack([np.asarray(jr.uniform(key, (n_local,)))
+                      for key in keys])
+        return lambda j, n=None: u
+    if algo == "multistage":
+        r1 = ref_spec.mesh.shape["outer"]
+        k1 = ref_spec.hss_config().resolved_rounds(r1)
+        halves = [jr.split(key) for key in keys]
+        stage1 = _lazy_round_draws([a for a, _ in halves])
+        stage2 = _lazy_round_draws([b for _, b in halves])
+        return lambda j, n: (stage1(j, n) if j < k1
+                             else stage2(j - k1, n))
+    k = ref_spec.hss_config().resolved_rounds(p)
+    return reference_uniform(ref_spec.seed, p, n_local, k)
 
 
 def port_hss_config(cfg: HSSConfig, policy: str | None = None):
@@ -92,7 +152,11 @@ def port_spec(ref: RefSortSpec, p: int, **overrides) -> tsort.SortSpec:
         max_overflow_retries=ref.max_overflow_retries,
         capacity_scale=ref.capacity_scale, stable=ref.stable, tag=ref.tag,
         kernel_policy=_POLICY[ref.kernel_policy], seed=ref.seed,
-        initial_probes=ref.initial_probes, shards=p, device="cpu")
+        initial_probes=ref.initial_probes, total_sample=ref.total_sample,
+        s=ref.s, shards=p, device="cpu")
+    if ref.mesh is not None and len(ref.mesh.shape) == 2:
+        fields["stages"] = (ref.mesh.shape[ref.outer_axis],
+                            ref.mesh.shape[ref.inner_axis])
     fields.update(overrides)
     return tsort.SortSpec(**fields)
 
@@ -108,13 +172,6 @@ def random_keys(dtype, shape, seed: int) -> np.ndarray:
     return rng.integers(-2 ** 31, 2 ** 31 - 1, size=shape, dtype=np.int32)
 
 
-def reference_draws(ref_spec: RefSortSpec, p: int, n: int):
-    """`reference_uniform` for a sort of n keys per request under
-    ref_spec."""
-    k = ref_spec.hss_config().resolved_rounds(p)
-    return reference_uniform(ref_spec.seed, p, -(-n // p), k)
-
-
 def _x64(on: bool):
     return jax.enable_x64(True) if on else contextlib.nullcontext()
 
@@ -122,9 +179,16 @@ def _x64(on: bool):
 def _run_both(ref_fn, port_fn, n: int, p: int, port_overrides, x64: bool,
               spec_kw):
     """(port, reference) results of one front-door call: the reference
-    under `ref_spec` (x64 if asked), the port under its counterpart with
-    the reference's draws injected."""
-    ref_spec = RefSortSpec(mesh=auto_mesh(p), **spec_kw)
+    under `ref_spec` (x64 if asked; multistage on a 2-D mesh of `stages`,
+    default factor_stages(p)), the port under its counterpart with the
+    reference's draws injected."""
+    spec_kw = dict(spec_kw)
+    stages = spec_kw.pop("stages", None)
+    if spec_kw.get("algorithm") == "multistage":
+        mesh = auto_mesh2d(*(stages or rdriver.factor_stages(p)))
+    else:
+        mesh = auto_mesh(p)
+    ref_spec = RefSortSpec(mesh=mesh, **spec_kw)
     with _x64(x64):
         want = ref_fn(ref_spec)
         draws = reference_draws(ref_spec, p, n)
