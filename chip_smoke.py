@@ -105,9 +105,47 @@ Phases, in order; any failure raises and the script exits non-zero:
      each algorithm and HSS+ragged beside HSS+dense in the same call,
      and a torch.profiler breakdown and the peak device memory of one
      warm multistage call and one warm ragged call;
-  12. every kernel (K1, K2 by role, K3, K4s) against its plain version,
-     exactly, at every shape and parameter the main paths of phases 4-5
-     and 7-10 called it with (recorded as they ran, `kernel_shapes`):
+  13. the fused audit: `sort` of the WEAK_SCALING keys under verify
+     "cheap" and "full" (audit ok, count word 16,000,000, imbalance <=
+     1 + eps + 8/N, the same audit vector under kernel_policy="torch",
+     the same shards, counts and kernel launches as verify="off": the
+     audit launches no kernel), 16M float32 normal keys under "cheap" and
+     the batched cell under "cheap" (every row_ok); verify_fallback false
+     on each;
+  14. corruption (chaos.FaultPlan): corrupt_at=(0,) under
+     on_verify_failure="retry" (exact, one failure, one retry),
+     corrupt_at=(0, 1) (exact through the fallback: verify_fallback, the
+     torch policy), corrupt_at=True (VerificationError must be raised),
+     and the batched cell with corrupt_key in one row only
+     (BatchVerificationError, row_ok false at that row alone, the other
+     rows equal to np.sort); chaos.stats() printed;
+  15. the clamp: FaultPlan(clamp_pair_cap=200,000) under "retry" on the
+     WEAK_SCALING keys: the first attempt overflows, the escalations end
+     exact; RecoveryStats printed;
+  16. the imbalance SLO: ALL_EQUAL, ZIPF_HH, PRESORTED, REVERSE and
+     SAWTOOTH at 16M under verify="cheap", imbalance_slo=1.2 and "retry":
+     exact, imbalance <= 1.2, the rung printed; ALL_EQUAL with tag=False
+     and out_slack 8 must raise ImbalanceError; the refine rung stamped on
+     the WEAK_SCALING keys with a starved sampler (1 round, 8 samples a
+     shard, tag=False, SLO 1.1);
+  17. grouping: `semisort` of 16M ZIPF_HH keys (groups equal to
+     np.unique, each key on one shard), `groupby_aggregate` at
+     Phi-3.5-MoE's routing (16M expert ids: count, and sum and max of
+     float32 values, against NumPy), `top_k` (k = 1,024) of the
+     WEAK_SCALING keys and of 16M float32 normal keys (equal to np.sort;
+     one all_gather, no all_to_all), `semisort_batched` and
+     `top_k_batched` of the batched cell (each row equal to the single
+     call), and `counting_dispatch` of the 16M expert ids (capacity 1.25 *
+     N/16) equal to method="argsort";
+  18. times: warm medians, taken in turns, of `sort` under verify off,
+     cheap and full, `semisort` against `sort` on ZIPF_HH, `top_k`
+     against `sort` (with the caching allocator's retries over each), and
+     a profile and the peak memory of a warm verify="full" sort and a
+     warm semisort;
+  last (phase 12, run after 13-17): every kernel (K1, K2 by role, K3,
+     K4s) against its plain version,
+     exactly, at every shape and parameter the main paths of phases 4-5,
+     7-10 and 13-17 called it with (recorded as they ran, `kernel_shapes`):
      multistage's stage 2 searching 8 rows of 4,200,008 keys with
      sentinel tails, ams's 960 probes a row, ragged's full sort of (8,
      2^22) buffers and the like. Each row of the kernels line lists the
@@ -115,8 +153,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Each path's kernels are gated (`check_path_launches`): every kernel it
 launches by the code, none other. The HSS paths launch K1-K3 and K4s; the
-sample sorts rank nothing, so they launch no K4s (`PATH_KERNELS`); no
-path launches the counting K4.
+sample sorts and top_k rank nothing, so they launch no K4s; the counting
+dispatch launches no kernel (`PATH_KERNELS`); no path launches the
+counting K4, whose operations per pair are read from the built library's
+SASS (`k4_sass_line`). A kernel row faster than its bound fails the run.
 
 Every measurement line is one JSON object carrying the card's name and
 power limit. The line before the last is the card line; the kernels line
@@ -137,10 +177,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SOURCE = "src/repro_torch/kernels/csrc/sort_kernels.cu"
 
-# NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3; INT32 at 33.5 TOPS (half
-# the 67 TFLOP/s float32 rate outside the tensor cores).
+# NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3; 132 SMs at a 1,980 MHz
+# boost clock, each with 64 INT32 lanes and 128 FP32 lanes. An int32
+# operation issues at 132 * 64 * 1.98e9 = 16.7 TOPS; an instruction of the
+# FMA pipe (IMAD and the float ones) at 132 * 128 * 1.98e9 = 33.5 T/s.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 33.5e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+FMA_OPS_PER_S = 132 * 128 * 1.98e9
 
 P, EPS = 8, 0.05
 N_WEAK = 16_000_000          # WEAK_SCALING: 2,000,000 keys per shard
@@ -171,7 +214,16 @@ SORTING = ("bitonic_sort_blocks", "bitonic_merge_smem.reverse",
            "bitonic_merge_smem.tail", "strided_compare_exchange")
 RANKING = SORTING + ("probe_rank_search",)
 PATH_KERNELS = {"sample_random": SORTING, "sample_regular": SORTING,
-                "ams": RANKING, "multistage": RANKING, "ragged": RANKING}
+                "ams": RANKING, "multistage": RANKING, "ragged": RANKING,
+                # phase 17: semisort sorts the shards and the masked lights
+                # and ranks with HSS; the value aggregates ride sort_kv;
+                # top_k sorts and merges, ranking nothing; the counting
+                # dispatch is torch ops with no kernel (as the reference's
+                # is jnp with no Pallas)
+                "semisort": RANKING, "groupby_aggregate[count]": RANKING,
+                "groupby_aggregate[sum]": RANKING,
+                "groupby_aggregate[max]": RANKING, "top_k": SORTING,
+                "counting_dispatch": ()}
 # The CUDA functions of csrc/sort_kernels.cu, as the profiler names them.
 PORT_KERNELS = ("bitonic_sort_warp_kernel", "bitonic_merge_smem_kernel",
                 "bitonic_merge_warp_kernel", "strided_ce_kernel",
@@ -251,12 +303,91 @@ def search_bound(rows: int, n: int, m: int):
     return 4 * rows * m * (2 + depth), rows * m * depth
 
 
-def bound(bytes_moved: float, int_ops: float):
-    """(bound_ms, bound_by): the larger of bytes over HBM rate and int32
-    operations over the int32 rate."""
+def bound(bytes_moved: float, int_ops: float, fma_ops: float = 0.0):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and the
+    operations' time: int32 operations over the int32 rate, or the FMA
+    pipe's instructions over its rate where the compiler put work there."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = int_ops / INT32_OPS_PER_S * 1e3
+    t_ops = max(int_ops / INT32_OPS_PER_S, fma_ops / FMA_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+SASS_INSTR = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)(.*?);")
+SASS_MEMORY = ("LD", "ST", "ATOM", "RED")
+SASS_CONTROL = ("BRA", "EXIT", "BAR", "NOP", "YIELD", "BSSY", "BSYNC",
+                "WARPSYNC", "CALL", "RET", "DEPBAR")
+#: Opcodes of the FMA pipe (128 lanes an SM): the IMAD family, sm_90's
+#: VIADD and the float ones. The counting K4's loop (per 32 pairs: 32
+#: ISETP, 16 IADD3, 20 VIADD, 30 IMAD) could not run at its measured
+#: 0.4528 ms if its VIADDs shared the 64-lane int32 pipe (0.528 ms).
+SASS_FMA = ("IMAD", "VIADD", "FFMA", "FMUL", "FADD", "HFMA2", "HADD2",
+            "HMUL2")
+#: keys a shared-memory load reads, by width
+SASS_LDS_KEYS = {"LDS.128": 4, "LDS.64": 2, "LDS": 1}
+
+
+def sass_loops(text: str, function: str):
+    """The loops (a branch back to an earlier instruction) of the SASS
+    function whose name holds `function`, each a list of opcodes."""
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        if function not in chunk.split("\n", 1)[0]:
+            continue
+        instrs, labels = [], {}
+        for line in chunk.splitlines():
+            label = re.match(r"^\s*(\.L_x_\d+):", line)
+            if label:
+                labels[label.group(1)] = len(instrs)
+                continue
+            m = SASS_INSTR.match(line)
+            if m:
+                instrs.append((int(m.group(1), 16), m.group(2), m.group(3)))
+        loops = []
+        for i, (_, op, rest) in enumerate(instrs):
+            if not op.startswith("BRA"):
+                continue
+            target = re.search(r"(\.L_x_\d+)", rest)
+            if target and target.group(1) in labels:
+                j = labels[target.group(1)]
+            else:
+                addr = re.search(r"0x([0-9a-f]+)", rest)
+                j = None if addr is None else next(
+                    (k for k, ins in enumerate(instrs)
+                     if ins[0] == int(addr.group(1), 16)), None)
+            if j is not None and j <= i:
+                loops.append([op for _, op, _ in instrs[j:i + 1]])
+        return loops
+    return []
+
+
+def k4_sass_line(card):
+    """The counting K4's operations per (key, probe) pair, read from the
+    SASS of the built library (cuobjdump -sass): its inner loop's
+    instructions by pipe over the keys its shared-memory loads read.
+    Returns (int32 ops, FMA-pipe ops) per pair."""
+    from collections import Counter
+
+    from repro_torch.kernels import cuda
+
+    tool = Path(cuda._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(cuda.build())],
+                          capture_output=True, text=True, check=True).stdout
+    loops = sass_loops(text, "probe_rank_count_kernel")
+    keyed = [(sum(SASS_LDS_KEYS.get(op, 0) for op in loop), loop)
+             for loop in loops]
+    keys, loop = max(keyed, key=lambda kl: kl[0], default=(0, []))
+    if keys == 0:
+        fail("k4_sass_line: no loop with shared-memory loads in "
+             "probe_rank_count_kernel")
+    ops = Counter(loop)
+    fma = sum(k for op, k in ops.items() if op.startswith(SASS_FMA))
+    alu = sum(k for op, k in ops.items()
+              if not op.startswith(SASS_MEMORY + SASS_CONTROL + SASS_FMA))
+    emit({"measure": "sass_k4", "loop_opcodes": dict(sorted(ops.items())),
+          "keys_per_iteration": keys, "alu_ops_per_pair": alu / keys,
+          "fma_ops_per_pair": fma / keys, "loops_found": len(loops),
+          "card": card})
+    return alu / keys, fma / keys
 
 
 PTXAS_ENTRY = re.compile(r"bitonic_(sort|merge)_(warp|smem)_kernelILi(\d+)E")
@@ -372,9 +503,10 @@ def k2_segment_checks(torch, BK, keys, check, card):
           "equal": True, "card": card})
 
 
-def kernel_phase(torch, card, floor_ms):
+def kernel_phase(torch, card, floor_ms, k4_ops):
     """One row per Pallas site and kernel, in site order; `launches` is
-    filled in from the main paths' runs later."""
+    filled in from the main paths' runs later. k4_ops: the counting K4's
+    (int32, FMA-pipe) operations per pair (`k4_sass_line`)."""
     from repro_torch.kernels import cuda
     from repro_torch.kernels.bitonic_sort import kernel as BK
     from repro_torch.kernels.histogram import kernel as HK
@@ -401,12 +533,12 @@ def kernel_phase(torch, card, floor_ms):
     rows = []
 
     def row(site, name, kernel, counter, path, replaces, err, fn, plain,
-            library, bytes_moved, ops, reps=20, **extra):
+            library, bytes_moved, ops, fma_ops=0, reps=20, **extra):
         ms = time_ms(torch, fn, reps=reps)
         plain_ms = time_ms(torch, plain, reps=3, warmup=1)
         lib_ms = (None if library is None
                   else time_ms(torch, library, reps=reps))
-        bound_ms, bound_by = bound(bytes_moved, ops)
+        bound_ms, bound_by = bound(bytes_moved, ops, fma_ops)
         rows.append({"site": site, "name": name, "kernel": kernel,
                      "counter": counter, "path": path, "route": "cuda",
                      "source": SOURCE, "replaces": replaces, "launches": 0,
@@ -521,16 +653,18 @@ def kernel_phase(torch, card, floor_ms):
                     HK.probe_rank_count(sorted_rows, probes)))
     search_row(5, "sort", f"{PALLAS}/histogram/kernel.py:35", err,
                sorted_rows, probes)
-    # #5 K4, the count (off the main path), on the same rows
+    # #5 K4, the count (off the main path), on the same rows; its
+    # operations per (key, probe) pair are the compiler's (k4_sass_line)
     err = check("probe_rank_count", HK.probe_rank_count(sorted_rows, probes),
                 HK.probe_ranks_plain(sorted_rows, probes))
+    pairs = sorted_rows.numel() * PROBES
     row(5, "probe_rank_count", "K4", "probe_rank_count", "sort",
         f"{PALLAS}/histogram/kernel.py:35", err,
         lambda: HK.probe_rank_count(sorted_rows, probes),
         lambda: HK.probe_ranks_plain(sorted_rows, probes),
         None,   # searchsorted needs sorted keys: not the count's function
         4 * (sorted_rows.numel() + 2 * probes.numel()),
-        2 * sorted_rows.numel() * PROBES,
+        k4_ops[0] * pairs, k4_ops[1] * pairs,
         note="off the main path: assume_sorted=False")
     del x, paired, sorted_rows, probes
 
@@ -641,10 +775,17 @@ def kernel_phase(torch, card, floor_ms):
         lambda: HK.probe_rank_count(kb, qb),
         lambda: HK.probe_ranks_plain(kb, qb),
         None,   # searchsorted needs sorted keys: not the count's function
-        4 * (kb.numel() + 2 * qb.numel()), 2 * kb.numel() * PROBES,
+        4 * (kb.numel() + 2 * qb.numel()), k4_ops[0] * kb.numel() * PROBES,
+        k4_ops[1] * kb.numel() * PROBES,
         rows_limit_checked=70_000,
         note="off the main path: assume_sorted=False")
     rows.sort(key=lambda r: r["site"])
+    # a kernel cannot beat the least time the card needs: a time under its
+    # bound means the bound counts work the kernel does not do
+    over = [(r["name"], r["ms"], r["bound_ms"]) for r in rows
+            if r["bound_ms"] > r["ms"]]
+    if over:
+        fail(f"kernels faster than their bounds: {over}")
     return rows
 
 
@@ -910,6 +1051,23 @@ def median_ms(torch, fn, reps=5):
     return statistics.median(times), times
 
 
+def medians_in_turns(torch, fns: dict, reps=5) -> dict:
+    """Each of `fns` warmed, then timed `reps` times in turns (one call of
+    each a round, so drift on the shared host falls on all alike): the
+    median and the samples of each, as `median_ms` gives them."""
+    for fn in fns.values():
+        fn()
+    runs = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: (statistics.median(r), r) for name, r in runs.items()}
+
+
 def batched_timing_phase(torch, np, card):
     from repro_torch.sort import SortSpec, sort, sort_batched
 
@@ -949,6 +1107,15 @@ def launched(torch, fn):
     return out, dict(cuda.launches)
 
 
+def peak_run(torch, fn):
+    """fn() and the peak of allocated device memory while it ran."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated()
+
+
 def same_as_torch_policy(torch, out, ref) -> bool:
     return (torch.equal(out.shards, ref.shards)
             and torch.equal(out.counts, ref.counts))
@@ -969,11 +1136,9 @@ def recovery_phase(torch, np, card):
     peaks = []
 
     def peak_of(fn):
-        """fn() and the peak of allocated device memory while it ran."""
-        torch.cuda.reset_peak_memory_stats()
-        out = fn()
-        peaks.append(torch.cuda.max_memory_allocated())
-        return out, peaks[-1]
+        out, peak = peak_run(torch, fn)
+        peaks.append(peak)
+        return out, peak
 
     for name, x in recovery_inputs(np):
         want = np.sort(x)
@@ -1149,10 +1314,14 @@ def recovery_timing_phase(torch, np, card):
 
 
 def with_comm_log(fn):
-    """fn() with the collective seam that `sort.driver.run_batched` builds
-    recorded: (result, its calls by "axis:collective")."""
+    """fn() with the collective seam that `sort.driver.run_batched` (or
+    `sort.semisort.top_k`) builds recorded: (result, the last seam's calls
+    by "axis:collective")."""
+    import importlib
+
     from repro_torch.sort import driver
 
+    semi = importlib.import_module("repro_torch.sort.semisort")
     made = []
     real = driver.Comm
 
@@ -1160,11 +1329,11 @@ def with_comm_log(fn):
         made.append(real(p))
         return made[-1]
 
-    driver.Comm = record
+    driver.Comm = semi.Comm = record
     try:
         out = fn()
     finally:
-        driver.Comm = real
+        driver.Comm = semi.Comm = real
     return out, {f"{a}:{c}": k for (a, c), k in made[-1].axis_log.items()}
 
 
@@ -1438,6 +1607,419 @@ def baselines_timing_phase(torch, np, card):
                      max_allocated_bytes=torch.cuda.max_memory_allocated())
 
 
+def audit_fields(np, out) -> dict:
+    """An output's audit and recovery record as JSON fields."""
+    a = out.audit
+    return {"audit_ok": a.ok, "count": np.asarray(a.count).tolist(),
+            "achieved_imbalance": np.asarray(
+                a.achieved_imbalance).tolist(),
+            "recovery": dataclasses.asdict(out.recovery)}
+
+
+def verify_phase(torch, np, card):
+    """Phase 13: the fused audit on the main paths at full width; returns
+    each audited path's launch counts."""
+    from repro_torch.data.distributions import make_distribution
+    from repro_torch.sort import SortSpec, sort, sort_batched
+
+    x = make_distribution("UNIF", N_WEAK, seed=0)
+    want = np.sort(x)
+    limit = 1 + EPS + P / N_WEAK
+    paths = {}
+    spec = SortSpec(shards=P, eps=EPS)
+    off, off_launches = launched(torch, lambda: sort(x, spec))
+    for tier in ("cheap", "full"):
+        tspec = dataclasses.replace(spec, verify=tier)
+        (out, comm), launches = launched(
+            torch, lambda: with_comm_log(lambda: sort(x, tspec)))
+        path = f"sort[verify={tier}]"
+        paths[path] = launches
+        check_path_launches(path, launches)
+        a = out.audit
+        imb = float(a.achieved_imbalance)
+        if not (a.ok and int(a.count) == N_WEAK and imb <= limit):
+            fail(f"{path}: audit {a.describe()}, count {a.count}, "
+                 f"imbalance {imb} (limit {limit})")
+        if launches != off_launches:
+            fail(f"{path}: the audit launched kernels: {launches} against "
+                 f"{off_launches} unaudited")
+        if not same_as_torch_policy(torch, out, off):
+            fail(f"{path}: shards or counts differ from verify='off'")
+        ref = sort(x, dataclasses.replace(tspec, kernel_policy="torch"))
+        if not torch.equal(out._audit_vec, ref._audit_vec):
+            fail(f"{path}: the audit vector differs under the torch policy")
+        if out.recovery.verify_fallback or not np.array_equal(out.gather(),
+                                                              want):
+            fail(f"{path}: fell back, or not equal to np.sort")
+        emit({"measure": "verify", "input": "weak_scaling_int32",
+              "tier": tier, "n": N_WEAK, "limit": limit,
+              "audit_vec": out._audit_vec.cpu().tolist()[0],
+              "comm_log": comm, "launches": launches,
+              "launches_equal_unaudited": True, "torch_policy_vec_equal": True,
+              **audit_fields(np, out), "card": card})
+        del out, ref
+    del off
+
+    f = np.random.default_rng(1).standard_normal(N_WEAK).astype(np.float32)
+    fspec = dataclasses.replace(spec, verify="cheap")
+    out, launches = launched(torch, lambda: sort(f, fspec))
+    paths["sort[verify=cheap,float32]"] = launches
+    check_path_launches("sort[verify=cheap,float32]", launches)
+    if not (out.audit.ok and int(out.audit.count) == N_WEAK
+            and not out.recovery.verify_fallback
+            and np.array_equal(out.gather().view(np.int32),
+                               np.sort(f).view(np.int32))):
+        fail(f"sort[verify=cheap,float32]: {out.audit.describe()}")
+    emit({"measure": "verify", "input": "normal_float32", "tier": "cheap",
+          "n": N_WEAK, "launches": launches, **audit_fields(np, out),
+          "card": card})
+    del out, f
+
+    xs = batched_inputs(np)
+    out, launches = launched(torch, lambda: sort_batched(xs, fspec))
+    paths["sort_batched[verify=cheap]"] = launches
+    check_path_launches("sort_batched[verify=cheap]", launches)
+    a = out.audit
+    if not (np.all(a.row_ok) and np.all(a.count == N_REQ)
+            and not out.recovery.verify_fallback):
+        fail(f"sort_batched[verify=cheap]: {a.describe()}")
+    check_batched(np, "sort_batched[verify=cheap]", out, xs)
+    emit({"measure": "verify_batched", "input": "unif_int32", "tier": "cheap",
+          "batch": B, "n": N_REQ, "row_ok": np.asarray(a.row_ok).tolist(),
+          "launches": launches, **audit_fields(np, out), "card": card})
+    return paths
+
+
+def corruption_phase(torch, np, card):
+    """Phase 14: injected bit flips caught and recovered."""
+    from repro_torch.data.distributions import make_distribution
+    from repro_torch.runtime import chaos
+    from repro_torch.sort import (BatchVerificationError, SortSpec,
+                                  VerificationError, sort, sort_batched)
+
+    x = make_distribution("UNIF", N_WEAK, seed=0)
+    want = np.sort(x)
+    spec = SortSpec(shards=P, eps=EPS, verify="cheap",
+                    on_verify_failure="retry")
+    paths = {}
+    for corrupt_at, fallback in (((0,), False), ((0, 1), True)):
+        with chaos.activate(chaos.FaultPlan(corrupt_at=corrupt_at)):
+            out, launches = launched(torch, lambda: sort(x, spec))
+            stats = chaos.stats()
+        r = out.recovery
+        path = f"sort[corrupt_at={list(corrupt_at)}]"
+        paths[path] = launches
+        check_path_launches(path, launches)
+        if not (out.audit.ok and np.array_equal(out.gather(), want)
+                and r.verify_failures == len(corrupt_at)
+                and r.verify_retries == 1 and r.verify_fallback == fallback):
+            fail(f"{path}: {r}")
+        emit({"measure": "corruption", "corrupt_at": list(corrupt_at),
+              "policy": "retry", "exact": True, "chaos_stats": stats,
+              "launches": launches, **audit_fields(np, out), "card": card})
+        del out
+    with chaos.activate(chaos.FaultPlan(corrupt_at=True)):
+        try:
+            sort(x, spec)
+        except VerificationError as exc:
+            raised = str(exc)
+        else:
+            fail("corrupt_at=True: no VerificationError")
+        stats = chaos.stats()
+    emit({"measure": "corruption", "corrupt_at": True, "policy": "retry",
+          "raised": raised[:160], "chaos_stats": stats, "card": card})
+
+    xs = batched_inputs(np)
+    row = 3
+    others = np.delete(xs, row, axis=0)
+    key = next(int(k) for k in xs[row] if not np.isin(k, others))
+    bspec = SortSpec(shards=P, eps=EPS, verify="cheap")
+    with chaos.activate(chaos.FaultPlan(corrupt_at=True, corrupt_key=key)):
+        try:
+            sort_batched(xs, bspec)
+        except BatchVerificationError as exc:
+            err = exc
+        else:
+            fail("corrupt_key: no BatchVerificationError")
+        stats = chaos.stats()
+    bad = np.flatnonzero(~err.row_ok).tolist()
+    if bad != [row]:
+        fail(f"corrupt_key: rows {bad} failed, want [{row}]")
+    for b in range(B):
+        if b != row and not np.array_equal(err.output.gather(b),
+                                           np.sort(xs[b])):
+            fail(f"corrupt_key: clean row {b} differs from np.sort")
+    emit({"measure": "corruption_batched", "corrupt_key": key, "row": row,
+          "row_ok": err.row_ok.tolist(), "clean_rows_exact": True,
+          "chaos_stats": stats, "card": card})
+    return paths
+
+
+#: Phase 15's clamp: below the about 250,000 keys each (source,
+#: destination) pair carries on the WEAK_SCALING keys (N / p^2).
+CLAMP_PAIR_CAP = 200_000
+
+
+def clamp_phase(torch, np, card):
+    """Phase 15: a capacity clamp below the pairs' load, under retry."""
+    from repro_torch.data.distributions import make_distribution
+    from repro_torch.runtime import chaos
+    from repro_torch.sort import SortSpec, sort
+
+    x = make_distribution("UNIF", N_WEAK, seed=0)
+    spec = SortSpec(shards=P, eps=EPS, on_overflow="retry")
+    with chaos.activate(chaos.FaultPlan(clamp_pair_cap=CLAMP_PAIR_CAP)):
+        out, launches = launched(torch, lambda: sort(x, spec))
+        stats = chaos.stats()
+    r = out.recovery
+    check_path_launches("sort[clamp]", launches)
+    if not (r.recovered_overflow > 0 and int(out.overflow) == 0
+            and np.array_equal(out.gather(), np.sort(x))):
+        fail(f"sort[clamp]: {r}, overflow {int(out.overflow)}")
+    emit({"measure": "clamp", "clamp_pair_cap": CLAMP_PAIR_CAP, "n": N_WEAK,
+          "recovery": dataclasses.asdict(r), "chaos_stats": stats,
+          "exact": True, "launches": launches, "card": card})
+    return {"sort[clamp]": launches}
+
+
+#: The SLO phase's inputs, each under an overflow policy that makes it
+#: exact and balanced. ZIPF_HH's untagged first attempt piles its heaviest
+#: key on one shard, past the spill channel's out_cap, so it needs retry's
+#: larger buffers. ALL_EQUAL is tagged from the start (its keys become
+#: their indices, a presorted input) and needs spill: retry warm-starts
+#: from the failed attempt's splitter keys, which lose their tag bits in
+#: the decode, and ends with every key on one shard (the reference's
+#: behaviour too; ROADMAP queue 3).
+SLO_INPUTS = {"ALL_EQUAL": "spill", "ZIPF_HH": "retry", "PRESORTED": "spill",
+              "REVERSE": "retry", "SAWTOOTH": "retry"}
+
+
+def slo_phase(torch, np, card):
+    """Phase 16: the imbalance SLO on the adversarial family at 16M."""
+    from repro_torch.data.distributions import (make_adversarial,
+                                                make_distribution)
+    from repro_torch.sort import ImbalanceError, SortSpec, sort
+
+    paths = {}
+    spec = SortSpec(shards=P, eps=EPS, verify="cheap", imbalance_slo=1.2)
+    for name, policy in SLO_INPUTS.items():
+        x = make_adversarial(name, N_WEAK, seed=0)
+        pspec = dataclasses.replace(spec, on_overflow=policy)
+        out, launches = launched(torch, lambda: sort(x, pspec))
+        r = out.recovery
+        path = f"sort[slo,{name}]"
+        paths[path] = launches
+        check_path_launches(path, launches)
+        if not (out.audit.ok and r.achieved_imbalance <= 1.2
+                and np.array_equal(out.gather(), np.sort(x))):
+            fail(f"{path}: {r}")
+        emit({"measure": "slo", "input": name, "n": N_WEAK, "slo": 1.2,
+              "policy": policy, "rung": r.imbalance_recovery,
+              "tagged": out.indices is not None,
+              "packing": None if out.indices is None
+              else str(out.indices.dtype),
+              "launches": launches, **audit_fields(np, out), "card": card})
+        del out, x
+
+    # out_slack 8: eight times the (1+eps) output buffers, 8 x 16,800,008
+    # int32 keys, so the exact allgather exchange holds the whole input on
+    # one shard and the audit passes: what fails is the SLO alone
+    x = make_adversarial("ALL_EQUAL", N_WEAK, seed=0)
+    espec = dataclasses.replace(spec, tag=False, out_slack=8.0,
+                                exchange="allgather", on_overflow="raise")
+    emit({"measure": "slo_memory_reckoned",
+          "out_buffer_bytes": P * espec.exchange_config().out_cap(
+              N_LOCAL, P, EPS) * 4, "card": card})
+
+    def raises():
+        try:
+            sort(x, espec)
+        except ImbalanceError as exc:
+            return exc
+        fail("ALL_EQUAL with tag=False: no ImbalanceError")
+
+    (err, launches), peak = peak_run(torch, lambda: launched(torch, raises))
+    paths["sort[slo,ALL_EQUAL,tag=False]"] = launches
+    check_path_launches("sort[slo,ALL_EQUAL,tag=False]", launches)
+    emit({"measure": "slo_error", "input": "ALL_EQUAL", "tag": False,
+          "out_slack": 8.0, "achieved": err.achieved, "slo": err.slo,
+          "launches": launches, "max_allocated_bytes": peak, "card": card})
+    del x
+
+    # the refine rung: one round of 8 samples a shard misses 1.1; tagging
+    # is off, so the bonus refinement (3 rounds, 16 samples) must meet it
+    x = make_distribution("UNIF", N_WEAK, seed=0)
+    rspec = SortSpec(shards=P, eps=EPS, rounds=1, sample_per_shard=8,
+                     tag=False, verify="cheap", exchange="allgather",
+                     out_slack=8.0)
+    first = sort(x, rspec)
+    miss = first.recovery.achieved_imbalance
+    del first
+    out, launches = launched(torch, lambda: sort(
+        x, dataclasses.replace(rspec, imbalance_slo=1.1)))
+    r = out.recovery
+    paths["sort[slo,refine]"] = launches
+    check_path_launches("sort[slo,refine]", launches)
+    if not (miss > 1.1 and r.imbalance_recovery == "refine"
+            and r.achieved_imbalance <= 1.1 and out.audit.ok
+            and np.array_equal(out.gather(), np.sort(x))):
+        fail(f"refine rung: first attempt {miss}, then {r}")
+    emit({"measure": "slo_refine", "input": "weak_scaling_int32",
+          "rounds": 1, "sample_per_shard": 8, "slo": 1.1,
+          "first_attempt_imbalance": miss, "launches": launches,
+          **audit_fields(np, out), "card": card})
+    return paths
+
+
+def grouping_phase(torch, np, card):
+    """Phase 17: semisort, groupby_aggregate, top_k, their batched forms
+    and counting_dispatch at full width."""
+    from repro_torch.data.distributions import (make_adversarial,
+                                                make_distribution)
+    from repro_torch.sort import (SortSpec, groupby_aggregate, semisort,
+                                  semisort_batched, top_k, top_k_batched)
+    from repro_torch.sort.grouping import counting_dispatch
+
+    paths = {}
+    spec = SortSpec(shards=P, eps=EPS)
+    z = make_adversarial("ZIPF_HH", N_WEAK, seed=0)
+    (out, comm), launches = launched(
+        torch, lambda: with_comm_log(lambda: semisort(z, spec=spec)))
+    paths["semisort"] = launches
+    check_path_launches("semisort", launches, PATH_KERNELS["semisort"])
+    keys, counts = out.groups()
+    uk, uc = np.unique(z, return_counts=True)
+    if not (np.array_equal(keys, uk) and np.array_equal(counts, uc)):
+        fail("semisort: groups differ from np.unique")
+    light = out.light
+    shards, n = light.shards.cpu().numpy(), light.counts.cpu().numpy()
+    edges = [(shards[s, 0], shards[s, n[s] - 1]) for s in range(P) if n[s]]
+    if any(a[1] >= b[0] for a, b in zip(edges, edges[1:])) or np.isin(
+            out.heavy_keys, light.gather()).any():
+        fail("semisort: a key lies on two shards, or heavy among lights")
+    emit({"measure": "semisort", "input": "zipf_hh_int32", "n": N_WEAK,
+          "heavy_keys": out.heavy_keys.tolist(),
+          "heavy_counts": out.heavy_counts.tolist(),
+          "heavy_total": out.heavy_total(), "light_overflow":
+          int(out.overflow), "groups": int(keys.shape[0]),
+          "comm_log": comm, "launches": launches, "card": card})
+    del out, light
+
+    ids, _ = moe_inputs(np)
+    v = np.random.default_rng(7).standard_normal(N_WEAK).astype(np.float32)
+    order = np.argsort(ids, kind="stable")
+    uk, starts = np.unique(ids[order], return_index=True)
+    want = {"count": np.diff(np.append(starts, N_WEAK)),
+            "sum": np.add.reduceat(v[order].astype(np.float64), starts),
+            "max": np.maximum.reduceat(v[order], starts)}
+    for op in ("count", "sum", "max"):
+        (k, agg), launches = launched(torch, lambda: groupby_aggregate(
+            ids, None if op == "count" else v, op=op, spec=spec))
+        path = f"groupby_aggregate[{op}]"
+        paths[path] = launches
+        check_path_launches(path, launches, PATH_KERNELS[path])
+        if not (np.array_equal(k, uk) and np.array_equal(agg, want[op])):
+            fail(f"{path}: differs from NumPy")
+        emit({"measure": "groupby", "input": "moe_expert_ids", "op": op,
+              "n": N_WEAK, "groups": int(k.shape[0]), "equal": True,
+              "launches": launches, "card": card})
+    heavy = semisort(ids, spec=spec)
+    if heavy.heavy_keys.size != 16 or heavy.light.gather().size:
+        fail(f"groupby count: {heavy.heavy_keys.size} heavy experts of 16")
+    del heavy, order
+
+    f = np.random.default_rng(1).standard_normal(N_WEAK).astype(np.float32)
+    for name, x in (("weak_scaling_int32",
+                     make_distribution("UNIF", N_WEAK, seed=0)),
+                    ("normal_float32", f)):
+        (top, comm), launches = launched(
+            torch, lambda: with_comm_log(lambda: top_k(x, 1024, spec)))
+        paths[f"top_k[{name}]"] = launches
+        check_path_launches(f"top_k[{name}]", launches, PATH_KERNELS["top_k"])
+        want_top = np.sort(x)[-1024:][::-1]
+        if not np.array_equal(top, want_top):
+            fail(f"top_k[{name}]: differs from np.sort")
+        if comm != {"sort:all_gather": 1}:
+            fail(f"top_k[{name}]: collectives {comm}, want one all_gather")
+        emit({"measure": "top_k", "input": name, "n": N_WEAK, "k": 1024,
+              "comm_log": comm, "launches": launches, "card": card})
+
+    xs = batched_inputs(np)
+    out, launches = launched(torch, lambda: semisort_batched(xs, spec))
+    paths["semisort_batched"] = launches
+    check_path_launches("semisort_batched", launches,
+                        PATH_KERNELS["semisort"])
+    tops = top_k_batched(xs, 1024, spec)
+    for b in range(B):
+        one, view = semisort(xs[b], spec=spec), out.request(b)
+        if not (np.array_equal(view.heavy_keys, one.heavy_keys)
+                and torch.equal(view.light.shards, one.light.shards)
+                and torch.equal(view.light.counts, one.light.counts)):
+            fail(f"semisort_batched: row {b} differs from semisort()")
+        if not np.array_equal(tops[b], top_k(xs[b], 1024, spec)):
+            fail(f"top_k_batched: row {b} differs from top_k()")
+    emit({"measure": "grouping_batched", "batch": B, "n": N_REQ,
+          "rows_equal_single": True, "launches": launches, "card": card})
+    del out
+
+    # the one-hot cumsum: (16M, 17) int32 beside its (16M, 17) bool mask
+    cap = int(1.25 * N_WEAK / 16)
+    emit({"measure": "counting_dispatch_memory_reckoned",
+          "onehot_bytes": N_WEAK * 17, "cumsum_bytes": N_WEAK * 17 * 4,
+          "card": card})
+    dev_ids = torch.from_numpy(ids).cuda()
+    (got, launches), peak = peak_run(torch, lambda: launched(
+        torch, lambda: counting_dispatch(dev_ids, 16, cap)))
+    paths["counting_dispatch"] = launches
+    check_path_launches("counting_dispatch", launches,
+                        PATH_KERNELS["counting_dispatch"])
+    ref = counting_dispatch(dev_ids, 16, cap, method="argsort")
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        fail("counting_dispatch: counting and argsort methods differ")
+    emit({"measure": "counting_dispatch", "n": N_WEAK, "experts": 16,
+          "capacity": cap, "kept": int(got[2].sum()),
+          "equal_to_argsort": True, "launches": launches,
+          "max_allocated_bytes": peak, "card": card})
+    return paths
+
+
+def grouping_timing_phase(torch, np, card):
+    """Phase 18: the audit's cost, semisort and top_k against sort, and a
+    profile and peak memory of a warm verify="full" and semisort call."""
+    from repro_torch.data.distributions import (make_adversarial,
+                                                make_distribution)
+    from repro_torch.sort import SortSpec, semisort, sort, top_k
+
+    x = make_distribution("UNIF", N_WEAK, seed=0)
+    z = make_adversarial("ZIPF_HH", N_WEAK, seed=0)
+    spec = SortSpec(shards=P, eps=EPS)
+    tiers = {tier: dataclasses.replace(spec, verify=tier)
+             for tier in ("off", "cheap", "full")}
+    for measure, inp, fns, extra in (
+            ("verify_e2e_warm", "weak_scaling_int32",
+             {t: (lambda s=s: sort(x, s)) for t, s in tiers.items()}, {}),
+            ("semisort_e2e_warm", "zipf_hh_int32",
+             {"semisort": lambda: semisort(z, spec=spec),
+              "sort": lambda: sort(z, spec)}, {}),
+            ("top_k_e2e_warm", "weak_scaling_int32",
+             {"top_k": lambda: top_k(x, 1024, spec),
+              "sort": lambda: sort(x, spec)}, {"k": 1024})):
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        timed = medians_in_turns(torch, fns)
+        retries = torch.cuda.memory_stats().get("num_alloc_retries",
+                                                0) - retries
+        for name, (med, runs) in timed.items():
+            emit({"measure": measure, "input": inp, "call": name,
+                  "median_ms": med, "runs_ms": runs, "in_turns": True,
+                  "alloc_retries": retries, **extra, "card": card})
+    full = dataclasses.replace(spec, verify="full")
+    for name, fn in (("sort[verify=full]", lambda: sort(x, full)),
+                     ("semisort", lambda: semisort(z, spec=spec))):
+        _, peak = peak_run(torch, fn)
+        profile_line(torch, fn, card, measure="grouping_profile", call=name,
+                     max_allocated_bytes=peak)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1468,7 +2050,8 @@ def main() -> int:
           "library": str(path), "card": card})
     ptxas_line(card)
 
-    rows = kernel_phase(torch, card, empty_launch_line(torch, card))
+    rows = kernel_phase(torch, card, empty_launch_line(torch, card),
+                        k4_sass_line(card))
     cascade_line(torch, card)
     seen = set()            # every kernel call's shape on the main paths
     with kernel_shapes(seen):
@@ -1482,6 +2065,13 @@ def main() -> int:
         paths.update(baselines_phase(torch, np, card))
     recovery_timing_phase(torch, np, card)
     baselines_timing_phase(torch, np, card)
+    with kernel_shapes(seen):
+        paths.update(verify_phase(torch, np, card))
+        paths.update(corruption_phase(torch, np, card))
+        paths.update(clamp_phase(torch, np, card))
+        paths.update(slo_phase(torch, np, card))
+        paths.update(grouping_phase(torch, np, card))
+    grouping_timing_phase(torch, np, card)
     shapes = path_shapes_phase(torch, seen, card)
     for r in rows:
         r["launches_by_path"] = {k: v[r["counter"]] for k, v in paths.items()}

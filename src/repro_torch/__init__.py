@@ -19,15 +19,26 @@ plain PyTorch version beside it that the CPU runs.
 
 Subpackages mirror `repro`: core/ (splitters, exchange, hss, sample_sort,
 ams, multistage), kernels/ (bitonic_sort, merge, histogram, dispatch),
-sort/ (spec, partitioners, driver, adapters, grouping, api), data/ (the
-paper's input distributions), parallel/ (the Comm seam). Nothing here imports jax or repro. The package
-exports the permutation front doors and `available_algorithms`; `sort`
-itself stays the subpackage's name (`repro_torch.sort`), so it is not
-re-exported here.
+sort/ (spec, partitioners, driver, adapters, grouping, api, verify,
+semisort), data/ (the paper's input distributions), parallel/ (the Comm
+seam), runtime/ (chaos). Nothing here imports jax or repro. The package
+exports the permutation and grouping front doors, the audit's names and
+`available_algorithms`; `sort` itself stays the subpackage's name
+(`repro_torch.sort`), so it is not re-exported here.
 """
 from repro_torch.sort.api import (
     RecoveryStats, argsort, gather_perm_checked, sort_kv)
 from repro_torch.sort.partitioners import available_algorithms
+from repro_torch.sort.semisort import (
+    GROUPBY_OPS, BatchedSemisortOutput, SemisortOutput, groupby_aggregate,
+    semisort, semisort_batched, top_k, top_k_batched)
+from repro_torch.sort.spec import ON_VERIFY_FAILURE, VERIFY
+from repro_torch.sort.verify import (
+    AuditReport, BatchVerificationError, ImbalanceError, VerificationError)
 
-__all__ = ["RecoveryStats", "argsort", "available_algorithms",
-           "gather_perm_checked", "sort_kv"]
+__all__ = ["AuditReport", "BatchVerificationError", "BatchedSemisortOutput",
+           "GROUPBY_OPS", "ImbalanceError", "ON_VERIFY_FAILURE",
+           "RecoveryStats", "SemisortOutput", "VERIFY", "VerificationError",
+           "argsort", "available_algorithms", "gather_perm_checked",
+           "groupby_aggregate", "semisort", "semisort_batched", "sort_kv",
+           "top_k", "top_k_batched"]

@@ -55,6 +55,7 @@ from repro_torch.core.common import hi_sentinel, pow2_ceil, round_up
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.merge.ops import cap_to, gather_runs
 from repro_torch.parallel.comm import Comm
+from repro_torch.runtime import chaos
 
 #: Collectives of one exchange of one request. dense: payload + counts
 #: all_to_all, the send-side overflow psum and the receive-side truncation
@@ -83,16 +84,24 @@ class ExchangeConfig:
     out_slack: float = 1.0        # extra slack on the (1+eps) output capacity
     capacity_scale: float = 1.0   # multiplier on every static buffer
     kernel_policy: str = "auto"   # post-exchange merge backend (dispatch)
+    out_extra: int = 0            # additive output headroom (semisort lights)
 
     def pair_cap(self, n_local: int, p: int) -> int:
-        base = max(8, int(self.pair_factor * n_local / p))
+        # The chaos clamp (repro_torch.runtime.chaos) applies to the base
+        # capacity and `capacity_scale` after it, so the retry policy's
+        # escalation can out-grow an injected clamp (exchange.py:86-93).
+        base = chaos.clamp_pair_cap(
+            max(8, int(self.pair_factor * n_local / p)))
         return min(n_local,
                    round_up(max(1, int(base * self.capacity_scale)), 8))
 
     def out_cap(self, n_local: int, p: int, eps: float) -> int:
+        # out_extra is additive headroom on the multiplicative slack: the
+        # semisort light path's room for a key class just under the heavy
+        # threshold, which no splitter can cut
         return round_up(
             int((1.0 + eps) * self.out_slack * self.capacity_scale * n_local)
-            + 8, 8)
+            + self.out_extra + 8, 8)
 
     def ragged_slot(self, n_local: int, p: int, eps: float) -> int:
         """The ragged merge tree's static run capacity: twice the balanced

@@ -279,3 +279,23 @@ def hss_splitters(local_sorted: torch.Tensor, *, comm: Comm,
         initial_probes=None if initial_probes is None
         else initial_probes[None])
     return keys[0], ranks[0], SplitterStats(*(f[..., 0] for f in stats))
+
+
+def heavy_candidates(sample_sorted: torch.Tensor, *, max_heavy: int,
+                     min_count: int) -> torch.Tensor:
+    """Heavy-hitter candidates of each sorted, sentinel-padded sample row
+    (counterpart of splitters.py:388-410, rows batched): a key is a
+    candidate when its run in the row is at least `min_count` long.
+    sample_sorted (..., S) -> (..., min(S, max_heavy)) ascending distinct
+    candidates, hi-sentinel padded; a sentinel is never a candidate.
+
+    Callers gather every shard's sample first, so each shard's candidate
+    set is the same (the value is held once)."""
+    sent = hi_sentinel(sample_sorted.dtype)
+    idx = torch.arange(sample_sorted.shape[-1], device=sample_sorted.device)
+    ll = torch.searchsorted(sample_sorted, sample_sorted, side="left")
+    rr = torch.searchsorted(sample_sorted, sample_sorted, side="right")
+    is_head = (idx == ll) & ((rr - ll) >= min_count) & (sample_sorted != sent)
+    compact = torch.sort(torch.where(is_head, sample_sorted, sent),
+                         dim=-1).values
+    return compact[..., :max_heavy]

@@ -13,6 +13,8 @@ tensor op over that axis:
   ragged_all_to_all  (p_src, B, n) -> (p_dst, B, cap): the exact
               alltoallv, each (source, destination) chunk at its own size,
               as one index gather (no host sync)
+  ppermute    (p, ...)    -> (p, ...)     x[src] lands at dst for each
+              (src, dst) pair; a shard no pair reaches gets zeros
   axis_index  () -> (p,)                  each shard's index
 
 `along(axis, r1, r2)` views the p = r1*r2 shards as a 2-D (outer, inner)
@@ -76,6 +78,17 @@ class Comm:
                 f"all_to_all: destination axis {x.shape[1]} != p={self.p}")
         self._call(x, "all_to_all")
         return x.transpose(0, 1).contiguous()
+
+    def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        """Shard src sends its block to shard dst for each (src, dst) of
+        `perm`; a shard that receives nothing holds zeros, as
+        jax.lax.ppermute fills it."""
+        self._call(x, "ppermute")
+        out = torch.zeros_like(x)
+        if perm:
+            src, dst = zip(*perm)
+            out[list(dst)] = x[list(src)]
+        return out
 
     def ragged_all_to_all(self, operand: torch.Tensor, output: torch.Tensor,
                           input_offsets: torch.Tensor,

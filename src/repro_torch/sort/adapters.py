@@ -92,13 +92,18 @@ class SortOutput:
     overflow dropped-key count (0 => exact, the contract callers check).
     splitter_keys / splitter_ranks / stats  partitioner diagnostics
              (splitter keys decoded back to the key domain).
-    recovery how the overflow policy resolved the sort
-             (repro_torch.sort.RecoveryStats), attached by "retry"; None
-             otherwise.
+    recovery how the policies resolved the sort
+             (repro_torch.sort.RecoveryStats); None when none recorded
+             anything.
+    audit    the audit's verdict (repro_torch.sort.verify.AuditReport)
+             when the sort ran with verify != "off"; None otherwise.
     n        number of real input keys.
     """
 
     recovery = None
+    audit = None
+    _audit_vec = None
+    _audit_expected = 0
 
     def __init__(self, shards, counts, indices, overflow, splitter_keys,
                  splitter_ranks, stats, n):
@@ -134,10 +139,14 @@ class BatchedSortOutput:
     (B,), splitter_keys / splitter_ranks (B, p-1), stats with per-round
     fields (k, B) and rounds_used (B,); n is the per-request key count.
     `request(b)` views one request as a SortOutput (stats stay batched);
-    `recovery`, the batch's, is carried onto every view.
+    `recovery`, the batch's, is carried onto every view, and `audit`, the
+    batch's verdict, narrowed to the request's row.
     """
 
     recovery = None
+    audit = None
+    _audit_vec = None
+    _audit_expected = 0
 
     def __init__(self, shards, counts, indices, overflow, splitter_keys,
                  splitter_ranks, stats, n):
@@ -162,6 +171,8 @@ class BatchedSortOutput:
             self.overflow[b], self.splitter_keys[b], self.splitter_ranks[b],
             self.stats, self.n)
         out.recovery = self.recovery
+        if self.audit is not None:
+            out.audit = self.audit.row(b)
         return out
 
     def gather(self, b: int) -> np.ndarray:
@@ -204,6 +215,12 @@ class AdapterPlan:
         idx = torch.arange(e.shape[-1], dtype=self.pack_dtype,
                            device=e.device)
         return (e << self.tag_b) | idx
+
+    @property
+    def flipped_words(self) -> bool:
+        """Untagged uint32 keys: the encoded words are the reference's
+        uint32 words with the top bit flipped (what the audit undoes)."""
+        return self.out_dtype == torch.uint32 and not self.tagged
 
     def encode_probes(self, probes) -> torch.Tensor:
         """Warm-start probes (key domain) -> encoded domain."""

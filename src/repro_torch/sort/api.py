@@ -27,6 +27,14 @@ on the host, and 0 means the result is exact (as at repro/sort/api.py:294);
 "retry" reads it on the host once per launch and escalates; "spill" swaps
 in the exact dense_spill exchange. `argsort` and `sort_kv` raise when the
 gathered permutation is short, whatever the policy.
+
+Around the overflow policy run the verification policy and then the
+imbalance SLO (`_with_policies`, as repro/sort/api.py:473-482):
+
+    out = sort(x, verify="cheap")                 # out.audit: AuditReport
+    out = sort(x, verify="full", on_verify_failure="retry")
+    out = sort(x, verify="cheap", imbalance_slo=1.2)
+    out.recovery.achieved_imbalance               # max load / (N/p)
 """
 from __future__ import annotations
 
@@ -35,30 +43,42 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.ams import ams_sample_size
+from repro_torch.core.sample_sort import (
+    default_regular_s, default_total_sample)
 from repro_torch.kernels import dispatch
-from repro_torch.sort import driver
+from repro_torch.runtime import chaos
+from repro_torch.sort import driver, verify
 from repro_torch.sort.adapters import (
     BatchedSortOutput, SortOutput, as_keys, make_plan)
 from repro_torch.sort.grouping import group_by_length
 from repro_torch.sort.partitioners import ShardCtx, get_partitioner
 from repro_torch.sort.spec import SortSpec
+from repro_torch.sort.verify import (
+    BatchVerificationError, ImbalanceError, VerificationError)
 
 
 @dataclasses.dataclass(frozen=True)
 class RecoveryStats:
     """How the recovery policies resolved a sort (`out.recovery`; None when
     no policy recorded anything). Field for field the reference's
-    (repro/sort/api.py:38-73); the port runs the overflow policy, so the
-    verify and imbalance fields keep their defaults (ROADMAP queue 1
-    item 5).
+    (repro/sort/api.py:38-73).
 
     policy            the on_overflow policy that ran.
     attempts          launches in all; 1 = the first was already exact.
     escalations       capacity_scale of each re-launch, in order.
     spill_fallback    True when the last attempt ran on the spill channel.
     recovered_overflow  the first (failed) launch's overflow count.
-    verify_failures, verify_retries, verify_fallback, achieved_imbalance,
-    imbalance_recovery  the verification and imbalance policies' record.
+    verify_failures   audits that failed, over all launches.
+    verify_retries    re-launches the on_verify_failure="retry" policy
+                      spent.
+    verify_fallback   True when a failed audit was re-run on the fallback
+                      path (spill channel, kernel_policy="torch").
+    achieved_imbalance  max shard load / (N/p) of the served output (the
+                      worst row on the batched path); recorded when verify
+                      is on or an imbalance_slo is set.
+    imbalance_recovery  None, or the rung that met the SLO: "tag" or
+                      "refine".
     """
 
     policy: str
@@ -108,7 +128,7 @@ def sort(x, spec: SortSpec | None = None, *, uniform=None,
     if spec.batch:
         return sort_batched(x, spec, uniform=uniform)
     x = as_keys(x, resolve_device(spec.device))
-    return _with_overflow_policy(
+    return _with_policies(
         lambda s: _sort_one(x, s, uniform, want_indices=False), spec)
 
 
@@ -120,7 +140,10 @@ def _sort_one(x, spec: SortSpec, uniform, want_indices: bool) -> SortOutput:
     if spec.initial_probes is not None:
         spec = dataclasses.replace(
             spec, initial_probes=as_keys(spec.initial_probes, x.device)[None])
-    out = _sort_batched_impl(x[None], spec, uniform, want_indices).request(0)
+    batch = _sort_batched_impl(x[None], spec, uniform, want_indices)
+    out = batch.request(0)
+    out._audit_vec = batch._audit_vec
+    out._audit_expected = batch._audit_expected
     if out.stats is not None:
         out.stats = type(out.stats)(*(f[..., 0] for f in out.stats))
     return out
@@ -146,8 +169,8 @@ def sort_batched(xs, spec: SortSpec | None = None, *, uniform=None,
     if isinstance(xs, (list, tuple)):
         return _sort_batched_buckets(xs, spec, uniform)
     xs = as_keys(xs, resolve_device(spec.device))
-    return _with_overflow_policy(
-        lambda s: _sort_batched_impl(xs, s, uniform), spec)
+    return _with_policies(
+        lambda s: _sort_batched_impl(xs, s, uniform), spec, batched=True)
 
 
 def _sort_batched_impl(xs, spec: SortSpec, uniform,
@@ -170,11 +193,25 @@ def _sort_batched_impl(xs, spec: SortSpec, uniform,
                        initial_probes=probes)
         return part.sharded_batched(rows, ctx)
 
+    audit = spec.verify != "off" and p > 1
+    if audit:
+        sort_fn = verify.audited(
+            sort_fn, tier=spec.verify, grid=spec.algorithm == "multistage",
+            corrupt=chaos.corrupt_now(), flip=plan.flipped_words)
     raw = driver.run_batched(
         sort_fn, enc, p=p, seed=spec.seed, n_real=plan.n,
         local_sort_fn=dispatch.local_sort_fn(spec.kernel_policy),
         uniform=uniform)
-    return plan.decode_batched(raw)
+    audit_vec = None
+    if audit:
+        raw, audit_vec = verify.split_raw(raw)
+    elif spec.verify != "off":   # p == 1 runs no shard pipeline
+        audit_vec = verify.audit_p1(enc, raw[0], raw[1], spec.verify,
+                                    flip=plan.flipped_words)
+    out = plan.decode_batched(raw)
+    out._audit_vec = audit_vec
+    out._audit_expected = plan.n + plan.n_pad
+    return out
 
 
 def _sort_batched_buckets(arrs, spec: SortSpec, uniform) -> list:
@@ -189,8 +226,9 @@ def _sort_batched_buckets(arrs, spec: SortSpec, uniform) -> list:
     results = [None] * len(arrs)
     for idxs in group_by_length(arrs).values():
         stacked = torch.stack([arrs[i] for i in idxs])
-        out = _with_overflow_policy(
-            lambda s, xs=stacked: _sort_batched_impl(xs, s, uniform), spec)
+        out = _with_policies(
+            lambda s, xs=stacked: _sort_batched_impl(xs, s, uniform), spec,
+            batched=True)
         for j, i in enumerate(idxs):
             results[i] = out.request(j)
     return results
@@ -258,6 +296,159 @@ def _with_overflow_policy(run, spec: SortSpec):
     return out
 
 
+def _update_recovery(out, spec: SortSpec, **fields) -> None:
+    """Merge verify and imbalance results into the output's RecoveryStats,
+    making a baseline record when no overflow policy attached one."""
+    base = out.recovery
+    if base is None:
+        base = RecoveryStats(spec.on_overflow, 1, (), False, 0)
+    out.recovery = dataclasses.replace(base, **fields)
+
+
+def _finalize_audit(out, spec: SortSpec):
+    """Copy a launch's audit vector to the host and judge it (the one
+    sync of an audited launch); attach it as `out.audit`. None when the
+    launch ran unaudited."""
+    vec = getattr(out, "_audit_vec", None)
+    if vec is None:
+        return None
+    report = verify.finalize(
+        vec, tier=spec.verify, n_expected=out._audit_expected,
+        batched=isinstance(out, BatchedSortOutput))
+    report.achieved_imbalance = _imbalance(out)
+    out.audit = report
+    return report
+
+
+def _imbalance(out):
+    """achieved_imbalance = max shard load / (N/p), per request on the
+    batched path ((B,) array)."""
+    counts = out.counts.cpu().numpy()
+    p = counts.shape[-1]
+    return counts.max(axis=-1).astype(np.float64) * p / float(out.n)
+
+
+def _fallback_spec(spec: SortSpec) -> SortSpec:
+    """The configuration a failed audit falls back to: the exact spill
+    channel and the torch primitives (the reference's "xla" policy), which
+    sidesteps both the dropping exchange and a suspect kernel."""
+    return dataclasses.replace(spec, on_overflow="spill",
+                               kernel_policy="torch")
+
+
+def _enforce_verify(inner, spec: SortSpec, out, *, batched: bool):
+    """Apply `spec.on_verify_failure` to an audited output: on a failed
+    audit, "retry" re-runs once, then falls back, then raises; "fallback"
+    falls back, then raises; "raise" raises. Every attempt is audited and
+    the trail lands on `out.recovery`."""
+    report = _finalize_audit(out, spec)
+    if report is None:
+        return out
+    failures = retries = 0
+    fellback = False
+    while not report.ok:
+        failures += 1
+        if spec.on_verify_failure == "retry" and retries == 0:
+            retries = 1
+            cand = inner(spec)
+        elif spec.on_verify_failure in ("retry", "fallback") \
+                and not fellback:
+            fellback = True
+            cand = inner(_fallback_spec(spec))
+        else:
+            _update_recovery(out, spec, verify_failures=failures,
+                             verify_retries=retries,
+                             verify_fallback=fellback,
+                             achieved_imbalance=float(
+                                 np.max(report.achieved_imbalance)))
+            msg = report.describe()
+            if batched:
+                raise BatchVerificationError(msg, report, out)
+            raise VerificationError(msg, report)
+        report = _finalize_audit(cand, spec)
+        out = cand
+    _update_recovery(out, spec, verify_failures=failures,
+                     verify_retries=retries, verify_fallback=fellback,
+                     achieved_imbalance=float(
+                         np.max(report.achieved_imbalance)))
+    return out
+
+
+def _refined_spec(spec: SortSpec, p: int, n_local: int) -> SortSpec:
+    """The SLO ladder's bonus refinement: twice the sampling of whichever
+    knob the algorithm samples with, and two more histogram rounds for the
+    HSS family."""
+    if spec.algorithm in ("hss", "multistage"):
+        cfg = spec.hss_config()
+        return dataclasses.replace(
+            spec, rounds=cfg.resolved_rounds(p) + 2,
+            sample_per_shard=2 * cfg.resolved_sample_cap(p))
+    if spec.algorithm == "sample_regular":
+        return dataclasses.replace(
+            spec, s=2 * (spec.s or default_regular_s(p, spec.eps)))
+    if spec.algorithm == "ams":
+        base = spec.total_sample or ams_sample_size(p, spec.eps, n_local * p)
+        return dataclasses.replace(spec, total_sample=2 * base)
+    base = spec.total_sample or default_total_sample(p, n_local, spec.eps)
+    return dataclasses.replace(spec, total_sample=2 * base)
+
+
+def _enforce_slo(inner, spec: SortSpec, out, *, batched: bool):
+    """The partition-quality SLO (DESIGN.md Sec. 9.2): record
+    achieved_imbalance when verify is on or an SLO is set and, when it is
+    over `spec.imbalance_slo`, re-run with duplicate tagging, then with
+    bonus refinement, raising ImbalanceError only when both miss."""
+    slo = spec.imbalance_slo
+    if slo is None and spec.verify == "off":
+        return out
+    worst = float(np.max(_imbalance(out)))
+    recovery = None
+    if slo is not None and worst > slo:
+        p = out.counts.shape[-1]
+        n_local = (out.n + (-out.n) % p) // p
+        ladder = []
+        untagged = out.indices is None and spec.tag is None
+        if untagged:
+            ladder.append(("tag", dataclasses.replace(spec, tag=True)))
+        refine_base = dataclasses.replace(spec, tag=True) if untagged else spec
+        ladder.append(("refine", _refined_spec(refine_base, p, n_local)))
+        for name, cand_spec in ladder:
+            try:
+                cand = inner(cand_spec)
+            except ValueError:   # the tag packing does not fit
+                continue
+            rep = _finalize_audit(cand, cand_spec)
+            if rep is not None and not rep.ok:
+                raise VerificationError(
+                    "imbalance-SLO recovery attempt failed its own audit: "
+                    + rep.describe(), rep)
+            ci = float(np.max(_imbalance(cand)))
+            if ci <= slo:
+                out, worst, recovery = cand, ci, name
+                break
+        else:
+            _update_recovery(out, spec, achieved_imbalance=worst)
+            raise ImbalanceError(
+                f"achieved_imbalance {worst:.3f} > imbalance_slo {slo:.3f} "
+                f"after duplicate tagging and bonus refinement "
+                f"(algorithm={spec.algorithm}, eps={spec.eps})", worst, slo)
+    if getattr(out, "audit", None) is not None:
+        out.audit.achieved_imbalance = _imbalance(out)
+    _update_recovery(out, spec, achieved_imbalance=worst,
+                     imbalance_recovery=recovery)
+    return out
+
+
+def _with_policies(run, spec: SortSpec, *, batched: bool = False):
+    """The policy stack around one sort: the overflow policy innermost
+    (every launch, verify and SLO re-launches too, gets overflow
+    recovery), then the verification policy, then the imbalance SLO."""
+    inner = lambda s: _with_overflow_policy(run, s)
+    out = inner(spec)
+    out = _enforce_verify(inner, spec, out, batched=batched)
+    return _enforce_slo(inner, spec, out, batched=batched)
+
+
 def gather_perm_checked(out: SortOutput, what: str) -> np.ndarray:
     """The permutation of a tagged sort, checked for exactness: dropped
     keys are exactly the keys missing from the gather, so the gathered
@@ -282,7 +473,7 @@ def argsort(x, spec: SortSpec | None = None, *, uniform=None,
     `sort`."""
     spec = dataclasses.replace(_as_spec(spec, overrides), stable=True)
     x = as_keys(x, resolve_device(spec.device))
-    out = _with_overflow_policy(
+    out = _with_policies(
         lambda s: _sort_one(x, s, uniform, want_indices=True), spec)
     return gather_perm_checked(out, "argsort")
 
@@ -298,7 +489,7 @@ def sort_kv(keys, values, spec: SortSpec | None = None, *, uniform=None,
                          f"keys shape {tuple(np.shape(keys))}")
     spec = dataclasses.replace(_as_spec(spec, overrides), stable=True)
     keys = as_keys(keys, resolve_device(spec.device))
-    out = _with_overflow_policy(
+    out = _with_policies(
         lambda s: _sort_one(keys, s, uniform, want_indices=True), spec)
     order = gather_perm_checked(out, "sort_kv")
     return out.gather(), values[order]

@@ -22,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.core.common import hi_sentinel
+from repro_torch.core.common import hi_sentinel, lo_sentinel
 from repro_torch.parallel.comm import Comm
 
 
@@ -35,6 +35,19 @@ def pad_to_shards(x: torch.Tensor, p: int):
     pad = torch.full(x.shape[:-1] + (n_pad,), hi_sentinel(x.dtype),
                      dtype=x.dtype, device=x.device)
     return torch.cat([x, pad], dim=-1), n_pad
+
+
+def pad_to_shards_lo(x: torch.Tensor, p: int):
+    """The lo-sentinel counterpart of `pad_to_shards` for max-seeking paths
+    (repro_torch.sort.semisort.top_k): pads go in FRONT of the last axis
+    as the smallest value, so they never displace a real key from the top
+    of the order (driver.py:205-216). Returns (padded, n_pad)."""
+    n_pad = (-x.shape[-1]) % p
+    if n_pad == 0:
+        return x, 0
+    pad = torch.full(x.shape[:-1] + (n_pad,), lo_sentinel(x.dtype),
+                     dtype=x.dtype, device=x.device)
+    return torch.cat([pad, x], dim=-1), n_pad
 
 
 def strip_sentinel_counts(shards: torch.Tensor, counts: torch.Tensor,

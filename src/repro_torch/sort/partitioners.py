@@ -87,6 +87,38 @@ class Partitioner:
             eps=ctx.spec.eps)
         return out, n_valid, keys, ranks, s_ovf + e_ovf, stats
 
+    def partition_sorted_batched(self, local_sorted: torch.Tensor,
+                                 ctx: ShardCtx, *, n_valid=None,
+                                 ex_cfg=None):
+        """Splitters + exchange over already sorted (p, B, n_local) rows:
+        the relaxed seam of the semisort light path (partitioners.py:
+        158-188). The caller owns the local sort and may mask a tail as
+        hi-sentinel padding, giving the real count of each (shard,
+        request) row in `n_valid` ((p, B), (B,) or a scalar) so the
+        exchange leaves the pads out of the last slice. The splitter
+        rounds see the sentinel tail as real maximum keys, which only
+        biases the top splitters up: grouping, not total order, is the
+        contract here. Returns as `sharded_batched`."""
+        keys, ranks, s_ovf, stats = self.splitters_batched(local_sorted, ctx)
+        out, n_out, e_ovf = exchange_batched(
+            local_sorted, keys, comm=ctx.comm,
+            cfg=ex_cfg if ex_cfg is not None else ctx.spec.exchange_config(),
+            eps=ctx.spec.eps, n_valid=n_valid)
+        return out, n_out, keys, ranks, s_ovf + e_ovf, stats
+
+    def partition_sorted(self, local_sorted: torch.Tensor, ctx: ShardCtx,
+                         *, n_valid=None, ex_cfg=None):
+        """`partition_sorted_batched` of one request: (p, n_local) sorted
+        rows, n_valid None, a scalar or (p,) -> (out (p, cap), n_out (p,),
+        keys (p-1,), ranks (p-1,), overflow scalar, stats per request)."""
+        nv = None if n_valid is None else torch.as_tensor(n_valid)
+        if nv is not None and nv.dim() == 1:
+            nv = nv[:, None]
+        out, n_out, keys, ranks, ovf, stats = self.partition_sorted_batched(
+            local_sorted[:, None], ctx, n_valid=nv, ex_cfg=ex_cfg)
+        return (out[:, 0], n_out[:, 0], keys[0], ranks[0], ovf[0],
+                type(stats)(*(f[..., 0] for f in stats)))
+
 
 _REGISTRY: dict[str, Partitioner] = {}
 

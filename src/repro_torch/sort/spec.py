@@ -21,6 +21,10 @@ ALGORITHMS = ("hss", "sample_random", "sample_regular", "ams", "multistage")
 
 ON_OVERFLOW = ("raise", "retry", "spill")
 
+VERIFY = ("off", "cheap", "full")
+
+ON_VERIFY_FAILURE = ("raise", "retry", "fallback")
+
 
 @dataclasses.dataclass(frozen=True)
 class SortSpec:
@@ -53,6 +57,27 @@ class SortSpec:
                      send side.
       max_overflow_retries  escalations of "retry" before the spill attempt.
       capacity_scale uniform multiplier on every static buffer.
+      verify         the fused output audit (repro_torch.sort.verify): "off"
+                     (no audit), "cheap" (2 fingerprint lanes, 64 bits)
+                     or "full" (4 lanes): multiset fingerprint, count,
+                     sortedness, boundary and splitter-range checks, one
+                     psum and one ppermute more, one host copy a launch.
+      on_verify_failure  what a failed audit does: "raise" a
+                     VerificationError (BatchVerificationError on the
+                     batched path, with per-row verdicts); "retry" once,
+                     then the fallback; "fallback": re-run on the spill
+                     channel under kernel_policy="torch", raising only if
+                     that fails too. Attempts land on `RecoveryStats`.
+      imbalance_slo  enforce achieved_imbalance = max shard load / (N/p)
+                     <= this bound: when missed, re-run with duplicate
+                     tagging, then with bonus refinement, and raise
+                     ImbalanceError only if both miss. None records
+                     achieved_imbalance (when verify is on) and enforces
+                     nothing.
+      semisort_sample  per-shard sample of `semisort`'s heavy-hitter
+                     detection (0: max(64, 8p)). Ignored by `sort()`.
+      heavy_fraction `semisort`: a key is heavy when its estimated count
+                     reaches heavy_fraction * N / p.
       shards         p, the number of emulated shards.
       device         where the sort runs: "cuda" (default) or "cpu".
       batch          route `sort()` through the batched engine: a (B, n)
@@ -81,6 +106,11 @@ class SortSpec:
     on_overflow: str = "raise"
     max_overflow_retries: int = 3
     capacity_scale: float = 1.0
+    verify: str = "off"
+    on_verify_failure: str = "raise"
+    imbalance_slo: float | None = None
+    semisort_sample: int = 0
+    heavy_fraction: float = 0.5
     shards: int = 8
     device: str = "cuda"
     batch: bool = False
@@ -95,6 +125,17 @@ class SortSpec:
             raise ValueError(
                 f"on_overflow must be one of {ON_OVERFLOW}, "
                 f"got {self.on_overflow!r}")
+        if self.verify not in VERIFY:
+            raise ValueError(
+                f"verify must be one of {VERIFY}, got {self.verify!r}")
+        if self.on_verify_failure not in ON_VERIFY_FAILURE:
+            raise ValueError(
+                f"on_verify_failure must be one of {ON_VERIFY_FAILURE}, "
+                f"got {self.on_verify_failure!r}")
+        if self.imbalance_slo is not None and self.imbalance_slo < 1.0:
+            raise ValueError(
+                f"imbalance_slo is max_shard_load/(N/p), necessarily >= 1; "
+                f"got {self.imbalance_slo!r}")
         if self.shards < 1:
             raise ValueError(f"shards must be >= 1, got {self.shards}")
         if self.stages is not None and (

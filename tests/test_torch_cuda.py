@@ -400,3 +400,127 @@ def test_cuda_ragged_presorted_takes_the_full_sort_branch(card):
     assert dict(mops.ragged_branches) == {"full_sort": 1}
     assert int(out.overflow) == 0
     np.testing.assert_array_equal(out.gather(), np.sort(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("tier", ["cheap", "full"])
+def test_cuda_verified_sort_matches_torch_policy(card, tier, batched):
+    """The fused audit on the card: it passes, launches no kernel of its
+    own, and its words equal the torch policy's."""
+    from repro_torch.sort import SortSpec, sort, sort_batched
+
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 2 ** 31 - 1, (4, 8 * 16384 + 3)).astype(np.int32)
+    run = sort_batched if batched else sort
+    x = x if batched else x[0]
+    cuda.reset_launches()
+    run(x, SortSpec(shards=8))
+    plain = dict(cuda.launches)
+    cuda.reset_launches()
+    out = run(x, SortSpec(shards=8, verify=tier))
+    assert dict(cuda.launches) == plain
+    assert out.audit.ok and not out.recovery.verify_fallback
+    ref = run(x, SortSpec(shards=8, verify=tier, kernel_policy="torch"))
+    assert torch.equal(out._audit_vec, ref._audit_vec)
+    assert torch.equal(out.shards, ref.shards)
+
+
+@pytest.mark.cuda
+def test_cuda_corruption_is_caught_and_retried(card):
+    from repro_torch.runtime import chaos
+    from repro_torch.sort import SortSpec, VerificationError, sort
+
+    x = np.random.default_rng(5).integers(0, 2 ** 30, 8 * 16384)
+    x = x.astype(np.int32)
+    spec = SortSpec(shards=8, verify="cheap", on_verify_failure="retry")
+    with chaos.activate(chaos.FaultPlan(corrupt_at=(0,))):
+        out = sort(x, spec)
+    assert (out.recovery.verify_failures, out.recovery.verify_retries) == (
+        1, 1)
+    np.testing.assert_array_equal(out.gather(), np.sort(x))
+    with chaos.activate(chaos.FaultPlan(corrupt_at=True)):
+        with pytest.raises(VerificationError):
+            sort(x, spec)
+
+
+def _zipf(n, seed=0):
+    from repro_torch.data.distributions import make_adversarial
+    return make_adversarial("ZIPF_HH", n, seed=seed)
+
+
+@pytest.mark.cuda
+def test_cuda_semisort_matches_torch_policy(card):
+    from repro_torch.sort import SortSpec, semisort, semisort_batched
+
+    x = _zipf(8 * 16384 + 5)
+    cuda.reset_launches()
+    out = semisort(x, spec=SortSpec(shards=8))
+    _assert_main_path_launches()
+    ref = semisort(x, spec=SortSpec(shards=8, kernel_policy="torch"))
+    np.testing.assert_array_equal(out.heavy_keys, ref.heavy_keys)
+    np.testing.assert_array_equal(out.heavy_counts, ref.heavy_counts)
+    assert torch.equal(out.light.shards, ref.light.shards)
+    keys, counts = out.groups()
+    uk, uc = np.unique(x, return_counts=True)
+    np.testing.assert_array_equal(keys, uk)
+    np.testing.assert_array_equal(counts, uc)
+    xs = np.stack([_zipf(8 * 4096, seed=s) for s in range(3)])
+    batch = semisort_batched(xs, SortSpec(shards=8))
+    for b in range(3):
+        one = semisort(xs[b], spec=SortSpec(shards=8))
+        np.testing.assert_array_equal(batch.request(b).heavy_keys,
+                                      one.heavy_keys)
+        assert torch.equal(batch.request(b).light.shards, one.light.shards)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.float32])
+def test_cuda_top_k_matches_torch_policy(card, dtype):
+    from repro_torch.sort import SortSpec, top_k, top_k_batched
+
+    x = np.random.default_rng(6).integers(0, 2 ** 31 - 1, (3, 8 * 32768 + 1))
+    x = x.astype(dtype)
+    cuda.reset_launches()
+    got = top_k(x[0], 1000, SortSpec(shards=8))
+    assert cuda.launches["bitonic_sort_blocks"] > 0
+    assert cuda.launches["probe_rank_search"] == 0
+    ref = top_k(x[0], 1000, SortSpec(shards=8, kernel_policy="torch"))
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, np.sort(x[0])[::-1][:1000])
+    rows = top_k_batched(x, 1000, SortSpec(shards=8))
+    for b in range(3):
+        np.testing.assert_array_equal(rows[b], np.sort(x[b])[::-1][:1000])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["count", "sum", "mean", "max"])
+def test_cuda_groupby_aggregate_matches_torch_policy(card, op):
+    from repro_torch.sort import SortSpec, groupby_aggregate
+
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, 16, 8 * 16384).astype(np.int32)
+    v = rng.standard_normal(ids.shape[0]).astype(np.float32)
+    vals = None if op == "count" else v
+    got = groupby_aggregate(ids, vals, op=op, spec=SortSpec(shards=8))
+    ref = groupby_aggregate(ids, vals, op=op,
+                            spec=SortSpec(shards=8, kernel_policy="torch"))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+    np.testing.assert_array_equal(got[0], np.arange(16))
+
+
+@pytest.mark.cuda
+def test_cuda_counting_dispatch_matches_argsort_and_cpu(card):
+    from repro_torch.sort.grouping import counting_dispatch
+
+    ids = np.random.default_rng(8).integers(-1, 16, 100_003).astype(np.int32)
+    dev = torch.from_numpy(ids).cuda()
+    cuda.reset_launches()
+    got = counting_dispatch(dev, 16, 7_000)
+    assert not any(cuda.launches.values())
+    for g, a, c in zip(got, counting_dispatch(dev, 16, 7_000,
+                                              method="argsort"),
+                       counting_dispatch(torch.from_numpy(ids), 16, 7_000)):
+        assert torch.equal(g, a)
+        assert torch.equal(g.cpu(), c)

@@ -10,7 +10,8 @@ process on the CPU and exchange only NumPy arrays:
     draws — jr.fold_in(jr.key(seed), shard) (sort/driver.py:292), one
     jr.split per round (core/splitters.py:217), jr.uniform(sub, (n_local,))
     (:164) — as a (j, n) -> (p, n) float32 source the port takes;
-    `reference_draws(ref_spec, p, n)` gives each algorithm's: HSS's;
+    `reference_draws(ref_spec, p, n)` gives each algorithm's: HSS's (of
+    any round the port asks for, so the SLO ladder's extra rounds too);
     sample_random's and ams's one unsplit jr.uniform of the shard key
     (sample_sort.py:42, ams.py:66); multistage's split of the key into
     two stage keys, each split once a round (multistage.py:92, :57);
@@ -23,8 +24,14 @@ process on the CPU and exchange only NumPy arrays:
     under `jax.enable_x64(True)`, where it packs into int64 and takes
     float64 and int64 keys, as the port always does (every attempt of a
     retry takes the same draws in both packages, so one stream serves);
+  * `semisort_both`, `semisort_batched_both`, `top_k_both`,
+    `top_k_batched_both` and `groupby_both`: the grouping front doors
+    (the reference's `repro.sort.semisort` functions called directly);
+    `chaotic(fn, chaos, plan)` runs a front door under a FaultPlan of
+    either package's chaos module;
   * `assert_bits_equal` / `assert_sort_outputs_equal` /
-    `assert_batched_outputs_equal` / `assert_recovery_equal`:
+    `assert_batched_outputs_equal` / `assert_recovery_equal` /
+    `assert_audit_equal` / `assert_semisort_equal`:
     zero-tolerance comparisons (float arrays are compared as their bit
     patterns). Under x64 the reference widens its counters (overflow,
     gamma_size, n_satisfied, rounds_used) to int64; with `x64=True` the
@@ -120,8 +127,9 @@ def reference_draws(ref_spec: RefSortSpec, p: int, n: int):
         stage2 = _lazy_round_draws([b for _, b in halves])
         return lambda j, n: (stage1(j, n) if j < k1
                              else stage2(j - k1, n))
-    k = ref_spec.hss_config().resolved_rounds(p)
-    return reference_uniform(ref_spec.seed, p, n_local, k)
+    # HSS: one split a round, as many rounds as the port asks for (the
+    # imbalance SLO's refine rung runs two more than the spec's)
+    return _lazy_round_draws(keys)
 
 
 def port_hss_config(cfg: HSSConfig, policy: str | None = None):
@@ -153,7 +161,9 @@ def port_spec(ref: RefSortSpec, p: int, **overrides) -> tsort.SortSpec:
         capacity_scale=ref.capacity_scale, stable=ref.stable, tag=ref.tag,
         kernel_policy=_POLICY[ref.kernel_policy], seed=ref.seed,
         initial_probes=ref.initial_probes, total_sample=ref.total_sample,
-        s=ref.s, shards=p, device="cpu")
+        s=ref.s, verify=ref.verify, on_verify_failure=ref.on_verify_failure,
+        imbalance_slo=ref.imbalance_slo, semisort_sample=ref.semisort_sample,
+        heavy_fraction=ref.heavy_fraction, shards=p, device="cpu")
     if ref.mesh is not None and len(ref.mesh.shape) == 2:
         fields["stages"] = (ref.mesh.shape[ref.outer_axis],
                             ref.mesh.shape[ref.inner_axis])
@@ -325,3 +335,101 @@ def _assert_batched_outputs_equal(got, want, x64):
         if want.indices is not None:
             assert_bits_equal(got.gather_indices(b), want.gather_indices(b),
                               f"gather_indices({b})")
+
+
+def semisort_both(x, p: int, port_overrides=None, x64=False, **spec_kw):
+    """(port, reference) SemisortOutputs of one 1-D key array (under x64
+    the reference's heavy stats are read under x64 too)."""
+    def ref(s):
+        out = rsort.semisort(x, spec=s)
+        out.heavy_keys     # materialise while x64 is as it ran
+        return out
+    return _run_both(ref, lambda s, u: tsort.semisort(x, spec=s, uniform=u),
+                     x.shape[0], p, port_overrides, x64, spec_kw)
+
+
+def semisort_batched_both(xs, p: int, port_overrides=None, x64=False,
+                          **spec_kw):
+    """(port, reference) BatchedSemisortOutputs of one (B, n) batch."""
+    def ref(s):
+        out = rsort.semisort_batched(xs, s)
+        out.heavy_keys
+        return out
+    return _run_both(ref,
+                     lambda s, u: tsort.semisort_batched(xs, s, uniform=u),
+                     xs.shape[1], p, port_overrides, x64, spec_kw)
+
+
+def groupby_both(keys, values, op: str, p: int, port_overrides=None,
+                 x64=False, **spec_kw):
+    """(port, reference) (uniq_keys, aggregates) of `groupby_aggregate`."""
+    return _run_both(
+        lambda s: rsort.groupby_aggregate(keys, values, op=op, spec=s),
+        lambda s, u: tsort.groupby_aggregate(keys, values, op=op, spec=s,
+                                             uniform=u),
+        keys.shape[0], p, port_overrides, x64, spec_kw)
+
+
+def top_k_both(x, k: int, p: int, port_overrides=None, **spec_kw):
+    """(port, reference) top-k arrays (no draws: top_k samples nothing)."""
+    return _run_both(lambda s: rsort.top_k(x, k, s),
+                     lambda s, u: tsort.top_k(x, k, s),
+                     x.shape[-1], p, port_overrides, False, spec_kw)
+
+
+def top_k_batched_both(xs, k: int, p: int, port_overrides=None, **spec_kw):
+    return _run_both(lambda s: rsort.top_k_batched(xs, k, s),
+                     lambda s, u: tsort.top_k_batched(xs, k, s),
+                     xs.shape[-1], p, port_overrides, False, spec_kw)
+
+
+def chaotic(fn, chaos, plan: dict):
+    """fn under `chaos.FaultPlan(**plan)` (either package's chaos module):
+    returns (fn's result, chaos.stats() at its end)."""
+    def run(*args):
+        with chaos.activate(chaos.FaultPlan(**plan)):
+            out = fn(*args)
+            return out, chaos.stats()
+    return run
+
+
+def assert_audit_equal(got, want):
+    """Every field of an AuditReport, and the audit vector behind it
+    (the port's int64 words against the reference's uint32 ones)."""
+    assert (got is None) == (want is None)
+    if want is None:
+        return
+    for f in dataclasses.fields(want):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(w, (np.ndarray, np.generic)):
+            assert_bits_equal(np.asarray(g), np.asarray(w), f.name)
+        else:
+            assert g == w, (f.name, g, w)
+
+
+def assert_audit_vec_equal(got_out, want_out):
+    want = np.asarray(want_out._audit_vec)
+    got = to_numpy(got_out._audit_vec)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+def assert_semisort_equal(got, want, x64: bool = False):
+    """A port SemisortOutput against the reference's: heavy keys and
+    counts, the light SortOutput field for field (its splitter stats
+    inside the semisort stats), and the grouped gather."""
+    with _x64(x64):
+        assert_bits_equal(got.heavy_keys, want.heavy_keys, "heavy_keys")
+        assert_counters_equal(got.heavy_counts, want.heavy_counts,
+                              "heavy_counts", x64)
+        assert got.n == want.n
+        gl, wl = got.light, want.light
+        for name in ("shards", "splitter_keys"):
+            assert_bits_equal(getattr(gl, name), getattr(wl, name), name)
+        for name in ("counts", "splitter_ranks", "overflow"):
+            assert_counters_equal(getattr(gl, name), getattr(wl, name), name,
+                                  x64)
+        stats = getattr(wl.stats, "splitter", wl.stats)
+        assert_stats_equal(getattr(gl.stats, "splitter", gl.stats), stats,
+                           x64)
+        assert_bits_equal(got.gather(), want.gather(), "gather")
