@@ -142,10 +142,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      against `sort` (with the caching allocator's retries over each), and
      a profile and the peak memory of a warm verify="full" sort and a
      warm semisort;
-  last (phase 12, run after 13-17): every kernel (K1, K2 by role, K3,
+  19. the sort service (repro_torch.serve) at the batched cell's width:
+     `ServiceRunner(SortSpec(shards=8), ServiceConfig(max_batch=8))`,
+     every (kind, padded B) shard program warmed first; each kind in its
+     own window of 16 concurrent requests of 2,000,000 keys (sort of
+     UNIF rows, sort_kv of Phi-3.5-MoE's expert ids with the slot index
+     as the value, semisort of ZIPF_HH rows, top_k with k = 1,024,
+     argsort of UNIF keys on the torch route), each result checked
+     against NumPy and each window's kernels gated; over the steady
+     windows no degraded request, no verify fallback, a cache hit rate
+     above 0.9 and health "ok"; then a mixed window of 64 requests (the
+     five kinds interleaved: throughput, latencies, each batch's compute
+     time, peak memory); 16 concurrent /v1/sort requests of 262,144 keys
+     over the HTTP front end on 127.0.0.1 and the overload burst (a 429
+     and a 200);
+  20. the drills of repro_torch.serve.smoke in the process at 2,000,000
+     keys a request: chaos (a clamp of 20,000 keys a pair under retry,
+     one crash, one executor death, one poison request) and corrupt
+     (verify="cheap", the breaker tripped and closed again; the degraded
+     path's requests, under kernel_policy="torch", launch no kernel);
+  21. times, in turns: the direct `sort_batched` of one full batch, the
+     same with its 8 gathers, and the service's batch; the service's
+     steps apart (np.stack, the copy, the sort, the gathers); a profile
+     of one served batch;
+  22. `data.partition.bucket_lengths` of 1,048,576 synthetic document
+     lengths over 8 shards (int64 packing: no kernel): every doc once,
+     shards contiguous and non-decreasing, the packing's padding;
+  last (phase 12, run after 13-22): every kernel (K1, K2 by role, K3,
      K4s) against its plain version,
      exactly, at every shape and parameter the main paths of phases 4-5,
-     7-10 and 13-17 called it with (recorded as they ran, `kernel_shapes`):
+     7-10, 13-17 and 19-22 called it with (recorded as they ran,
+     `kernel_shapes`):
      multistage's stage 2 searching 8 rows of 4,200,008 keys with
      sentinel tails, ams's 960 probes a row, ragged's full sort of (8,
      2^22) buffers and the like. Each row of the kernels line lists the
@@ -2020,6 +2047,494 @@ def grouping_timing_phase(torch, np, card):
                      max_allocated_bytes=peak)
 
 
+#: Phases 19-22: the service at the batched cell's width. Each kind's
+#: kernels, from the code: sort, sort_kv (4 key + 21 tag bits: int32
+#: packing) and semisort run the HSS path's five; top_k sorts and merges,
+#: ranking nothing; argsort of UNIF keys (30 + 21 bits) packs int64 and
+#: takes the torch route (no kernel); the mixed window is their union.
+#: bucket_lengths' 11 key bits (lengths 16..2,048) and 20 tag bits
+#: (1,048,576 documents) are over int32's 30, so it packs int64: none.
+SERVE_KINDS = ("sort", "sort_kv", "semisort", "top_k", "argsort")
+PATH_KERNELS.update({"serve[sort]": RANKING, "serve[sort_kv]": RANKING,
+                     "serve[semisort]": RANKING, "serve[top_k]": SORTING,
+                     "serve[argsort]": (), "serve[mixed]": RANKING,
+                     "serve[http]": RANKING, "bucket_lengths": ()})
+SERVE_LOAD = 16              # two full batches of max_batch = B
+MIXED_LOAD = 64
+HTTP_N = 262_144             # JSON bodies of a few MB
+TOP_K = 1024
+CHAOS_CLAMP = 20_000         # a pair carries N_REQ / P^2 = 31,250 keys
+DOCS = 1 << 20
+SERVE_DEVICE = "cuda"        # where phases 19-22 run
+
+
+def serve_inputs(np, kind: str, count: int, first: int = 0):
+    """`count` requests of N_REQ keys for one kind (seeds first..): UNIF
+    int32 (sort, top_k, argsort), Phi-3.5-MoE's expert ids in [0, 16)
+    with the slot index as the value (sort_kv), ZIPF_HH (semisort)."""
+    from repro_torch.data.distributions import (make_adversarial,
+                                                make_distribution)
+
+    out = []
+    for s in range(first, first + count):
+        if kind == "sort_kv":
+            x = np.random.default_rng(100 + s).integers(
+                0, 16, N_REQ).astype(np.int32)
+        elif kind == "semisort":
+            x = make_adversarial("ZIPF_HH", N_REQ, seed=s)
+        else:
+            x = make_distribution("UNIF", N_REQ, seed=s)
+        out.append(x)
+    return out
+
+
+def check_served(np, kind: str, x, got):
+    """One served result against NumPy: sort and top_k by value, sort_kv
+    and argsort in the stable order, semisort as groups (equal keys
+    contiguous, the np.unique counts)."""
+    if kind == "sort":
+        ok = np.array_equal(got, np.sort(x))
+    elif kind == "top_k":
+        ok = np.array_equal(got, np.sort(x)[::-1][:TOP_K])
+    elif kind == "argsort":
+        ok = np.array_equal(got, np.argsort(x, kind="stable"))
+    elif kind == "sort_kv":
+        order = np.argsort(x, kind="stable")
+        ok = (np.array_equal(got[0], x[order])
+              and np.array_equal(got[1], np.arange(x.shape[0])[order]))
+    else:
+        keys, counts = np.unique(got, return_counts=True)
+        uk, uc = np.unique(x, return_counts=True)
+        runs = 1 + int(np.count_nonzero(got[1:] != got[:-1]))
+        ok = (np.array_equal(keys, uk) and np.array_equal(counts, uc)
+              and runs == uk.shape[0])
+    if not ok:
+        fail(f"serve[{kind}]: a served result differs from NumPy")
+
+
+def submit_all(runner, np, reqs):
+    """Every (kind, x) at once from a thread a request -> (results in
+    order, each request's latency in ms, the wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(req):
+        kind, x = req
+        t0 = time.perf_counter()
+        out = runner.submit(
+            x, kind=kind,
+            values=np.arange(x.shape[0], dtype=np.int32)
+            if kind == "sort_kv" else None,
+            param=TOP_K if kind == "top_k" else None)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(reqs)) as pool:
+        done = list(pool.map(one, reqs))
+    wall = time.perf_counter() - t0
+    return [d[0] for d in done], [d[1] for d in done], wall
+
+
+def warm_service(runner_cls, config_cls, spec, np, inputs):
+    """Build every (kind, padded B) shard program the phase's windows can
+    use: for each kind, batches of 1, 2, 4 and 8 through a service that
+    flushes on size or drain only (the cache is process-wide)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cfg = config_cls(max_batch=B, max_delay_ms=60_000.0)
+    with runner_cls(spec=spec, config=cfg) as warm:
+        for kind in SERVE_KINDS:
+            b = 1
+            while b <= B:
+                with ThreadPoolExecutor(b) as pool:
+                    futs = [pool.submit(
+                        warm.submit, inputs[kind][i], kind=kind,
+                        values=np.arange(N_REQ, dtype=np.int32)
+                        if kind == "sort_kv" else None,
+                        param=TOP_K if kind == "top_k" else None)
+                        for i in range(b)]
+                    while warm.service.queued < b and not all(
+                            f.done() for f in futs):
+                        time.sleep(0.001)
+                    if b < B:
+                        warm.drain()
+                    for f in futs:
+                        f.result()
+                b *= 2
+
+
+@contextlib.contextmanager
+def batch_times(service, record: list):
+    """Record the compute seconds of each batch `service` runs (its
+    executor thread's `_run_batch`, stacking to results on the host)."""
+    real = service._run_batch
+
+    def timed(reqs):
+        t0 = time.perf_counter()
+        try:
+            return real(reqs)
+        finally:
+            record.append(time.perf_counter() - t0)
+    service._run_batch = timed
+    try:
+        yield record
+    finally:
+        del service._run_batch
+
+
+def cache_rate(np, snap) -> tuple:
+    hits = sum(b["cache"]["hits"] for b in snap["buckets"].values())
+    misses = sum(b["cache"]["misses"] for b in snap["buckets"].values())
+    return hits, misses, hits / max(hits + misses, 1)
+
+
+def serve_phase(torch, np, card):
+    """Phase 19: the service at the batched cell's width: each kind in
+    its own window, a mixed window, HTTP and the overload burst."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import cuda
+    from repro_torch.serve import ServiceConfig, ServiceRunner, smoke
+    from repro_torch.serve.http import make_server
+    from repro_torch.serve.metrics import percentile
+    from repro_torch.sort import SortSpec
+
+    spec = SortSpec(shards=P, eps=EPS, device=SERVE_DEVICE)
+    inputs = {k: serve_inputs(np, k, SERVE_LOAD) for k in SERVE_KINDS}
+    t0 = time.perf_counter()
+    warm_service(ServiceRunner, ServiceConfig, spec, np, inputs)
+    emit({"measure": "serve_warm", "seconds": time.perf_counter() - t0,
+          "kinds": list(SERVE_KINDS), "batch_sizes": [1, 2, 4, 8],
+          "card": card})
+    paths = {}
+    with ServiceRunner(spec=spec, config=ServiceConfig(max_batch=B)) \
+            as runner:
+        runner.reset_metrics()
+        for kind in SERVE_KINDS:
+            reqs = [(kind, x) for x in inputs[kind]]
+            cuda.reset_launches()
+            torch.cuda.synchronize()
+            outs, lat, wall = submit_all(runner, np, reqs)
+            torch.cuda.synchronize()
+            launches = dict(cuda.launches)
+            paths[f"serve[{kind}]"] = launches
+            check_path_launches(f"serve[{kind}]", launches,
+                                PATH_KERNELS[f"serve[{kind}]"])
+            for (_, x), got in zip(reqs, outs):
+                check_served(np, kind, x, got)
+            emit({"measure": "serve_kind", "kind": kind, "n": N_REQ,
+                  "requests": len(reqs), "wall_s": wall,
+                  "latency_ms_max": max(lat), "launches": launches,
+                  "card": card})
+        snap = runner.metrics()
+        hits, misses, rate = cache_rate(np, snap)
+        batches = snap["batches"]
+        if snap["degraded_requests"] or snap["verify_fallbacks"]:
+            fail(f"serve: degraded {snap['degraded_requests']}, verify "
+                 f"fallbacks {snap['verify_fallbacks']} on clean traffic")
+        if rate <= 0.9:
+            fail(f"serve: warm hit rate {rate:.3f} <= 0.9 ({hits} hits, "
+                 f"{misses} misses)")
+        if runner.health()["health"] != "ok":
+            fail(f"serve: health {runner.health()['health']}")
+        emit({"measure": "serve_steady", "requests": snap["served"],
+              "batches": batches, "cache_hits": hits,
+              "cache_misses": misses, "hit_rate": rate,
+              "degraded": snap["degraded_requests"],
+              "verify_fallbacks": snap["verify_fallbacks"],
+              "health": runner.health()["health"],
+              "occupancy": {k: b["mean_occupancy"]
+                            for k, b in snap["buckets"].items()},
+              "flush_reasons": {k: b["flush_reasons"]
+                                for k, b in snap["buckets"].items()},
+              "card": card})
+
+        # the mixed window: 64 requests, the five kinds interleaved
+        mixed = [(SERVE_KINDS[i % 5], inputs[SERVE_KINDS[i % 5]][i // 5])
+                 for i in range(MIXED_LOAD)]
+        runner.reset_metrics()
+        compute = []
+        cuda.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with batch_times(runner.service, compute):
+            outs, lat, wall = submit_all(runner, np, mixed)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(cuda.launches)
+        paths["serve[mixed]"] = launches
+        check_path_launches("serve[mixed]", launches,
+                            PATH_KERNELS["serve[mixed]"])
+        for (kind, x), got in zip(mixed, outs):
+            check_served(np, kind, x, got)
+        snap = runner.metrics()
+        hits, misses, rate = cache_rate(np, snap)
+        if snap["degraded_requests"] or rate <= 0.9:
+            fail(f"serve[mixed]: degraded {snap['degraded_requests']}, "
+                 f"hit rate {rate:.3f}")
+        if runner.health()["health"] != "ok":
+            fail(f"serve[mixed]: health {runner.health()['health']}")
+        emit({"measure": "serve_mixed", "requests": MIXED_LOAD,
+              "n": N_REQ, "batches": snap["batches"], "wall_s": wall,
+              "requests_per_s": MIXED_LOAD / wall,
+              "keys_per_s": MIXED_LOAD * N_REQ / wall,
+              "latency_ms_client": {"p50": percentile(lat, 0.5),
+                                    "p99": percentile(lat, 0.99),
+                                    "max": max(lat)},
+              "latency_ms_by_bucket": {
+                  k[:40]: b["latency_ms"] for k, b in
+                  snap["buckets"].items()},
+              "batch_compute_ms": {
+                  "median": 1e3 * statistics.median(compute),
+                  "all": [1e3 * c for c in compute]},
+              "batch_timer": snap["batch_timer"], "cache_hits": hits,
+              "cache_misses": misses, "hit_rate": rate,
+              "max_allocated_bytes": peak, "launches": launches,
+              "card": card})
+    del inputs
+
+    # HTTP: 16 concurrent /v1/sort of HTTP_N keys, then the overload burst
+    xs = [np.random.default_rng(200 + s).permutation(4 * HTTP_N)[:HTTP_N]
+          .astype(np.int32) for s in range(SERVE_LOAD)]
+    with ServiceRunner(spec=spec, config=ServiceConfig(max_batch=B)) \
+            as runner:
+        server = make_server(runner, port=0)
+        host, port = server.server_address[:2]
+        base = f"http://{host}:{port}"
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            cuda.reset_launches()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(SERVE_LOAD) as pool:
+                replies = list(pool.map(lambda x: smoke._post(
+                    base, "/v1/sort", {"keys": x.tolist(),
+                                       "dtype": "int32"}), xs))
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = dict(cuda.launches)
+            for x, (code, body) in zip(xs, replies):
+                if code != 200 or not np.array_equal(
+                        np.asarray(body["sorted"], np.int32), np.sort(x)):
+                    fail(f"serve[http]: status {code} or a wrong sort")
+            paths["serve[http]"] = launches
+            check_path_launches("serve[http]", launches,
+                                PATH_KERNELS["serve[http]"])
+            code, health = smoke._get(base, "/healthz")
+            if code != 200 or health["health"] != "ok":
+                fail(f"serve[http]: /healthz {code} {health['health']}")
+        finally:
+            server.shutdown()
+            server.server_close()
+    codes = smoke.overload_burst(spec, xs[0], http=True)
+    emit({"measure": "serve_http", "requests": SERVE_LOAD, "n": HTTP_N,
+          "wall_s": wall, "requests_per_s": SERVE_LOAD / wall,
+          "launches": launches, "overload_codes": sorted(codes),
+          "card": card})
+    return paths
+
+
+@contextlib.contextmanager
+def degraded_launches(record: list):
+    """Record the kernel launches of each degraded-path request (the
+    service's `_run_one`, which runs alone on its executor thread)."""
+    from repro_torch.kernels import cuda
+    from repro_torch.serve.service import SortService
+
+    real = SortService._run_one
+
+    def run_one(self, req):
+        before = dict(cuda.launches)
+        try:
+            return real(self, req)
+        finally:
+            record.append(sum(cuda.launches[k] - before.get(k, 0)
+                              for k in cuda.COUNTERS))
+    SortService._run_one = run_one
+    try:
+        yield record
+    finally:
+        SortService._run_one = real
+
+
+def drills_phase(torch, np, card):
+    """Phase 20: the chaos and corrupt drills of repro_torch.serve.smoke
+    in the process, at requests of N_REQ keys on the card."""
+    from repro_torch.serve import smoke
+
+    t0 = time.perf_counter()
+    out = smoke.chaos_main(n=N_REQ, clamp_pair_cap=CHAOS_CLAMP,
+                           device=SERVE_DEVICE, shards=P, http=False)
+    m = out["metrics"]
+    emit({"measure": "serve_chaos_drill", "n": N_REQ,
+          "clamp_pair_cap": CHAOS_CLAMP, "chaos_stats": out["chaos"],
+          "executor": out["executor"], "served": m["served"],
+          "errors": m["errors"], "batch_retries": m["batch_retries"],
+          "bisections": m["bisections"],
+          "executor_restarts": m["executor_restarts"],
+          "overflow_retries": m["overflow_retries"],
+          "overflow_recovered": m["overflow_recovered"],
+          "seconds": time.perf_counter() - t0, "card": card})
+    t0 = time.perf_counter()
+    record = []
+    with degraded_launches(record):
+        out = smoke.corrupt_main(n=N_REQ, device=SERVE_DEVICE, shards=P,
+                                 http=False)
+    m = out["metrics"]
+    if not record or any(record):
+        fail(f"serve corrupt drill: degraded-path launches {record} (the "
+             "torch policy launches none)")
+    emit({"measure": "serve_corrupt_drill", "n": N_REQ,
+          "chaos_stats": out["chaos"], "served": m["served"],
+          "errors": m["errors"], "verify_failures": m["verify_failures"],
+          "verify_failed_requests": m["verify_failed_requests"],
+          "degraded_requests": m["degraded_requests"],
+          "degraded_path_launches": record,
+          "clean_cache_hits": out["clean_hits"],
+          "clean_cache_misses": out["clean_misses"],
+          "seconds": time.perf_counter() - t0, "card": card})
+
+
+def serve_timing_phase(torch, np, card):
+    """Phase 21: one full batch served beside the direct sort_batched of
+    the same 8 rows (and with its 8 gathers), in turns; the service's
+    host steps timed apart; a profile of one served batch."""
+    from repro_torch.serve import ServiceConfig, ServiceRunner
+    from repro_torch.serve.metrics import percentile
+    from repro_torch.sort import SortSpec, sort_batched
+
+    spec = SortSpec(shards=P, eps=EPS, device=SERVE_DEVICE)
+    rows = serve_inputs(np, "sort", B)
+    xs = np.stack(rows)
+    # a flush on size only, so that each served call is one full batch
+    full = ServiceConfig(max_batch=B, max_delay_ms=60_000.0)
+    with ServiceRunner(spec=spec, config=full) as runner:
+        def served():
+            outs, _, _ = submit_all(runner, np, [("sort", x) for x in rows])
+            return outs
+
+        def direct_gathered():
+            out = sort_batched(xs, spec)
+            return [out.gather(b) for b in range(B)]
+
+        timed = medians_in_turns(torch, {
+            "direct": lambda: sort_batched(xs, spec),
+            "direct_gathered": direct_gathered, "served": served})
+        for name, (med, runs) in timed.items():
+            emit({"measure": "serve_batch_e2e_warm", "call": name,
+                  "batch": B, "n": N_REQ, "median_ms": med,
+                  "runs_ms": runs, "in_turns": True, "card": card})
+        # the service's steps, each alone: stack, copy, sort, gathers
+        steps = {}
+        steps["np_stack"] = median_ms(torch, lambda: np.stack(rows))
+        steps["host_to_device"] = median_ms(
+            torch, lambda: torch.from_numpy(xs).to(SERVE_DEVICE))
+        dev = torch.from_numpy(xs).to(SERVE_DEVICE)
+        out = sort_batched(dev, spec)
+        steps["sort_batched_on_device"] = median_ms(
+            torch, lambda: sort_batched(dev, spec))
+        steps["gathers"] = median_ms(
+            torch, lambda: [out.gather(b) for b in range(B)])
+        emit({"measure": "serve_batch_steps", "batch": B, "n": N_REQ,
+              "median_ms": {k: v[0] for k, v in steps.items()},
+              "runs_ms": {k: v[1] for k, v in steps.items()},
+              "card": card})
+        profile_line(torch, served, card, measure="serve_batch_profile",
+                     batch=B, n=N_REQ)
+        if runner.metrics()["batches"] != len(timed["served"][1]) + 2:
+            fail("serve timing: a served call ran as more than one batch")
+        emit({"measure": "cache_build", "batch": B, "n": N_REQ,
+              "build_us": build_us(torch, lambda: sort_batched(dev, spec)),
+              "card": card})
+
+    # the flush deadline: the mixed window again with max_delay_ms 50
+    # beside the default 5, in turns (each window's batches and rates)
+    per_kind = -(-MIXED_LOAD // len(SERVE_KINDS))
+    inputs = {k: serve_inputs(np, k, per_kind, first=300)
+              for k in SERVE_KINDS}
+    mixed = [(SERVE_KINDS[i % 5], inputs[SERVE_KINDS[i % 5]][i // 5])
+             for i in range(MIXED_LOAD)]
+    rates = {5.0: [], 50.0: []}
+    for _ in range(2):
+        for delay in rates:
+            cfg = ServiceConfig(max_batch=B, max_delay_ms=delay)
+            with ServiceRunner(spec=spec, config=cfg) as runner:
+                outs, lat, wall = submit_all(runner, np, mixed)
+                snap = runner.metrics()
+            for (kind, x), got in zip(mixed, outs):
+                check_served(np, kind, x, got)
+            rates[delay].append({"wall_s": wall, "batches": snap["batches"],
+                                 "requests_per_s": MIXED_LOAD / wall,
+                                 "p50_ms": percentile(lat, 0.5),
+                                 "p99_ms": percentile(lat, 0.99)})
+    emit({"measure": "serve_mixed_deadline", "requests": MIXED_LOAD,
+          "n": N_REQ, "by_max_delay_ms": {str(k): v
+                                          for k, v in rates.items()},
+          "in_turns": True, "card": card})
+
+
+def build_us(torch, fn) -> list:
+    """What a cache hit saves: the host microseconds of each shard-program
+    build during one call of `fn` with the cache emptied (a miss)."""
+    from repro_torch.sort import driver
+
+    builds, real = [], driver.shard_program
+
+    def timed(key, build, p):
+        def timed_build():
+            t0 = time.perf_counter()
+            try:
+                return build()
+            finally:
+                builds.append((time.perf_counter() - t0) * 1e6)
+        return real(key, timed_build, p)
+
+    driver.exec_cache.clear()
+    driver.shard_program = timed
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        driver.shard_program = real
+    return builds
+
+
+def bucketing_phase(torch, np, card):
+    """Phase 22: length bucketing of 1,048,576 documents over 8 shards."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.data.partition import (bucket_lengths, pack_documents,
+                                            padding_fraction)
+    from repro_torch.sort import SortSpec
+
+    # the default configuration (repro/data/partition.py:42), placed
+    spec = SortSpec(algorithm="hss", eps=EPS, exchange="allgather",
+                    device=SERVE_DEVICE)
+    lengths = SyntheticTokens(vocab=32000, seq_len=2048,
+                              global_batch=B).doc_lengths(0, DOCS)
+    (ids, counts), launches = launched(
+        torch, lambda: bucket_lengths(lengths, P, spec=spec))
+    check_path_launches("bucket_lengths", launches,
+                        PATH_KERNELS["bucket_lengths"])
+    flat = np.concatenate(ids)
+    if not np.array_equal(np.sort(flat), np.arange(DOCS)):
+        fail("bucket_lengths: the shards do not hold every doc id once")
+    if np.any(np.diff(lengths[flat]) < 0):
+        fail("bucket_lengths: shards are not contiguous and non-decreasing")
+    if counts.max() > (1 + EPS) * DOCS / P + 1:
+        fail(f"bucket_lengths: max count {counts.max()}")
+    seqs = [s for shard in ids for s in pack_documents(shard, lengths, 2048)]
+    unsorted = pack_documents(np.arange(DOCS), lengths, 2048)
+    med, runs = median_ms(torch,
+                          lambda: bucket_lengths(lengths, P, spec=spec))
+    emit({"measure": "bucket_lengths", "docs": DOCS, "shards": P,
+          "counts": counts.tolist(), "launches": launches,
+          "sequences": len(seqs),
+          "padding_fraction": padding_fraction(seqs, lengths, 2048),
+          "padding_fraction_unsorted": padding_fraction(unsorted, lengths,
+                                                        2048),
+          "median_ms": med, "runs_ms": runs, "card": card})
+    return {"bucket_lengths": launches}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2072,6 +2587,11 @@ def main() -> int:
         paths.update(slo_phase(torch, np, card))
         paths.update(grouping_phase(torch, np, card))
     grouping_timing_phase(torch, np, card)
+    with kernel_shapes(seen):
+        paths.update(serve_phase(torch, np, card))
+        drills_phase(torch, np, card)
+        paths.update(bucketing_phase(torch, np, card))
+    serve_timing_phase(torch, np, card)
     shapes = path_shapes_phase(torch, seen, card)
     for r in rows:
         r["launches_by_path"] = {k: v[r["counter"]] for k, v in paths.items()}

@@ -15,8 +15,8 @@ no plan is active:
     pipeline and its audit: silent corruption that only
     `SortSpec(verify=...)` catches.
   * `on_dispatch(xs)` is the serving layer's seam (stragglers, crashes,
-    executor death, poison requests). The port's serving layer is not
-    ported yet, so nothing calls it; it is here, tested, for that slice.
+    executor death, poison requests): `repro_torch.serve.service` calls
+    it at the top of every batched and per-request dispatch.
 
     from repro_torch.runtime import chaos
     plan = chaos.FaultPlan(clamp_pair_cap=8, corrupt_at=(0,))
@@ -117,10 +117,9 @@ def active() -> FaultPlan | None:
 def trace_token():
     """Hashable token of the active plan's capacity clamp (None when no
     clamp is armed); counts `clamp_traces` as the reference's does. The
-    reference folds it into its executable-cache keys so that a clamped
-    trace is cached apart. The port runs eagerly and has no executable
-    cache yet (it comes with the serving slice), so nothing folds it in
-    today."""
+    front doors fold it into their shard-program cache keys
+    (repro_torch.sort.driver.exec_cache), so a clamped program is cached
+    apart, and `clamp_traces` counts the same calls as the reference's."""
     state = _active
     if state is None or state.plan.clamp_pair_cap is None:
         return None

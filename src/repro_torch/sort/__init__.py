@@ -21,12 +21,15 @@ contiguous with heavy hitters reported as exact (key, count) groups,
 The shared host driver lives in repro_torch.sort.driver, the dtype and
 duplicate adapters in repro_torch.sort.adapters, the partitioner registry
 in repro_torch.sort.partitioners, the audit in repro_torch.sort.verify and
-the MoE dispatch helpers in repro_torch.sort.grouping.
+the MoE dispatch helpers in repro_torch.sort.grouping. The front doors
+take their shard programs from `exec_cache`, keyed by `spec_fingerprint`'s
+fields and the shape; `bucket_key` is the serving layer's grouping key.
 """
 from repro_torch.sort.adapters import BatchedSortOutput, SortOutput
 from repro_torch.sort.api import (
-    RecoveryStats, argsort, gather, gather_perm_checked, sort, sort_batched,
-    sort_kv)
+    RecoveryStats, argsort, bucket_key, gather, gather_perm_checked, sort,
+    sort_batched, sort_kv, spec_fingerprint)
+from repro_torch.sort.driver import exec_cache
 from repro_torch.sort.grouping import group_by_length
 from repro_torch.sort.partitioners import (
     Partitioner, ShardCtx, available_algorithms, get_partitioner,
@@ -45,8 +48,9 @@ __all__ = [
     "ImbalanceError", "ON_OVERFLOW", "ON_VERIFY_FAILURE", "Partitioner",
     "RecoveryStats", "SemisortOutput", "ShardCtx", "SortOutput", "SortSpec",
     "VERIFY", "VerificationError", "argsort", "available_algorithms",
-    "gather", "gather_perm_checked", "get_partitioner", "group_by_length",
-    "groupby_aggregate", "register_partitioner", "semisort",
-    "semisort_batched", "sort", "sort_batched", "sort_kv", "top_k",
+    "bucket_key", "exec_cache", "gather", "gather_perm_checked",
+    "get_partitioner", "group_by_length", "groupby_aggregate",
+    "register_partitioner", "semisort", "semisort_batched", "sort",
+    "sort_batched", "sort_kv", "spec_fingerprint", "top_k",
     "top_k_batched",
 ]

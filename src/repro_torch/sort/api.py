@@ -101,6 +101,80 @@ def _as_spec(spec, overrides) -> SortSpec:
     return dataclasses.replace(spec, **overrides) if overrides else spec
 
 
+def _mesh_fingerprint(spec: SortSpec):
+    """The structural identity of the emulated mesh: the shard count, the
+    multistage grid and the device (the reference's mesh shape and device
+    ids, api.py:85-91)."""
+    return (spec.shards, spec.stages, torch.device(spec.device))
+
+
+def _spec_trace_fields(spec: SortSpec) -> tuple:
+    """The SortSpec fields that shape the shard program (the seed is a
+    per-call argument, the keys' shape and dtype come with the encoded
+    array), as the reference's (api.py:94-110). The chaos trace token
+    rides along: a plan that clamps the exchange's capacities is cached
+    apart, so a clamped program never serves, or poisons, the unclamped
+    line (repro_torch.runtime.chaos)."""
+    return (spec.algorithm, spec.eps, spec.rounds, spec.sample_per_shard,
+            spec.adaptive, spec.total_sample, spec.s,
+            spec.resolved_exchange(), spec.pair_factor, spec.out_slack,
+            spec.capacity_scale, spec.kernel_policy, spec.verify,
+            spec.semisort_sample, spec.heavy_fraction,
+            chaos.trace_token())
+
+
+def spec_fingerprint(spec: SortSpec):
+    """Hashable fingerprint of every SortSpec field that decides a
+    request's served bits: the program-shaping fields, the semantic ones
+    (stable and tag change the adapter plan, the seed the sampled
+    splitters) and the mesh (api.py:113-124). None when the spec carries
+    state no fingerprint captures (warm-start probes): such a spec shares
+    no cached program and no serving batch."""
+    if spec.initial_probes is not None:
+        return None
+    return _spec_trace_fields(spec) + (
+        spec.stable, spec.tag, spec.seed, spec.on_verify_failure,
+        spec.imbalance_slo, _mesh_fingerprint(spec))
+
+
+def _dtype_name(dtype) -> str:
+    """NumPy's name of a key dtype ("int32", "float32", ...), for a NumPy
+    or a torch dtype alike."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return str(np.dtype(dtype))
+
+
+def bucket_key(n, dtype, spec: SortSpec, *, kind: str = "sort", param=None):
+    """The serving batch's grouping key (repro_torch.serve): requests that
+    share it stack into one `sort_batched` launch (same length, key dtype,
+    request kind and spec fingerprint) and so share one cached shard
+    program per batch size (api.py:127-148). Opaque specs (warm-start
+    probes) bucket by identity: they never share a batch. `param` is a
+    kind's launch-shaping scalar (top_k's k); None leaves the key as the
+    other kinds have it."""
+    fp = spec_fingerprint(spec)
+    if fp is None:
+        fp = ("opaque", id(spec))
+    key = (kind, int(n), _dtype_name(dtype), fp)
+    return key if param is None else key + (param,)
+
+
+def _cache_key(spec: SortSpec, enc: torch.Tensor, *, flip: bool = False):
+    """The shard-program cache key (api.py:151-159): the spec's program
+    fields, the mesh, and the encoded batch's shape and dtype (an
+    unbatched sort is the batched engine at B = 1, so it shares the
+    batched line of its (1, n) shape). `flip` is the audit's uint32 word
+    flip, which the encoded dtype (int32) does not show. None (uncached)
+    when the spec carries warm-start probes, which the program would
+    capture."""
+    if spec.initial_probes is not None:
+        return None
+    return (("batched",) + _spec_trace_fields(spec)
+            + (_mesh_fingerprint(spec), tuple(enc.shape), str(enc.dtype),
+               flip))
+
+
 def resolve_device(device) -> torch.device:
     """The spec's device; a CUDA device with no card raises (no fallback)."""
     dev = torch.device(device)
@@ -188,18 +262,27 @@ def _sort_batched_impl(xs, spec: SortSpec, uniform,
     probes = (plan.encode_probes(spec.initial_probes)
               if spec.initial_probes is not None else None)
 
-    def sort_fn(rows, comm, draws):
-        ctx = ShardCtx(spec=spec, comm=comm, uniform=draws,
-                       initial_probes=probes)
-        return part.sharded_batched(rows, ctx)
-
+    cache_key = _cache_key(spec, enc, flip=plan.flipped_words)
     audit = spec.verify != "off" and p > 1
-    if audit:
-        sort_fn = verify.audited(
+    corrupt = chaos.corrupt_now() if audit else None
+    if corrupt is not None:
+        cache_key = None   # a corrupted program is never cached
+
+    def build():
+        def sort_fn(rows, comm, draws):
+            ctx = ShardCtx(spec=spec, comm=comm, uniform=draws,
+                           initial_probes=probes)
+            return part.sharded_batched(rows, ctx)
+
+        if not audit:
+            return sort_fn
+        return verify.audited(
             sort_fn, tier=spec.verify, grid=spec.algorithm == "multistage",
-            corrupt=chaos.corrupt_now(), flip=plan.flipped_words)
+            corrupt=corrupt, flip=plan.flipped_words)
+
     raw = driver.run_batched(
-        sort_fn, enc, p=p, seed=spec.seed, n_real=plan.n,
+        driver.shard_program(cache_key, build, p), enc, p=p, seed=spec.seed,
+        n_real=plan.n,
         local_sort_fn=dispatch.local_sort_fn(spec.kernel_policy),
         uniform=uniform)
     audit_vec = None

@@ -50,9 +50,10 @@ from repro_torch.kernels import dispatch
 from repro_torch.parallel.comm import Comm
 from repro_torch.sort import driver
 from repro_torch.sort.adapters import as_keys, from_core, make_plan, to_core
+from repro_torch.runtime import chaos
 from repro_torch.sort.api import (
-    _as_spec, _sort_batched_impl, _sort_one, _with_policies, resolve_device,
-    sort_kv)
+    _as_spec, _cache_key, _mesh_fingerprint, _sort_batched_impl, _sort_one,
+    _with_policies, resolve_device, sort_kv)
 from repro_torch.sort.partitioners import (
     Partitioner, ShardCtx, get_partitioner)
 from repro_torch.sort.spec import SortSpec
@@ -304,8 +305,14 @@ def _semisort_fast(xs: torch.Tensor, spec: SortSpec, uniform,
     s_loc, min_count, max_heavy, out_extra = _heavy_sizing(spec, n_local, p)
     ex_cfg = dataclasses.replace(spec.exchange_config(), out_extra=out_extra)
     fallback = type(part).sharded_batched is not Partitioner.sharded_batched
-    shard_fn = _semisort_shard_fn(part, spec, n_local, s_loc, min_count,
-                                  max_heavy, ex_cfg, fallback)
+    base = _cache_key(spec, enc, flip=plan.flipped_words)
+    cache_key = (None if base is None
+                 else ("semisort", s_loc, min_count, max_heavy, out_extra)
+                 + base)
+    shard_fn = driver.shard_program(
+        cache_key, lambda: _semisort_shard_fn(
+            part, spec, n_local, s_loc, min_count, max_heavy, ex_cfg,
+            fallback), p)
     raw = driver.run_batched(
         shard_fn, enc, p=p, seed=spec.seed, n_real=plan.n,
         local_sort_fn=dispatch.local_sort_fn(spec.kernel_policy),
@@ -455,7 +462,15 @@ def _topk_impl(enc: torch.Tensor, k: int, spec: SortSpec) -> torch.Tensor:
     batch, n_local = enc.shape[0], enc.shape[1] // p
     rows = enc.reshape(batch, p, n_local).transpose(0, 1).contiguous()
     c = min(n_local, round_up(k, 8))
-    return topk_program(rows, Comm(p), c, k, spec.kernel_policy)
+    # semisort.py:539-545; the unbatched top_k is B = 1 here, so it shares
+    # the batched line of its shape
+    cache_key = ("topk", batch, k, c, n_local, str(enc.dtype),
+                 spec.kernel_policy, _mesh_fingerprint(spec),
+                 chaos.trace_token())
+    program = driver.exec_cache.get_or_build(
+        cache_key, lambda: functools.partial(
+            topk_program, c=c, k=k, kernel_policy=spec.kernel_policy))
+    return program(rows, Comm(p))
 
 
 def _top_k_rows(xs: torch.Tensor, k: int, spec: SortSpec) -> np.ndarray:

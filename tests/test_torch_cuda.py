@@ -524,3 +524,68 @@ def test_cuda_counting_dispatch_matches_argsort_and_cpu(card):
                        counting_dispatch(torch.from_numpy(ids), 16, 7_000)):
         assert torch.equal(g, a)
         assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sort", "sort_kv", "semisort", "top_k",
+                                  "argsort"])
+def test_cuda_service_batch_launches_the_kernels(card, kind):
+    """One full batch of each kind through ServiceRunner on the card:
+    every result exact, and the kernels of its path launched (argsort of
+    full-range int32 keys packs int64: the torch route, no kernel)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.serve import ServiceConfig, ServiceRunner
+    from repro_torch.sort import SortSpec
+
+    rng = np.random.default_rng(9)
+    n = 8 * 16384
+    if kind == "sort_kv":
+        xs = [rng.integers(0, 16, n).astype(np.int32) for _ in range(4)]
+    elif kind == "semisort":
+        xs = [_zipf(n, seed=s) for s in range(4)]
+    else:
+        xs = [rng.integers(-2 ** 31, 2 ** 31 - 1, n).astype(np.int32)
+              for _ in range(4)]
+    values = np.arange(n, dtype=np.int32)
+    spec = SortSpec(shards=8)
+    if kind in ("sort_kv", "argsort"):
+        spec = SortSpec(shards=8, stable=True)
+    with ServiceRunner(spec=spec, config=ServiceConfig(
+            max_batch=4, max_delay_ms=1000.0)) as runner:
+        cuda.reset_launches()
+        with ThreadPoolExecutor(4) as pool:
+            out = list(pool.map(lambda x: runner.submit(
+                x, kind=kind, values=values if kind == "sort_kv" else None,
+                param=1024 if kind == "top_k" else None), xs))
+        torch.cuda.synchronize()
+        launched = dict(cuda.launches)
+        snap = runner.metrics()
+    assert snap["batches"] == 1 and snap["degraded_requests"] == 0
+    for x, got in zip(xs, out):
+        order = np.argsort(x, kind="stable")
+        if kind == "sort":
+            np.testing.assert_array_equal(got, np.sort(x))
+        elif kind == "sort_kv":
+            np.testing.assert_array_equal(got[0], x[order])
+            np.testing.assert_array_equal(got[1], values[order])
+        elif kind == "semisort":
+            keys, counts = np.unique(got, return_counts=True)
+            uk, uc = np.unique(x, return_counts=True)
+            np.testing.assert_array_equal(keys, uk)
+            np.testing.assert_array_equal(counts, uc)
+            assert 1 + np.count_nonzero(got[1:] != got[:-1]) == len(uk)
+        elif kind == "top_k":
+            np.testing.assert_array_equal(got, np.sort(x)[::-1][:1024])
+        else:
+            np.testing.assert_array_equal(got, order)
+    if kind == "argsort":
+        assert not any(launched.values()), launched
+    elif kind == "top_k":
+        assert launched["bitonic_sort_blocks"] > 0, launched
+        assert launched["probe_rank_search"] == 0, launched
+        assert launched["probe_rank_count"] == 0, launched
+    else:
+        assert all(launched[k] > 0 for k in cuda.COUNTERS
+                   if k not in cuda.OFF_MAIN_PATH), launched
+        assert all(launched[k] == 0 for k in cuda.OFF_MAIN_PATH), launched
