@@ -144,23 +144,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      warm semisort;
   19. the sort service (repro_torch.serve) at the batched cell's width:
      `ServiceRunner(SortSpec(shards=8), ServiceConfig(max_batch=8))`,
-     every (kind, padded B) shard program warmed first; each kind in its
-     own window of 16 concurrent requests of 2,000,000 keys (sort of
+     every (kind, padded B) cache key warmed first; each kind in its
+     own window of 16 concurrent requests of 2,000,000 keys, flushed on
+     size only (two full batches; sort of
      UNIF rows, sort_kv of Phi-3.5-MoE's expert ids with the slot index
      as the value, semisort of ZIPF_HH rows, top_k with k = 1,024,
      argsort of UNIF keys on the torch route), each result checked
      against NumPy and each window's kernels gated; over the steady
      windows no degraded request, no verify fallback, a cache hit rate
      above 0.9 and health "ok"; then a mixed window of 64 requests (the
-     five kinds interleaved: throughput, latencies, each batch's compute
-     time, peak memory); 16 concurrent /v1/sort requests of 262,144 keys
+     five kinds interleaved, the default 5 ms flush deadline: throughput,
+     latencies, each batch's compute time, peak memory); 16 concurrent /v1/sort requests of 262,144 keys
      over the HTTP front end on 127.0.0.1 and the overload burst (a 429
      and a 200);
-  20. the drills of repro_torch.serve.smoke in the process at 2,000,000
-     keys a request: chaos (a clamp of 20,000 keys a pair under retry,
-     one crash, one executor death, one poison request) and corrupt
-     (verify="cheap", the breaker tripped and closed again; the degraded
-     path's requests, under kernel_policy="torch", launch no kernel);
+  20. the drills of repro_torch.serve.smoke in the process
+     (`ServiceRunner.submit`) at 2,000,000 keys a request: chaos (a clamp
+     of 20,000 keys a pair under retry, one crash, one executor death,
+     one poison request) and corrupt (verify="cheap", a 10 s breaker
+     cooldown, the breaker tripped and closed again; each degraded-path
+     request, sorted alone under its own spec, launches the HSS path's
+     kernels);
   21. times, in turns: the direct `sort_batched` of one full batch, the
      same with its 8 gathers, and the service's batch; the service's
      steps apart (np.stack, the copy, the sort, the gathers); a profile
@@ -2054,16 +2057,20 @@ def grouping_timing_phase(torch, np, card):
 #: takes the torch route (no kernel); the mixed window is their union.
 #: bucket_lengths' 11 key bits (lengths 16..2,048) and 20 tag bits
 #: (1,048,576 documents) are over int32's 30, so it packs int64: none.
+#: The corrupt drill's degraded path sorts each request alone, under its
+#: own spec (HSS on int32 keys, audited): the HSS path's five.
 SERVE_KINDS = ("sort", "sort_kv", "semisort", "top_k", "argsort")
 PATH_KERNELS.update({"serve[sort]": RANKING, "serve[sort_kv]": RANKING,
                      "serve[semisort]": RANKING, "serve[top_k]": SORTING,
                      "serve[argsort]": (), "serve[mixed]": RANKING,
-                     "serve[http]": RANKING, "bucket_lengths": ()})
+                     "serve[http]": RANKING, "serve[degraded]": RANKING,
+                     "bucket_lengths": ()})
 SERVE_LOAD = 16              # two full batches of max_batch = B
 MIXED_LOAD = 64
 HTTP_N = 262_144             # JSON bodies of a few MB
 TOP_K = 1024
 CHAOS_CLAMP = 20_000         # a pair carries N_REQ / P^2 = 31,250 keys
+CORRUPT_COOLDOWN_S = 10.0    # the open breaker outlasts a request by far
 DOCS = 1 << 20
 SERVE_DEVICE = "cuda"        # where phases 19-22 run
 
@@ -2207,8 +2214,9 @@ def serve_phase(torch, np, card):
           "kinds": list(SERVE_KINDS), "batch_sizes": [1, 2, 4, 8],
           "card": card})
     paths = {}
-    with ServiceRunner(spec=spec, config=ServiceConfig(max_batch=B)) \
-            as runner:
+    # each kind's window flushes on size only: two full batches of B
+    with ServiceRunner(spec=spec, config=ServiceConfig(
+            max_batch=B, max_delay_ms=60_000.0)) as runner:
         runner.reset_metrics()
         for kind in SERVE_KINDS:
             reqs = [(kind, x) for x in inputs[kind]]
@@ -2249,7 +2257,10 @@ def serve_phase(torch, np, card):
                                 for k, b in snap["buckets"].items()},
               "card": card})
 
-        # the mixed window: 64 requests, the five kinds interleaved
+    # the mixed window: 64 requests, the five kinds interleaved, under
+    # the default flush deadline (its batch count is one run's reading)
+    with ServiceRunner(spec=spec, config=ServiceConfig(max_batch=B)) \
+            as runner:
         mixed = [(SERVE_KINDS[i % 5], inputs[SERVE_KINDS[i % 5]][i // 5])
                  for i in range(MIXED_LOAD)]
         runner.reset_metrics()
@@ -2325,7 +2336,7 @@ def serve_phase(torch, np, card):
         finally:
             server.shutdown()
             server.server_close()
-    codes = smoke.overload_burst(spec, xs[0], http=True)
+    codes = smoke.overload_burst(spec, xs[0])
     emit({"measure": "serve_http", "requests": SERVE_LOAD, "n": HTTP_N,
           "wall_s": wall, "requests_per_s": SERVE_LOAD / wall,
           "launches": launches, "overload_codes": sorted(codes),
@@ -2336,7 +2347,8 @@ def serve_phase(torch, np, card):
 @contextlib.contextmanager
 def degraded_launches(record: list):
     """Record the kernel launches of each degraded-path request (the
-    service's `_run_one`, which runs alone on its executor thread)."""
+    service's `_run_one`, which runs alone on its executor thread), a
+    dict a request."""
     from repro_torch.kernels import cuda
     from repro_torch.serve.service import SortService
 
@@ -2347,8 +2359,8 @@ def degraded_launches(record: list):
         try:
             return real(self, req)
         finally:
-            record.append(sum(cuda.launches[k] - before.get(k, 0)
-                              for k in cuda.COUNTERS))
+            record.append({k: cuda.launches[k] - before.get(k, 0)
+                           for k in cuda.COUNTERS})
     SortService._run_one = run_one
     try:
         yield record
@@ -2363,7 +2375,7 @@ def drills_phase(torch, np, card):
 
     t0 = time.perf_counter()
     out = smoke.chaos_main(n=N_REQ, clamp_pair_cap=CHAOS_CLAMP,
-                           device=SERVE_DEVICE, shards=P, http=False)
+                           device=SERVE_DEVICE, shards=P)
     m = out["metrics"]
     emit({"measure": "serve_chaos_drill", "n": N_REQ,
           "clamp_pair_cap": CHAOS_CLAMP, "chaos_stats": out["chaos"],
@@ -2378,17 +2390,20 @@ def drills_phase(torch, np, card):
     record = []
     with degraded_launches(record):
         out = smoke.corrupt_main(n=N_REQ, device=SERVE_DEVICE, shards=P,
-                                 http=False)
+                                 cooldown_s=CORRUPT_COOLDOWN_S)
     m = out["metrics"]
-    if not record or any(record):
-        fail(f"serve corrupt drill: degraded-path launches {record} (the "
-             "torch policy launches none)")
+    if not record:
+        fail("serve corrupt drill: no request took the degraded path")
+    for launches in record:
+        check_path_launches("serve[degraded]", launches,
+                            PATH_KERNELS["serve[degraded]"])
     emit({"measure": "serve_corrupt_drill", "n": N_REQ,
           "chaos_stats": out["chaos"], "served": m["served"],
           "errors": m["errors"], "verify_failures": m["verify_failures"],
           "verify_failed_requests": m["verify_failed_requests"],
           "degraded_requests": m["degraded_requests"],
           "degraded_path_launches": record,
+          "breaker_cooldown_s": CORRUPT_COOLDOWN_S,
           "clean_cache_hits": out["clean_hits"],
           "clean_cache_misses": out["clean_misses"],
           "seconds": time.perf_counter() - t0, "card": card})
@@ -2442,9 +2457,6 @@ def serve_timing_phase(torch, np, card):
                      batch=B, n=N_REQ)
         if runner.metrics()["batches"] != len(timed["served"][1]) + 2:
             fail("serve timing: a served call ran as more than one batch")
-        emit({"measure": "cache_build", "batch": B, "n": N_REQ,
-              "build_us": build_us(torch, lambda: sort_batched(dev, spec)),
-              "card": card})
 
     # the flush deadline: the mixed window again with max_delay_ms 50
     # beside the default 5, in turns (each window's batches and rates)
@@ -2470,32 +2482,6 @@ def serve_timing_phase(torch, np, card):
           "n": N_REQ, "by_max_delay_ms": {str(k): v
                                           for k, v in rates.items()},
           "in_turns": True, "card": card})
-
-
-def build_us(torch, fn) -> list:
-    """What a cache hit saves: the host microseconds of each shard-program
-    build during one call of `fn` with the cache emptied (a miss)."""
-    from repro_torch.sort import driver
-
-    builds, real = [], driver.shard_program
-
-    def timed(key, build, p):
-        def timed_build():
-            t0 = time.perf_counter()
-            try:
-                return build()
-            finally:
-                builds.append((time.perf_counter() - t0) * 1e6)
-        return real(key, timed_build, p)
-
-    driver.exec_cache.clear()
-    driver.shard_program = timed
-    try:
-        fn()
-        torch.cuda.synchronize()
-    finally:
-        driver.shard_program = real
-    return builds
 
 
 def bucketing_phase(torch, np, card):

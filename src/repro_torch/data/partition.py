@@ -29,7 +29,7 @@ def bucket_lengths(lengths: np.ndarray, n_shards: int, eps: float = 0.05,
     default); pass `spec` to choose the configuration and the device (the
     default spec runs on the card), of which the shard count, the seed and
     stability are set here. Repeated calls of one queue size and shard
-    count reuse one cached shard program (`repro_torch.sort.exec_cache`).
+    count are hits of one cache key (`repro_torch.sort.exec_cache`).
     """
     spec = dataclasses.replace(
         spec or SortSpec(algorithm="hss", eps=eps, exchange="allgather"),

@@ -20,7 +20,7 @@ K4 has two forms with a counter each: `probe_rank_search` over sorted rows
 `empty_launch`, a kernel that does nothing, is there to time the floor of
 a launch and counts under no kernel.
 Wrappers validate device, dtype, shape and contiguity before they call it;
-a launch failure raises, it never falls back.
+a build, load or launch failure raises `KernelError`, it never falls back.
 """
 from __future__ import annotations
 
@@ -66,6 +66,12 @@ _lock = threading.Lock()
 _lib = None
 
 
+class KernelError(RuntimeError):
+    """A kernel that does not build, load or launch. Callers above the
+    wrappers let it through: the serving layer neither retries it nor
+    counts it against a bucket's breaker."""
+
+
 def reset_launches():
     launches.clear()
     launches.update({name: 0 for name in COUNTERS})
@@ -82,8 +88,8 @@ def _nvcc() -> str:
     cand = Path(home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found (PATH or CUDA_HOME): the CUDA "
-                       "kernels are built from source at first use")
+    raise KernelError("nvcc not found (PATH or CUDA_HOME): the CUDA "
+                      "kernels are built from source at first use")
 
 
 def build(force: bool = False) -> Path:
@@ -95,15 +101,16 @@ def build(force: bool = False) -> Path:
     out = BUILD_DIR / f"libsort_kernels-{digest}.so"
     if out.exists() and not force:
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+    cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(SOURCE)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise KernelError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     out.with_suffix(".ptxas.log").write_text(proc.stderr)
     os.replace(tmp, out)
     return out
@@ -119,7 +126,11 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            path = build()
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelError(f"cannot load {path}: {e}") from e
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
@@ -138,7 +149,7 @@ def launch(name: str, *args, counter: str | None = None):
     err = getattr(lib, name)(*args, stream)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed: error {err} ({msg})")
+        raise KernelError(f"CUDA kernel {name} failed: error {err} ({msg})")
     launches[counter or name] += 1
 
 

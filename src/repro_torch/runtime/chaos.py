@@ -117,8 +117,8 @@ def active() -> FaultPlan | None:
 def trace_token():
     """Hashable token of the active plan's capacity clamp (None when no
     clamp is armed); counts `clamp_traces` as the reference's does. The
-    front doors fold it into their shard-program cache keys
-    (repro_torch.sort.driver.exec_cache), so a clamped program is cached
+    front doors fold it into the keys they record in
+    repro_torch.sort.driver.exec_cache, so a clamped launch is counted
     apart, and `clamp_traces` counts the same calls as the reference's."""
     state = _active
     if state is None or state.plan.clamp_pair_cap is None:

@@ -3,8 +3,8 @@
 
 The serving layer the batched engine was built for: an asyncio request
 queue that admits `sort`/`argsort`/`sort_kv`/`semisort`/`top_k`
-requests, buckets them by shape, dtype and spec (the key family of the
-shard-program cache, `repro_torch.sort.exec_cache`), flushes each bucket
+requests, buckets them by shape, dtype and spec (the key family of
+`repro_torch.sort.exec_cache`), flushes each bucket
 on batch size or deadline, dispatches ONE batched launch per batch on the
 spec's device, and resolves per-request futures in input order, with
 admission control, per-request deadlines, graceful drain, a metrics

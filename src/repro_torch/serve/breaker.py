@@ -1,8 +1,8 @@
 """Circuit breakers for the sort service (counterpart of
 repro.serve.breaker; DESIGN.md Sec. 8).
 
-One CircuitBreaker guards one bucket of the batched engine (one cached
-shard-program shape). The three-state machine:
+One CircuitBreaker guards one bucket of the batched engine (one cache
+key family). The three-state machine:
 
   closed     healthy; failures are counted, `threshold` consecutive
              failures trip the breaker.

@@ -2,8 +2,8 @@
 service (counterpart of repro.serve.service).
 
 The batched engine underneath sorts B requests in one pipeline with one
-collective per phase whatever B is, and the shard-program cache
-(`repro_torch.sort.exec_cache`) keeps the host work of a warm batch small.
+collective per phase whatever B is, and `repro_torch.sort.exec_cache`
+counts each batch's launch under the reference's cache keys.
 This module lets concurrent callers reach that throughput: an asyncio
 front door admits `sort`/`argsort`/`sort_kv`/`semisort`/`top_k`
 requests, buckets them by `repro_torch.sort.bucket_key`, flushes each
@@ -31,9 +31,12 @@ fails alone and its batchmates are served. Batches run on a
 runtime) is torn down and rebuilt, at most `executor_max_restarts`
 times. A per-bucket `CircuitBreaker` trips after `breaker_threshold`
 consecutive batch failures and sends the bucket to a degraded
-per-request path (unbatched front-door calls under
-`fallback_kernel_policy`) until a cooldown probe succeeds; the breaker
-board's ok | degraded | tripped is what `GET /healthz` serves.
+per-request path (unbatched front-door calls under each request's own
+spec, its kernel policy included) until a cooldown probe succeeds; the
+breaker board's ok | degraded | tripped is what `GET /healthz` serves.
+A kernel that does not build, load or launch (`KernelError`) is none of
+these faults: it fails the requests of its batch as it is, with no
+retry, bisection or breaker event.
 
 Verified serving (DESIGN.md Sec. 9): with `SortSpec(verify=...)` every
 batch carries the fused audit. A `BatchVerificationError` is absorbed
@@ -59,6 +62,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.kernels.cuda import KernelError
 from repro_torch.runtime import chaos
 from repro_torch.runtime.ft import SupervisedExecutor
 from repro_torch.serve.batcher import DynamicBatcher, Request
@@ -93,8 +97,8 @@ class ServiceConfig:
                      flushed-but-unfinished pipeline, not device overlap.
     pad_batches      pad each batch B up to the next power of two (cap
                      max_batch) by repeating the last request's row, so a
-                     bucket needs O(log max_batch) cached shard programs
-                     instead of one per occupancy; pad rows are discarded
+                     bucket needs O(log max_batch) cache keys instead of
+                     one per occupancy; pad rows are discarded
                      (per-request results are row-independent, so padding
                      does not change the served bits).
     default_timeout_s  per-request deadline when the caller passes none
@@ -110,12 +114,11 @@ class ServiceConfig:
     retry_backoff_s  base backoff between batch retries (doubles per try).
     breaker_threshold / breaker_cooldown_s  per-bucket circuit breaker:
                      consecutive top-level batch failures that trip it, and
-                     how long it stays open before a half-open probe.
-    fallback_kernel_policy  kernel_policy for the degraded per-request
-                     path (None = keep the request's own policy). "torch"
-                     (the reference's "xla") sidesteps a suspected kernel
-                     fault; every policy gives the same bits. It runs only
-                     after a bucket's breaker opens.
+                     how long it stays open before a half-open probe. The
+                     degraded path keeps each request's kernel policy (the
+                     reference's `fallback_kernel_policy="xla"` has no
+                     counterpart: the port never moves a request off the
+                     kernels by itself).
     executor_max_restarts  SupervisedExecutor restart budget.
     """
     max_batch: int = 8
@@ -131,7 +134,6 @@ class ServiceConfig:
     retry_backoff_s: float = 0.05
     breaker_threshold: int = 3
     breaker_cooldown_s: float = 30.0
-    fallback_kernel_policy: str | None = "torch"
     executor_max_restarts: int = 8
 
 
@@ -294,6 +296,10 @@ class SortService:
             t0 = time.monotonic()
             try:
                 results, cache_delta = await self._execute(key, live)
+            except KernelError as e:
+                # the batch's requests get the kernel's own error: no
+                # retry, bisection or breaker event reached this batch
+                results, cache_delta = [e] * len(live), None
             finally:
                 self._in_flight -= 1
             self.metrics.observe_batch(
@@ -316,7 +322,11 @@ class SortService:
         recorded on the breaker per flushed batch. Retries exhausted, the
         batch bisects (`top=False`: single attempt, no breaker events) so
         a poison request fails alone. Returns (results, cache_delta),
-        exceptions as per-request values, never raised."""
+        exceptions as per-request values. A `KernelError` is raised as it
+        is: a kernel that does not build or launch is no fault of the
+        batch's data, so retrying, bisecting or tripping the breaker onto
+        the degraded path (which runs the same kernels) would only hide
+        it."""
         br = self._breakers.breaker(key)
         if top and not br.allow():
             return await self._execute_degraded(key, reqs), None
@@ -356,6 +366,8 @@ class SortService:
                 # our pending launch was cancelled by a pool restart
                 # (cancel_futures=True): transient, retryable
                 last_exc = RuntimeError("batch cancelled by executor restart")
+            except KernelError:
+                raise
             except Exception as e:
                 last_exc = e
         if len(reqs) > 1:
@@ -378,10 +390,11 @@ class SortService:
 
     async def _execute_degraded(self, key, reqs):
         """Open-breaker path: serve each request alone through the
-        unbatched front door under `fallback_kernel_policy`. Slower, but
-        it sidesteps the suspect batched path, and it feeds the breaker
-        board the degraded-path health that tells "degraded" from
-        "tripped"."""
+        unbatched front door, under its own spec. Slower, but it sidesteps
+        the suspect batched path, and it feeds the breaker board the
+        degraded-path health that tells "degraded" from "tripped". A
+        request whose kernel does not build or launch gets that
+        `KernelError` and feeds the board nothing."""
         results = []
         for r in reqs:
             try:
@@ -398,6 +411,9 @@ class SortService:
             except asyncio.CancelledError:
                 res = RuntimeError("request cancelled by executor restart")
                 ok = False
+            except KernelError as e:
+                results.append(e)
+                continue
             except Exception as e:
                 res, ok = e, False
             self.metrics.observe_degraded(key, ok=ok)
@@ -407,14 +423,11 @@ class SortService:
 
     def _run_one(self, req: Request):
         """Executor thread: one request through the unbatched front door
-        (the degraded path). Bit-identical to the batched result by the
-        engine's batching and kernel-policy parity contracts."""
+        (the degraded path), under the request's own spec.
+        Bit-identical to the batched result by the engine's batching
+        parity contract."""
         chaos.on_dispatch(req.x)
-        spec = req.spec
-        fkp = self.config.fallback_kernel_policy
-        if fkp is not None and spec.kernel_policy != fkp:
-            spec = dataclasses.replace(spec, kernel_policy=fkp)
-        x = req.x
+        spec, x = req.spec, req.x
         if req.kind == "sort":
             return sort_single(x, spec).gather()
         if req.kind == "semisort":

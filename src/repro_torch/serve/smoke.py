@@ -6,49 +6,49 @@ of repro.serve.smoke).
     PYTHONPATH=src python -m repro_torch.serve.smoke --corrupt --device cpu
 
 `--device` defaults to cuda (it raises without a card); `--shards` is p
-(8). Each drill is also a function (`main`, `chaos_main`, `corrupt_main`)
-that takes the request length, the device and the transport: `http=True`
-goes through the HTTP front end on 127.0.0.1, `http=False` calls the
-`ServiceRunner` in the process and maps its errors to the same status
-codes (for requests whose JSON bodies would be tens of MB).
+(8). Each drill is also a function (`main`, `chaos_main`,
+`corrupt_main`) that takes the request length and the device.
 
 Steady state (`main`) starts the HTTP front end in the process, warms
-every (bucket, padded batch size) shard program, resets the metrics,
-then fires 64 concurrent requests of two shapes and checks:
+every (bucket, padded batch size) cache key, resets the metrics, then
+fires 64 concurrent requests of two shapes over HTTP and checks:
 
   * every response is exactly the NumPy sort of its input (bit-identity
     through the whole batch and HTTP path);
-  * the shard-program cache's hit rate over the measured window is
-    above 0.9;
+  * the cache's hit rate over the measured window is above 0.9;
   * admission control rejects cleanly (HTTP 429) past the queue limit
     (`overload_burst`).
 
-Chaos (`--chaos`, DESIGN.md Sec. 8) runs the same service under an
-armed `repro_torch.runtime.chaos.FaultPlan`: the dense exchange's
-capacity clamped to force real overflow on every batch, one injected
-dispatch crash, one injected executor death and a poison request. It
-checks the self-healing contract:
+The chaos and corrupt drills call `ServiceRunner.submit` from threads
+and check the service's typed errors (the reference's go over HTTP; the
+front end's status mapping is `main`'s and the HTTP tests' to check).
 
-  * every other response is still exact (overflow recovered by
+Chaos (`--chaos`, DESIGN.md Sec. 8) runs the service under an armed
+`repro_torch.runtime.chaos.FaultPlan`: the dense exchange's capacity
+clamped to force real overflow on every batch, one injected dispatch
+crash, one injected executor death and a poison request. It checks the
+self-healing contract:
+
+  * every other request is still exact (overflow recovered by
     `on_overflow="retry"`, the crash by a batch retry, the dead executor
     by a supervisor restart, the poison's batchmates by bisection);
-  * the poison request alone fails (500, naming the injected fault);
-  * once the plan is disarmed, clean traffic serves and `GET /healthz`
-    reports "ok".
+  * the poison request alone fails, naming the injected fault;
+  * once the plan is disarmed, clean traffic serves and the health is
+    "ok".
 
 Corrupt (`--corrupt`, DESIGN.md Sec. 9) serves under an armed bit flip
 (`FaultPlan(corrupt_at=True, corrupt_key=...)`) with
 `SortSpec(verify="cheap")` and checks the verified-serving contract:
 
-  * the marked request fails with 500 naming the typed
-    `VerificationError`, while its batchmates are served exact from the
-    same launch (per-row verdicts, no bisection);
-  * repeated verify failures trip the bucket's breaker ("degraded"), and
-    the degraded per-request path keeps serving clean requests, still
-    audited, under the armed plan;
-  * once the plan is disarmed, a cooldown probe closes the breaker
-    (health "ok" again) and clean traffic is cache hits only: the
-    corrupted launches never entered the cache.
+  * the marked request fails with the typed `VerificationError`, while
+    its batchmates are served exact from the same launch (per-row
+    verdicts, no bisection);
+  * repeated verify failures open the bucket's breaker ("degraded"), and
+    a clean request sent while it is open is served by the degraded
+    per-request path, still audited, under the armed plan;
+  * once the plan is disarmed and the cooldown has passed, a probe
+    closes the breaker (health "ok" again) and clean traffic is cache
+    hits only: the corrupted launches never entered the cache.
 """
 from __future__ import annotations
 
@@ -85,8 +85,9 @@ def _get(base: str, route: str):
         return e.code, json.loads(e.read() or b"{}")
 
 
-class _HttpClient:
-    """The front end on 127.0.0.1, port 0, served from a daemon thread."""
+class _Server:
+    """The HTTP front end on 127.0.0.1, port 0, served from a daemon
+    thread."""
 
     def __init__(self, runner):
         from repro_torch.serve.http import make_server
@@ -97,72 +98,31 @@ class _HttpClient:
         threading.Thread(target=self.server.serve_forever,
                          daemon=True).start()
 
-    def post(self, route: str, payload: dict):
-        payload = {k: v.tolist() if isinstance(v, np.ndarray) else v
-                   for k, v in payload.items()}
-        return _post(self.base, route, payload)
-
-    def get(self, route: str):
-        return _get(self.base, route)
+    def sort(self, x: np.ndarray):
+        return _post(self.base, "/v1/sort",
+                     {"keys": x.tolist(), "dtype": "int32"})
 
     def close(self):
         self.server.shutdown()
         self.server.server_close()
 
 
-class _DirectClient:
-    """The runner called in the process, its errors mapped to the HTTP
-    front end's status codes and bodies; keys stay NumPy arrays."""
-
-    def __init__(self, runner):
-        self.runner = runner
-
-    def post(self, route: str, payload: dict):
-        from repro_torch.serve import http
-        from repro_torch.serve.errors import (
-            DeadlineExceeded, Overloaded, ServiceClosed)
-
-        kind = http._ROUTES[route]
-        try:
-            x = np.asarray(payload["keys"], dtype=payload.get("dtype"))
-            spec = http._parse_spec(payload, self.runner.service.spec)
-            result = self.runner.submit(
-                x, kind=kind, values=payload.get("values"), spec=spec,
-                param=payload.get("k"))
-        except (http.BadRequest, ValueError) as e:
-            return 400, {"error": str(e)}
-        except Overloaded as e:
-            return 429, {"error": str(e), "queued": e.queued,
-                         "in_flight": e.in_flight}
-        except DeadlineExceeded as e:
-            return 504, {"error": str(e)}
-        except ServiceClosed as e:
-            return 503, {"error": str(e)}
-        except Exception as e:   # batch-level failure
-            return 500, {"error": f"{type(e).__name__}: {e}"}
-        if kind == "sort_kv":
-            return 200, {"keys": result[0], "values": result[1]}
-        field = {"sort": "sorted", "argsort": "indices",
-                 "semisort": "grouped", "top_k": "top"}[kind]
-        return 200, {field: result}
-
-    def get(self, route: str):
-        if route == "/healthz":
-            health = self.runner.health()
-            return (503 if health["health"] == "tripped" else 200), health
-        return 200, self.runner.metrics()
-
-    def close(self):
-        pass
+def _outcome(runner, x: np.ndarray, **kw):
+    """One blocking `runner.submit`: its result, or the error it raised."""
+    try:
+        return runner.submit(x, **kw)
+    except Exception as e:
+        return e
 
 
-def _client(runner, http: bool):
-    return _HttpClient(runner) if http else _DirectClient(runner)
+def _check_sorted(x: np.ndarray, got) -> None:
+    assert not isinstance(got, BaseException), repr(got)
+    np.testing.assert_array_equal(got, np.sort(x))
 
 
 def _warm_executables(spec, rng, *, max_batch: int, shapes=SHAPES) -> None:
-    """Build every (shape, padded batch size) shard program the service
-    can dispatch: it pads batches to powers of two <= max_batch, so this is
+    """Record every (shape, padded batch size) cache key the service can
+    dispatch: it pads batches to powers of two <= max_batch, so this is
     the whole warm set, with no race on flush timing."""
     from repro_torch.sort import sort_batched
     for n in shapes:
@@ -181,8 +141,7 @@ def _spec(device: str, shards: int, **fields):
 
 
 def chaos_main(*, n: int = 8 * 64, clamp_pair_cap: int = 8,
-               device: str = "cuda", shards: int = 8,
-               http: bool = True) -> dict:
+               device: str = "cuda", shards: int = 8) -> dict:
     """The fault drill: overflow clamp, crash, death and poison, live.
     Returns the metrics snapshot, chaos.stats() and the executor's
     restarts."""
@@ -202,93 +161,84 @@ def chaos_main(*, n: int = 8 * 64, clamp_pair_cap: int = 8,
         return x
 
     with ServiceRunner(spec=spec, config=config) as runner:
-        client = _client(runner, http)
-
         def one(x):
-            return client.post("/v1/sort", {"keys": x, "dtype": "int32"})
+            return _outcome(runner, x)
 
-        try:
-            plan = chaos.FaultPlan(clamp_pair_cap=clamp_pair_cap,
-                                   crash_at=(1,), die_at=(2,),
-                                   poison_key=-7)
-            with chaos.activate(plan):
-                # wave A: clean load under clamp + crash + death; every
-                # batch overflows (retry escalation), dispatch 1 crashes
-                # (batch retry), dispatch 2 dies (supervisor restart)
-                inputs = [fresh() for _ in range(12)]
-                with ThreadPoolExecutor(8) as pool:
-                    out = list(pool.map(one, inputs))
-                for x, (status, body) in zip(inputs, out):
-                    assert status == 200, body
-                    np.testing.assert_array_equal(
-                        np.asarray(body["sorted"], np.int32), np.sort(x))
+        plan = chaos.FaultPlan(clamp_pair_cap=clamp_pair_cap,
+                               crash_at=(1,), die_at=(2,), poison_key=-7)
+        with chaos.activate(plan):
+            # wave A: clean load under clamp + crash + death; every batch
+            # overflows (retry escalation), dispatch 1 crashes (batch
+            # retry), dispatch 2 dies (supervisor restart)
+            inputs = [fresh() for _ in range(12)]
+            with ThreadPoolExecutor(8) as pool:
+                out = list(pool.map(one, inputs))
+            for x, got in zip(inputs, out):
+                _check_sorted(x, got)
 
-                # wave B: a poison request among three clean batchmates;
-                # bisection must isolate it
-                wave = [fresh(poison=(i == 1)) for i in range(4)]
-                with ThreadPoolExecutor(4) as pool:
-                    out = list(pool.map(one, wave))
-                for i, (x, (status, body)) in enumerate(zip(wave, out)):
-                    if i == 1:
-                        assert status == 500, (status, body)
-                        assert "poison" in body["error"], body
-                    else:
-                        assert status == 200, body
-                        np.testing.assert_array_equal(
-                            np.asarray(body["sorted"], np.int32), np.sort(x))
-                fired = chaos.stats()
-            print(f"chaos fired: {fired}")
-            assert fired["crash"] >= 1 and fired["death"] >= 1, fired
-            assert fired["poison"] >= 1, fired
+            # wave B: a poison request among three clean batchmates;
+            # bisection must isolate it
+            wave = [fresh(poison=(i == 1)) for i in range(4)]
+            with ThreadPoolExecutor(4) as pool:
+                out = list(pool.map(one, wave))
+            for i, (x, got) in enumerate(zip(wave, out)):
+                if i == 1:
+                    assert isinstance(got, Exception), got
+                    assert "poison" in f"{type(got).__name__}: {got}", got
+                else:
+                    _check_sorted(x, got)
+            fired = chaos.stats()
+        print(f"chaos fired: {fired}")
+        assert fired["crash"] >= 1 and fired["death"] >= 1, fired
+        assert fired["poison"] >= 1, fired
 
-            # plan disarmed: clean traffic must serve and health be ok
-            for _ in range(4):
-                x = fresh()
-                status, body = one(x)
-                assert status == 200, body
-                np.testing.assert_array_equal(
-                    np.asarray(body["sorted"], np.int32), np.sort(x))
-            status, health = client.get("/healthz")
-            assert status == 200 and health["health"] == "ok", health
+        # plan disarmed: clean traffic must serve and health be ok
+        for _ in range(4):
+            x = fresh()
+            _check_sorted(x, one(x))
+        health = runner.health()
+        assert health["health"] == "ok", health
 
-            _, m = client.get("/metrics")
-            print(f"served={m['served']} errors={m['errors']} "
-                  f"batch_retries={m['batch_retries']} "
-                  f"bisections={m['bisections']} "
-                  f"executor_restarts={m['executor_restarts']} "
-                  f"overflow_retries={m['overflow_retries']} "
-                  f"overflow_recovered={m['overflow_recovered']} "
-                  f"health={m['health']['health']}")
-            assert m["served"] == 12 + 3 + 4, m["served"]
-            assert m["errors"] == 1, m["errors"]          # the poison only
-            assert m["batch_retries"] >= 1, m
-            assert m["bisections"] >= 1, m
-            assert m["executor_restarts"] >= 1, m
-            assert m["overflow_retries"] >= 1, m
-            assert m["overflow_recovered"] > 0, m
-        finally:
-            client.close()
+        m = runner.metrics()
+        print(f"served={m['served']} errors={m['errors']} "
+              f"batch_retries={m['batch_retries']} "
+              f"bisections={m['bisections']} "
+              f"executor_restarts={m['executor_restarts']} "
+              f"overflow_retries={m['overflow_retries']} "
+              f"overflow_recovered={m['overflow_recovered']} "
+              f"health={m['health']['health']}")
+        assert m["served"] == 12 + 3 + 4, m["served"]
+        assert m["errors"] == 1, m["errors"]          # the poison only
+        assert m["batch_retries"] >= 1, m
+        assert m["bisections"] >= 1, m
+        assert m["executor_restarts"] >= 1, m
+        assert m["overflow_retries"] >= 1, m
+        assert m["overflow_recovered"] > 0, m
     print("serve chaos smoke: OK")
     return {"metrics": m, "chaos": fired,
             "executor": health["executor"]}
 
 
 def corrupt_main(*, n: int = 8 * 64, device: str = "cuda", shards: int = 8,
-                 http: bool = True) -> dict:
-    """The audit drill: a bit flip on the device, served. Returns the
-    metrics of the armed window, chaos.stats() and the clean window's
-    cache hits and misses."""
+                 cooldown_s: float = 0.5) -> dict:
+    """The audit drill: a bit flip on the device, served. `cooldown_s`
+    is the breaker's: the clean request sent while it is open must reach
+    it inside the cooldown, so a caller whose requests take longer than
+    a fraction of the reference's 0.5 s passes more. Returns the metrics
+    of the armed window, chaos.stats() and the clean window's cache hits
+    and misses."""
+    import dataclasses
     import time as _time
 
     from repro_torch.runtime import chaos
     from repro_torch.serve.service import ServiceConfig, ServiceRunner
-    from repro_torch.sort import sort_batched
+    from repro_torch.sort import VerificationError, sort_batched
 
     rng = np.random.default_rng(0)
     spec = _spec(device, shards, exchange="allgather", tag=False,
                  verify="cheap")
     config = ServiceConfig(max_batch=4, max_delay_ms=150.0,
-                           breaker_threshold=2, breaker_cooldown_s=0.5)
+                           breaker_threshold=2, breaker_cooldown_s=cooldown_s)
 
     def fresh(marked: bool = False) -> np.ndarray:
         x = rng.permutation(4 * n)[:n].astype(np.int32)
@@ -296,146 +246,122 @@ def corrupt_main(*, n: int = 8 * 64, device: str = "cuda", shards: int = 8,
             x[0] = -7   # inputs are non-negative: -7 marks the corrupt row
         return x
 
-    # warm the clean verified programs (B = 1, 2, 4); the corrupted
-    # launches below must never be served from, or poison, these lines
+    # warm the clean verified keys (B = 1, 2, 4); the corrupted launches
+    # below must never count as hits of, or enter, these lines
     for b in (1, 2, 4):
         sort_batched(np.stack([fresh() for _ in range(b)]), spec)
 
     with ServiceRunner(spec=spec, config=config) as runner:
-        client = _client(runner, http)
+        def one(x, **kw):
+            return _outcome(runner, x, **kw)
 
-        def one(x):
-            return client.post("/v1/sort", {"keys": x, "dtype": "int32"})
-
-        try:
-            runner.reset_metrics()
-            plan = chaos.FaultPlan(corrupt_at=True, corrupt_key=-7)
-            with chaos.activate(plan):
-                # wave A: one marked request among three clean batchmates;
-                # the audit fails exactly the marked row, the others are
-                # served exact from the same launch
-                wave = [fresh(marked=(i == 2)) for i in range(4)]
-                with ThreadPoolExecutor(4) as pool:
-                    out = list(pool.map(one, wave))
-                for i, (x, (status, body)) in enumerate(zip(wave, out)):
-                    if i == 2:
-                        assert status == 500, (status, body)
-                        assert "VerificationError" in body["error"], body
-                    else:
-                        assert status == 200, body
-                        np.testing.assert_array_equal(
-                            np.asarray(body["sorted"], np.int32), np.sort(x))
-
-                # wave B: marked requests one at a time, each its own
-                # batch, until the repeated verify failures trip the
-                # breaker; the clean request that follows is drawn first,
-                # so that it reaches the open breaker inside its cooldown
-                clean = fresh()
-                marked_total = 1   # wave A's marked request
-                for _ in range(6):
-                    status, body = one(fresh(marked=True))
-                    assert status == 500, (status, body)
-                    assert "VerificationError" in body["error"], body
-                    marked_total += 1
-                    status, health = client.get("/healthz")
-                    if health["health"] != "ok":
-                        break
-                else:
-                    raise AssertionError(
-                        f"breaker never tripped: {health}")
-                trips = sum(b["trips"]
-                            for b in health["breakers"].values())
-                assert trips >= 1, health
-
-                # open breaker: clean traffic keeps serving (the degraded
-                # per-request path, or the half-open probe), still
-                # audited, still under the armed plan
-                status, body = one(clean)
-                assert status == 200, body
-                np.testing.assert_array_equal(
-                    np.asarray(body["sorted"], np.int32), np.sort(clean))
-                fired = chaos.stats()
-            print(f"corrupt fired: {fired}")
-            assert fired["corrupt"] >= 3, fired
-
-            # plan disarmed: the cooldown probe closes the breaker and
-            # health returns to ok
-            for _ in range(4):
-                _time.sleep(config.breaker_cooldown_s + 0.2)
-                x = fresh()
-                status, body = one(x)
-                assert status == 200, body
-                np.testing.assert_array_equal(
-                    np.asarray(body["sorted"], np.int32), np.sort(x))
-                status, health = client.get("/healthz")
-                if status == 200 and health["health"] == "ok":
-                    break
-            assert status == 200 and health["health"] == "ok", health
-
-            _, m = client.get("/metrics")
-            print(f"served={m['served']} errors={m['errors']} "
-                  f"verify_failures={m['verify_failures']} "
-                  f"verify_failed_requests={m['verify_failed_requests']} "
-                  f"degraded_requests={m['degraded_requests']} "
-                  f"bisections={m['bisections']} "
-                  f"health={m['health']['health']}")
-            assert 2 <= m["verify_failed_requests"] <= marked_total, m
-            assert m["errors"] == marked_total, m
-            assert m["bisections"] == 0, m   # per-row verdicts, no bisection
-            bucket_fail = sum(b["verify_failures"]
-                              for b in m["buckets"].values())
-            assert bucket_fail >= 2, m["buckets"]
-
-            # the clean window: warm clean traffic must be hits only, the
-            # corrupted launches bypassed the cache
-            runner.reset_metrics()
-            wave = [fresh() for _ in range(4)]
+        runner.reset_metrics()
+        plan = chaos.FaultPlan(corrupt_at=True, corrupt_key=-7)
+        with chaos.activate(plan):
+            # wave A: one marked request among three clean batchmates;
+            # the audit fails exactly the marked row, the others are
+            # served exact from the same launch
+            wave = [fresh(marked=(i == 2)) for i in range(4)]
             with ThreadPoolExecutor(4) as pool:
                 out = list(pool.map(one, wave))
-            for x, (status, body) in zip(wave, out):
-                assert status == 200, body
-                np.testing.assert_array_equal(
-                    np.asarray(body["sorted"], np.int32), np.sort(x))
-            _, clean = client.get("/metrics")
-            hits = sum(b["cache"]["hits"] for b in clean["buckets"].values())
-            misses = sum(b["cache"]["misses"]
-                         for b in clean["buckets"].values())
-            print(f"clean window: cache_hits={hits} cache_misses={misses}")
-            assert hits > 0 and misses == 0, (hits, misses)
+            for i, (x, got) in enumerate(zip(wave, out)):
+                if i == 2:
+                    assert isinstance(got, VerificationError), got
+                else:
+                    _check_sorted(x, got)
 
-            # the verify tier is the caller's to override through the
-            # spec whitelist: a full-tier request builds its own clean line
+            # wave B: marked requests one at a time, each its own batch,
+            # until the repeated verify failures open the breaker
+            clean = fresh()
+            marked_total = 1   # wave A's marked request
+            for _ in range(6):
+                got = one(fresh(marked=True))
+                assert isinstance(got, VerificationError), got
+                marked_total += 1
+                health = runner.health()
+                if health["health"] != "ok":
+                    break
+            else:
+                raise AssertionError(f"breaker never tripped: {health}")
+            trips = sum(b["trips"] for b in health["breakers"].values())
+            assert trips >= 1, health
+
+            # open breaker: a clean request takes the degraded per-request
+            # path, still audited, still under the armed plan
+            states = [b["state"] for b in health["breakers"].values()]
+            assert "open" in states, (
+                f"breaker {states} before the clean request: the cooldown "
+                f"({cooldown_s} s) is shorter than a request")
+            _check_sorted(clean, one(clean))
+            assert runner.metrics()["degraded_requests"] >= 1, (
+                "the clean request missed the open breaker")
+            fired = chaos.stats()
+        print(f"corrupt fired: {fired}")
+        assert fired["corrupt"] >= 3, fired
+
+        # plan disarmed: once the cooldown has passed, a probe closes the
+        # breaker and health returns to ok
+        for _ in range(4):
+            _time.sleep(config.breaker_cooldown_s + 0.2)
             x = fresh()
-            status, body = client.post(
-                "/v1/sort", {"keys": x, "dtype": "int32",
-                             "spec": {"verify": "full"}})
-            assert status == 200, body
-            np.testing.assert_array_equal(
-                np.asarray(body["sorted"], np.int32), np.sort(x))
-        finally:
-            client.close()
+            _check_sorted(x, one(x))
+            health = runner.health()
+            if health["health"] == "ok":
+                break
+        assert health["health"] == "ok", health
+
+        m = runner.metrics()
+        print(f"served={m['served']} errors={m['errors']} "
+              f"verify_failures={m['verify_failures']} "
+              f"verify_failed_requests={m['verify_failed_requests']} "
+              f"degraded_requests={m['degraded_requests']} "
+              f"bisections={m['bisections']} "
+              f"health={m['health']['health']}")
+        assert 2 <= m["verify_failed_requests"] <= marked_total, m
+        assert m["errors"] == marked_total, m
+        assert m["bisections"] == 0, m   # per-row verdicts, no bisection
+        bucket_fail = sum(b["verify_failures"]
+                          for b in m["buckets"].values())
+        assert bucket_fail >= 2, m["buckets"]
+
+        # the clean window: warm clean traffic must be hits only, the
+        # corrupted launches bypassed the cache
+        runner.reset_metrics()
+        wave = [fresh() for _ in range(4)]
+        with ThreadPoolExecutor(4) as pool:
+            out = list(pool.map(one, wave))
+        for x, got in zip(wave, out):
+            _check_sorted(x, got)
+        clean = runner.metrics()
+        hits = sum(b["cache"]["hits"] for b in clean["buckets"].values())
+        misses = sum(b["cache"]["misses"] for b in clean["buckets"].values())
+        print(f"clean window: cache_hits={hits} cache_misses={misses}")
+        assert hits > 0 and misses == 0, (hits, misses)
+
+        # the verify tier is the caller's to override through the spec: a
+        # full-tier request records its own clean line
+        x = fresh()
+        _check_sorted(x, one(x, spec=dataclasses.replace(spec,
+                                                         verify="full")))
     print("serve corrupt smoke: OK")
     return {"metrics": m, "chaos": fired, "clean_hits": hits,
             "clean_misses": misses}
 
 
-def overload_burst(spec, x: np.ndarray, *, http: bool = True) -> list:
-    """A concurrent burst of 8 past max_queue_depth=4 must bounce at
-    least one 429 while the admitted requests serve; returns the status
-    codes."""
+def overload_burst(spec, x: np.ndarray) -> list:
+    """A concurrent burst of 8 over HTTP past max_queue_depth=4 must
+    bounce at least one 429 while the admitted requests serve; returns
+    the status codes."""
     from repro_torch.serve.service import ServiceConfig, ServiceRunner
 
     tiny = ServiceConfig(max_batch=64, max_delay_ms=500.0, max_queue_depth=4)
     with ServiceRunner(spec=spec, config=tiny) as small:
-        client = _client(small, http)
+        server = _Server(small)
         try:
             with ThreadPoolExecutor(8) as pool:
-                replies = list(pool.map(
-                    lambda _: client.post("/v1/sort",
-                                          {"keys": x, "dtype": "int32"}),
-                    range(8)))
+                replies = list(pool.map(lambda _: server.sort(x), range(8)))
         finally:
-            client.close()
+            server.close()
     codes = [c for c, _ in replies]
     assert 429 in codes, f"no 429 under overload: {codes}"
     assert 200 in codes, f"admitted requests must still serve: {codes}"
@@ -448,9 +374,9 @@ def overload_burst(spec, x: np.ndarray, *, http: bool = True) -> list:
 
 
 def main(*, shapes=SHAPES, load: int = LOAD, device: str = "cuda",
-         shards: int = 8, http: bool = True) -> dict:
-    """The steady-state drill; returns the measured window's metrics and
-    the overload burst's status codes."""
+         shards: int = 8) -> dict:
+    """The steady-state drill over HTTP; returns the measured window's
+    metrics and the overload burst's status codes."""
     from repro_torch.serve.service import ServiceConfig, ServiceRunner
 
     spec = _spec(device, shards, exchange="allgather", tag=False)
@@ -460,7 +386,7 @@ def main(*, shapes=SHAPES, load: int = LOAD, device: str = "cuda",
     _warm_executables(spec, rng, max_batch=config.max_batch, shapes=shapes)
 
     with ServiceRunner(spec=spec, config=config) as runner:
-        client = _client(runner, http)
+        server = _Server(runner)
         try:
             runner.reset_metrics()
 
@@ -470,8 +396,7 @@ def main(*, shapes=SHAPES, load: int = LOAD, device: str = "cuda",
                       for i in range(load)]
 
             def one(x):
-                status, body = client.post(
-                    "/v1/sort", {"keys": x, "dtype": "int32"})
+                status, body = server.sort(x)
                 assert status == 200, body
                 return np.asarray(body["sorted"], np.int32)
 
@@ -480,7 +405,7 @@ def main(*, shapes=SHAPES, load: int = LOAD, device: str = "cuda",
             for x, got in zip(inputs, results):
                 np.testing.assert_array_equal(got, np.sort(x))
 
-            _, metrics = client.get("/metrics")
+            _, metrics = _get(server.base, "/metrics")
             hits = sum(b["cache"]["hits"]
                        for b in metrics["buckets"].values())
             misses = sum(b["cache"]["misses"]
@@ -493,10 +418,10 @@ def main(*, shapes=SHAPES, load: int = LOAD, device: str = "cuda",
             assert hits > 0, "no cache hits under load"
             assert hit_rate > 0.9, f"warm hit rate {hit_rate:.3f} <= 0.9"
         finally:
-            client.close()
+            server.close()
 
     x = rng.permutation(4 * shapes[0])[:shapes[0]].astype(np.int32)
-    codes = overload_burst(spec, x, http=http)
+    codes = overload_burst(spec, x)
     print("serve smoke: OK")
     return {"metrics": metrics, "hit_rate": hit_rate, "codes": codes}
 

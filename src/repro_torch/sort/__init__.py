@@ -22,8 +22,8 @@ The shared host driver lives in repro_torch.sort.driver, the dtype and
 duplicate adapters in repro_torch.sort.adapters, the partitioner registry
 in repro_torch.sort.partitioners, the audit in repro_torch.sort.verify and
 the MoE dispatch helpers in repro_torch.sort.grouping. The front doors
-take their shard programs from `exec_cache`, keyed by `spec_fingerprint`'s
-fields and the shape; `bucket_key` is the serving layer's grouping key.
+record each launch in `exec_cache`, keyed by `spec_fingerprint`'s fields
+and the shape; `bucket_key` is the serving layer's grouping key.
 """
 from repro_torch.sort.adapters import BatchedSortOutput, SortOutput
 from repro_torch.sort.api import (

@@ -112,8 +112,8 @@ def _spec_trace_fields(spec: SortSpec) -> tuple:
     """The SortSpec fields that shape the shard program (the seed is a
     per-call argument, the keys' shape and dtype come with the encoded
     array), as the reference's (api.py:94-110). The chaos trace token
-    rides along: a plan that clamps the exchange's capacities is cached
-    apart, so a clamped program never serves, or poisons, the unclamped
+    rides along: a plan that clamps the exchange's capacities is keyed
+    apart, so a clamped launch never counts as a hit of the unclamped
     line (repro_torch.runtime.chaos)."""
     return (spec.algorithm, spec.eps, spec.rounds, spec.sample_per_shard,
             spec.adaptive, spec.total_sample, spec.s,
@@ -129,7 +129,7 @@ def spec_fingerprint(spec: SortSpec):
     (stable and tag change the adapter plan, the seed the sampled
     splitters) and the mesh (api.py:113-124). None when the spec carries
     state no fingerprint captures (warm-start probes): such a spec shares
-    no cached program and no serving batch."""
+    no cache key and no serving batch."""
     if spec.initial_probes is not None:
         return None
     return _spec_trace_fields(spec) + (
@@ -148,8 +148,8 @@ def _dtype_name(dtype) -> str:
 def bucket_key(n, dtype, spec: SortSpec, *, kind: str = "sort", param=None):
     """The serving batch's grouping key (repro_torch.serve): requests that
     share it stack into one `sort_batched` launch (same length, key dtype,
-    request kind and spec fingerprint) and so share one cached shard
-    program per batch size (api.py:127-148). Opaque specs (warm-start
+    request kind and spec fingerprint) and so share one cache key per
+    batch size (api.py:127-148). Opaque specs (warm-start
     probes) bucket by identity: they never share a batch. `param` is a
     kind's launch-shaping scalar (top_k's k); None leaves the key as the
     other kinds have it."""
@@ -161,13 +161,13 @@ def bucket_key(n, dtype, spec: SortSpec, *, kind: str = "sort", param=None):
 
 
 def _cache_key(spec: SortSpec, enc: torch.Tensor, *, flip: bool = False):
-    """The shard-program cache key (api.py:151-159): the spec's program
+    """The cache key of a launch (api.py:151-159): the spec's program
     fields, the mesh, and the encoded batch's shape and dtype (an
     unbatched sort is the batched engine at B = 1, so it shares the
     batched line of its (1, n) shape). `flip` is the audit's uint32 word
     flip, which the encoded dtype (int32) does not show. None (uncached)
-    when the spec carries warm-start probes, which the program would
-    capture."""
+    when the spec carries warm-start probes, which the reference's program
+    would capture."""
     if spec.initial_probes is not None:
         return None
     return (("batched",) + _spec_trace_fields(spec)
@@ -266,7 +266,7 @@ def _sort_batched_impl(xs, spec: SortSpec, uniform,
     audit = spec.verify != "off" and p > 1
     corrupt = chaos.corrupt_now() if audit else None
     if corrupt is not None:
-        cache_key = None   # a corrupted program is never cached
+        cache_key = None   # a corrupted launch is never counted as cached
 
     def build():
         def sort_fn(rows, comm, draws):

@@ -5,9 +5,10 @@ of driver.py:315-383; an unbatched sort is B = 1). It pads each request to
 a multiple of p with the hi sentinel, lays it out as shard rows, builds
 the collective seam and the sampling draws, runs the shard-level
 `sort_fn`, and strips the pads back out of the counts. The front doors
-take that shard program from `exec_cache` (`shard_program`), keyed as the
-reference keys its compiled executables (driver.py:54-139), so that the
-serving layer can count hits per batch as the reference's does.
+build that shard program through `shard_program`, which records each
+launch in `exec_cache` under the key the reference caches its compiled
+executable under (driver.py:54-139), so that the serving layer counts
+hits per batch as the reference's does.
 
 Shard s of request b holds columns s*n_local .. (s+1)*n_local of row b,
 as in the reference, so request b lands on the same shards as an
@@ -29,30 +30,33 @@ from repro_torch.parallel.comm import Comm
 
 
 class ExecutableCache:
-    """The shard-program cache of the sort front doors (counterpart of
+    """The cache accounting of the sort front doors (counterpart of
     repro/sort/driver.py:54-136, DESIGN.md Sec. 6.3).
 
     The reference caches a jitted callable, so that a warm request skips
-    tracing and compiling. Eager PyTorch compiles nothing: what this cache
-    holds is the shard program a front door builds for a launch (the
-    partitioner, the kernel policy's local sort, the audit wrapper, the
-    closure `run_batched` calls), keyed by everything that shapes it
-    (shape bucket, dtype, the SortSpec fingerprint, the shard count and
-    device; see repro_torch.sort.api). A hit therefore saves host work
-    only, well under a millisecond a launch: every kernel still launches,
-    and no CUDA graph is captured (HSS reads its early exit on the host
-    once a round, and the retry policy its overflow once a launch, so a
-    graph could not hold a round). `traces` counts builds, as the
-    reference's counts trace-time executions of the shard body.
+    tracing and compiling. Eager PyTorch compiles nothing, and building a
+    launch's shard program (the partitioner, the kernel policy's local
+    sort, the audit wrapper, the closure `run_batched` calls) takes a few
+    microseconds of host time. So this cache stores no program: it records
+    the keys the reference would cache under (shape bucket, dtype, the
+    SortSpec fingerprint, the shard count and device; see
+    repro_torch.sort.api), every launch builds its program anew, and a hit
+    saves nothing. What the keys give is the reference's accounting (hits,
+    misses, evictions, LRU order), which the serving metrics read per
+    bucket. No CUDA graph is captured either: HSS reads its early exit on
+    the host once a round, and the retry policy its overflow once a
+    launch, so a graph could not hold a round.
 
-    What varies per call stays an argument of the program: the draws, the
-    encoded keys. Callers whose program would capture per-call state
-    (warm-start probes, an injected corruption) pass key None: built anew,
-    never cached, and counted in no hit or miss.
+    `get_or_build(key, build)` records one launch under `key` and returns
+    `build()`. Key None (warm-start probes, an injected corruption: what
+    the reference leaves uncached) records nothing. `traces` counts the
+    launches the reference would trace, a miss or an uncached launch
+    (`shard_program`), as the reference counts trace-time executions of
+    the shard body.
 
     Eviction is LRU with a capacity cap (`max_entries`): a hit refreshes
-    the entry, an insert past capacity evicts the least recently used and
-    adds one to `evictions`. `stats()` is what the serving metrics read
+    the key, a miss past capacity evicts the least recently used and adds
+    one to `evictions`. `stats()` is what the serving metrics read
     (repro_torch.serve.metrics), and the dynamic batcher attributes the
     per-batch deltas to its buckets. The bookkeeping is under a lock: the
     serving dispatch thread and the main thread share the global
@@ -61,38 +65,38 @@ class ExecutableCache:
 
     def __init__(self, max_entries: int = 64):
         self.max_entries = max_entries
-        self._fns: OrderedDict = OrderedDict()
+        self._keys: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
-        self.traces = 0     # shard programs built
+        self.traces = 0     # launches the reference would trace
+
+    def lookup(self, key) -> bool:
+        """Record one launch under `key`; True on a hit. Key None records
+        nothing and is no hit."""
+        if key is None:
+            return False
+        with self._lock:
+            if key in self._keys:
+                self.hits += 1
+                self._keys.move_to_end(key)
+                return True
+            self.misses += 1
+            self._keys[key] = None
+            while len(self._keys) > self.max_entries:
+                self._keys.popitem(last=False)
+                self.evictions += 1
+            return False
 
     def get_or_build(self, key, build):
-        if key is None:
-            return build()
-        with self._lock:
-            fn = self._fns.get(key)
-            if fn is not None:
-                self.hits += 1
-                self._fns.move_to_end(key)
-                return fn
-            self.misses += 1
-        fn = build()   # outside the lock: builds may nest cache lookups
-        with self._lock:
-            cur = self._fns.get(key)
-            if cur is not None:     # a racer built it first: keep theirs
-                return cur
-            self._fns[key] = fn
-            while len(self._fns) > self.max_entries:
-                self._fns.popitem(last=False)
-                self.evictions += 1
-        return fn
+        self.lookup(key)
+        return build()
 
     def contains(self, key) -> bool:
-        """Whether `key` holds a built program (no LRU refresh)."""
+        """Whether `key` is recorded (no LRU refresh)."""
         with self._lock:
-            return key in self._fns
+            return key in self._keys
 
     def count_trace(self) -> None:
         with self._lock:
@@ -103,36 +107,35 @@ class ExecutableCache:
         attributes per-batch deltas to its buckets)."""
         with self._lock:
             total = self.hits + self.misses
-            return {"size": len(self._fns), "max_entries": self.max_entries,
+            return {"size": len(self._keys), "max_entries": self.max_entries,
                     "hits": self.hits, "misses": self.misses,
                     "evictions": self.evictions, "traces": self.traces,
                     "hit_rate": self.hits / total if total else 0.0}
 
     def clear(self):
         with self._lock:
-            self._fns.clear()
+            self._keys.clear()
             self.hits = self.misses = self.evictions = self.traces = 0
 
     def __len__(self):
-        return len(self._fns)
+        return len(self._keys)
 
 
 exec_cache = ExecutableCache()
 
 
 def shard_program(key, build, p: int):
-    """The shard program of one launch over p shards: `exec_cache`'s under
-    `key` (None: built anew, uncached), each build counted in `traces`.
-    p == 1 runs no shard program (`run_batched` sorts locally), so it
-    builds nothing and touches no counter, as the reference's p == 1
-    short-circuit returns before its cache (driver.py:270-275)."""
+    """The shard program of one launch over p shards, built anew, its
+    launch recorded in `exec_cache` under `key` (a miss or key None
+    counts in `traces`). p == 1 runs no shard program (`run_batched`
+    sorts locally), so it builds nothing and touches no counter, as the
+    reference's p == 1 short-circuit returns before its cache
+    (driver.py:270-275)."""
     if p == 1:
         return None
-
-    def counted():
+    if not exec_cache.lookup(key):
         exec_cache.count_trace()
-        return build()
-    return exec_cache.get_or_build(key, counted)
+    return build()
 
 
 def pad_to_shards(x: torch.Tensor, p: int):

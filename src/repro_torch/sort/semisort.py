@@ -467,10 +467,9 @@ def _topk_impl(enc: torch.Tensor, k: int, spec: SortSpec) -> torch.Tensor:
     cache_key = ("topk", batch, k, c, n_local, str(enc.dtype),
                  spec.kernel_policy, _mesh_fingerprint(spec),
                  chaos.trace_token())
-    program = driver.exec_cache.get_or_build(
-        cache_key, lambda: functools.partial(
-            topk_program, c=c, k=k, kernel_policy=spec.kernel_policy))
-    return program(rows, Comm(p))
+    driver.exec_cache.lookup(cache_key)
+    return topk_program(rows, Comm(p), c=c, k=k,
+                        kernel_policy=spec.kernel_policy)
 
 
 def _top_k_rows(xs: torch.Tensor, k: int, spec: SortSpec) -> np.ndarray:

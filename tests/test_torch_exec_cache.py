@@ -3,7 +3,8 @@
 under one key sequence; `spec_fingerprint` and `bucket_key` giving the
 same equivalence classes over a grid of specs that differ in one field
 each; and the cache's counters moving alike around the front doors: a
-warm second call is a hit that builds nothing (`traces` still), a
+warm second call is a hit the reference would not trace (`traces`
+still; the port keeps keys only and builds every launch's program), a
 corrupted launch and the warm-started attempts of the retry policy stay
 out of the cache.
 
@@ -49,10 +50,35 @@ def _drive_cache(mod):
 
 
 def test_cache_lru_matches_reference():
-    got, want = _drive_cache(tdriver), _drive_cache(rdriver)
+    (got_built, got), (want_built, want) = (_drive_cache(tdriver),
+                                            _drive_cache(rdriver))
     assert got == want
-    s = got[1][len(KEYS) - 1][2]
+    s = got[len(KEYS) - 1][2]
     assert (s["hits"], s["misses"], s["evictions"]) == (2, 10, 7)
+    # the port records keys only: every call builds, where the reference
+    # builds on a miss
+    assert got_built == KEYS and len(want_built) == s["misses"]
+
+
+def test_every_launch_builds_its_program():
+    """A hit counts, and the shard program is built all the same: the
+    cache holds no program that a later launch could be served from."""
+    builds = []
+    cache = tdriver.exec_cache
+    cache.clear()
+    try:
+        for key in ("k1", "k1", None, "k2", "k1"):
+            got = tdriver.shard_program(
+                key, lambda key=key: builds.append(key) or len(builds), 8)
+            assert got == len(builds)
+        assert builds == ["k1", "k1", None, "k2", "k1"]
+        s = cache.stats()
+        assert (s["hits"], s["misses"], s["traces"], s["size"]) == (2, 2, 3,
+                                                                     2)
+        assert tdriver.shard_program("k3", builds.append, 1) is None
+        assert cache.stats() == s and len(builds) == 5
+    finally:
+        cache.clear()
 
 
 def test_exports():

@@ -306,3 +306,98 @@ def test_http_routes():
         finally:
             server.shutdown()
             server.server_close()
+
+
+def _served_with(monkeypatch, batched, spec, config, xs, *, then=()):
+    """Serve `xs` at once with the service module's `sort_batched`
+    replaced by `batched`, then each of `then` alone with the real one
+    back: -> (results, results of `then`, metrics, health)."""
+    import repro_torch.serve.service as svc_mod
+    real = svc_mod.sort_batched
+
+    async def run():
+        async with tserve.SortService(spec=spec, config=config) as svc:
+            monkeypatch.setattr(svc_mod, "sort_batched", batched)
+            futs = [svc.enqueue(x) for x in xs]
+            await svc.drain()
+            out = await asyncio.gather(*futs, return_exceptions=True)
+            monkeypatch.setattr(svc_mod, "sort_batched", real)
+            after = []
+            for x in then:
+                after.append((await asyncio.gather(
+                    svc.enqueue(x), return_exceptions=True))[0])
+            return out, after, svc.metrics.snapshot(), svc.health()
+    return asyncio.run(run())
+
+
+def test_kernel_error_fails_its_batch_without_retry_or_breaker(monkeypatch):
+    """A kernel that does not build or launch reaches every request of
+    its batch as the KernelError it is: no batch retry, no bisection, no
+    breaker event, so the bucket never moves onto the degraded path."""
+    from repro_torch.kernels.cuda import KernelError
+
+    calls = []
+
+    def broken(xs, spec):
+        calls.append(xs.shape)
+        raise KernelError("CUDA kernel bitonic_sort_blocks failed")
+
+    rng = np.random.default_rng(12)
+    xs = [_keys(rng, N1) for _ in range(4)]
+    later = _keys(rng, N1)
+    config = tserve.ServiceConfig(max_batch=4, max_delay_ms=1000.0,
+                                  breaker_threshold=1, retry_backoff_s=0.001)
+    out, (after,), m, health = _served_with(
+        monkeypatch, broken, SPEC, config, xs, then=[later])
+    assert all(isinstance(r, KernelError) for r in out), out
+    assert calls == [(4, N1)]
+    assert (m["batch_retries"], m["bisections"], m["errors"]) == (0, 0, 4)
+    assert m["degraded_requests"] == 0
+    np.testing.assert_array_equal(after, np.sort(later))
+    assert health["health"] == "ok"
+    assert all(b["failures"] == 0 and b["trips"] == 0
+               for b in health["breakers"].values())
+
+
+def test_degraded_path_keeps_the_request_kernel_policy(monkeypatch):
+    """Once a bucket's breaker opens, its requests are served one at a
+    time under their own spec: the kernel policy they asked for stays."""
+    import repro_torch.serve.service as svc_mod
+
+    seen = []
+    real_single = svc_mod.sort_single
+
+    def single(x, spec):
+        seen.append(spec)
+        return real_single(x, spec)
+    monkeypatch.setattr(svc_mod, "sort_single", single)
+
+    def failing(xs, spec):
+        raise RuntimeError("batched path down")
+
+    spec = SortSpec(exchange="allgather", tag=False, shards=8,
+                    device="cpu", kernel_policy="kernel")
+    rng = np.random.default_rng(13)
+    xs = [_keys(rng, N1) for _ in range(2)]
+    later = [_keys(rng, N1) for _ in range(2)]
+    config = tserve.ServiceConfig(max_batch=2, max_delay_ms=1000.0,
+                                  breaker_threshold=1, max_batch_retries=0,
+                                  breaker_cooldown_s=60.0)
+    out, after, m, health = _served_with(
+        monkeypatch, failing, spec, config, xs, then=later)
+    assert all(isinstance(r, RuntimeError) for r in out), out
+    for x, got in zip(later, after):
+        np.testing.assert_array_equal(got, np.sort(x))
+    assert m["degraded_requests"] == 2 and health["health"] == "degraded"
+    assert [s.kernel_policy for s in seen] == ["kernel", "kernel"]
+    assert all(s == spec for s in seen)
+
+
+def test_missing_nvcc_raises_kernel_error(monkeypatch, tmp_path):
+    from repro_torch.kernels import cuda
+
+    monkeypatch.setattr(cuda.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(cuda.KernelError, match="nvcc not found"):
+        cuda._nvcc()
+    assert issubclass(cuda.KernelError, RuntimeError)

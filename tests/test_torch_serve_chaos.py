@@ -1,6 +1,7 @@
 """The port's serving drills on the CPU (repro_torch.serve.smoke: the
-steady state, the fault drill and the audit drill, over HTTP and in the
-process), and the chaos counters of one served batch against the
+steady state over HTTP, the fault drill and the audit drill through
+`ServiceRunner.submit`, the latter at the reference's breaker cooldown
+and a longer one), and the chaos counters of one served batch against the
 reference service's: the clamp's `clamp_traces` (one a bucket key at
 admission, one a cache key per cached launch), the dispatch index, the
 injected crash and death.
@@ -20,24 +21,22 @@ from repro_torch.sort import SortSpec
 from torch_parity import auto_mesh
 
 
-@pytest.mark.parametrize("http", [True, False])
-def test_steady_state_drill(http):
-    out = smoke.main(device="cpu", http=http)
+def test_steady_state_drill():
+    out = smoke.main(device="cpu")
     assert out["hit_rate"] > 0.9 and out["metrics"]["served"] == smoke.LOAD
     assert 429 in out["codes"] and 200 in out["codes"]
 
 
-@pytest.mark.parametrize("http", [True, False])
-def test_chaos_drill(http):
-    out = smoke.chaos_main(device="cpu", http=http)
+def test_chaos_drill():
+    out = smoke.chaos_main(device="cpu")
     assert out["executor"]["restarts"] >= 1
     assert out["chaos"]["crash"] == out["chaos"]["death"] == 1
     assert out["metrics"]["health"]["health"] == "ok"
 
 
-@pytest.mark.parametrize("http", [True, False])
-def test_corrupt_drill(http):
-    out = smoke.corrupt_main(device="cpu", http=http)
+@pytest.mark.parametrize("cooldown_s", [0.5, 2.0])
+def test_corrupt_drill(cooldown_s):
+    out = smoke.corrupt_main(device="cpu", cooldown_s=cooldown_s)
     assert out["clean_hits"] > 0 and out["clean_misses"] == 0
     assert out["metrics"]["degraded_requests"] >= 1
     assert out["metrics"]["degraded_errors"] == 0
