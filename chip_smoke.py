@@ -171,10 +171,30 @@ Phases, in order; any failure raises and the script exits non-zero:
   22. `data.partition.bucket_lengths` of 1,048,576 synthetic document
      lengths over 8 shards (int64 packing: no kernel): every doc once,
      shards contiguous and non-decreasing, the packing's padding;
-  last (phase 12, run after 13-22): every kernel (K1, K2 by role, K3,
+  23. the analysis lint on the card (`repro_torch.analysis.lint --device
+     cuda`, to a temporary path): 0 failures, its checks, collective
+     records, sync counts and budget footprints equal to the CPU's
+     committed ANALYSIS_torch.json; each kernel's static shared memory
+     equal to ptxas's report and its registers within the launch
+     bounds' cap (`analysis.budgets`); K2's 64 KB segment within the
+     opt-in its launcher set, read back with cudaFuncGetAttributes;
+  24. the sync audit: `sort`, `sort_batched` (the batched cell),
+     `argsort`, `sort_kv`, `semisort`, `top_k`, and `sort` under "retry"
+     and verify="full" of the WEAK_SCALING keys under
+     set_sync_debug_mode("error"), each door's documented syncs equal to
+     its pinned formula (`analysis.purity`);
+  25. the legacy entry points at full width: `hss_sort`, `sample_sort`
+     (random, regular), `ams_sort` and `two_stage_sort` of the
+     WEAK_SCALING keys equal to `sort` with the same algorithm and seed
+     (shards and counts) and to np.sort; `probe_counts` of those keys,
+     unsorted, against 256 sorted probes (the counting K4's path) equal
+     to its plain version and to np.sort's histogram; `merge_flat_runs`
+     of 8 runs of 2^21 keys; `pack_tagged`/`unpack_tagged` at 31 and 63
+     bits;
+  last (phase 12, run after 13-25): every kernel (K1, K2 by role, K3,
      K4s) against its plain version,
      exactly, at every shape and parameter the main paths of phases 4-5,
-     7-10, 13-17 and 19-22 called it with (recorded as they ran,
+     7-10, 13-17, 19-22 and 25 called it with (recorded as they ran,
      `kernel_shapes`):
      multistage's stage 2 searching 8 rows of 4,200,008 keys with
      sentinel tails, ams's 960 probes a row, ragged's full sort of (8,
@@ -184,9 +204,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 Each path's kernels are gated (`check_path_launches`): every kernel it
 launches by the code, none other. The HSS paths launch K1-K3 and K4s; the
 sample sorts and top_k rank nothing, so they launch no K4s; the counting
-dispatch launches no kernel (`PATH_KERNELS`); no path launches the
-counting K4, whose operations per pair are read from the built library's
-SASS (`k4_sass_line`). A kernel row faster than its bound fails the run.
+dispatch launches no kernel (`PATH_KERNELS`); only `probe_counts`
+(phase 25) launches the counting K4, whose operations per pair are read
+from the built library's SASS (`k4_sass_line`). A kernel row faster than
+its bound fails the run.
 
 Every measurement line is one JSON object carrying the card's name and
 power limit. The line before the last is the card line; the kernels line
@@ -239,7 +260,8 @@ BASELINES = ("sample_random", "sample_regular", "ams", "multistage")
 #: The kernels each path of phase 10 launches, from the code: every local
 #: sort (the shards', the sample buffers', the gathered probes') runs K1,
 #: K2 in both roles and K3 at these sizes; ams, multistage and HSS rank a
-#: sample with K4s; the sample sorts rank nothing. No path counts (K4).
+#: sample with K4s; the sample sorts rank nothing. Only probe_counts
+#: counts (K4).
 SORTING = ("bitonic_sort_blocks", "bitonic_merge_smem.reverse",
            "bitonic_merge_smem.tail", "strided_compare_exchange")
 RANKING = SORTING + ("probe_rank_search",)
@@ -253,7 +275,17 @@ PATH_KERNELS = {"sample_random": SORTING, "sample_regular": SORTING,
                 "semisort": RANKING, "groupby_aggregate[count]": RANKING,
                 "groupby_aggregate[sum]": RANKING,
                 "groupby_aggregate[max]": RANKING, "top_k": SORTING,
-                "counting_dispatch": ()}
+                "counting_dispatch": (),
+                # phase 25: the legacy entry points sort as their
+                # algorithm's front door does; probe_counts counts keys in
+                # any order (K4, its one path); merge_flat_runs of 2^21-key
+                # runs merges by HBM passes (K3, then K2's tail)
+                "legacy:hss": RANKING, "legacy:sample_random": SORTING,
+                "legacy:sample_regular": SORTING, "legacy:ams": RANKING,
+                "legacy:multistage": RANKING,
+                "probe_counts": ("probe_rank_count",),
+                "merge_flat_runs": ("strided_compare_exchange",
+                                    "bitonic_merge_smem.tail")}
 # The CUDA functions of csrc/sort_kernels.cu, as the profiler names them.
 PORT_KERNELS = ("bitonic_sort_warp_kernel", "bitonic_merge_smem_kernel",
                 "bitonic_merge_warp_kernel", "strided_ce_kernel",
@@ -683,20 +715,36 @@ def kernel_phase(torch, card, floor_ms, k4_ops):
                     HK.probe_rank_count(sorted_rows, probes)))
     search_row(5, "sort", f"{PALLAS}/histogram/kernel.py:35", err,
                sorted_rows, probes)
-    # #5 K4, the count (off the main path), on the same rows; its
-    # operations per (key, probe) pair are the compiler's (k4_sass_line)
+    # #5 K4, the count (off the sort paths; its path is probe_counts,
+    # phase 25), on the same rows; its operations per (key, probe) pair
+    # are the compiler's (k4_sass_line)
     err = check("probe_rank_count", HK.probe_rank_count(sorted_rows, probes),
                 HK.probe_ranks_plain(sorted_rows, probes))
     pairs = sorted_rows.numel() * PROBES
-    row(5, "probe_rank_count", "K4", "probe_rank_count", "sort",
+    row(5, "probe_rank_count", "K4", "probe_rank_count", "probe_counts",
         f"{PALLAS}/histogram/kernel.py:35", err,
         lambda: HK.probe_rank_count(sorted_rows, probes),
         lambda: HK.probe_ranks_plain(sorted_rows, probes),
         None,   # searchsorted needs sorted keys: not the count's function
         4 * (sorted_rows.numel() + 2 * probes.numel()),
-        k4_ops[0] * pairs, k4_ops[1] * pairs,
-        note="off the main path: assume_sorted=False")
-    del x, paired, sorted_rows, probes
+        k4_ops[0] * pairs, k4_ops[1] * pairs, timed_shape=[P, N_LOCAL],
+        note="off the sort paths: assume_sorted=False, probe_counts")
+    # #5 K4 at probe_counts's own launch (phase 25): one row of N_WEAK
+    # unsorted keys against 256 sorted probes
+    xk = keys((1, N_WEAK))
+    qk = torch.sort(keys((1, PROBES)), dim=-1).values
+    err = check("probe_rank_count[probe_counts]", HK.probe_rank_count(xk, qk),
+                HK.probe_ranks_plain(xk, qk))
+    row(5, "probe_rank_count[probe_counts]", "K4", "probe_rank_count",
+        "probe_counts", f"{PALLAS}/histogram/kernel.py:35", err,
+        lambda: HK.probe_rank_count(xk, qk),
+        lambda: HK.probe_ranks_plain(xk, qk),
+        None,   # searchsorted needs sorted keys: not the count's function
+        4 * (xk.numel() + 2 * qk.numel()),
+        k4_ops[0] * N_WEAK * PROBES, k4_ops[1] * N_WEAK * PROBES,
+        timed_shape=[1, N_WEAK],
+        note="probe_counts's shape: one row of unsorted keys")
+    del x, paired, sorted_rows, probes, xk, qk
 
     # -- slice 2 shapes: the batched sort's B*p = 64 rows
     nb = B_ROWS * B_ROW
@@ -801,14 +849,14 @@ def kernel_phase(torch, card, floor_ms, k4_ops):
                          HK.probe_rank_count(kr, qr),
                          HK.probe_ranks_plain(kr, qr)))
     row(6, "probe_rank_count[batched]", "K4", "probe_rank_count",
-        "sort_batched", f"{PALLAS}/histogram/kernel.py:64", err,
+        "probe_counts", f"{PALLAS}/histogram/kernel.py:64", err,
         lambda: HK.probe_rank_count(kb, qb),
         lambda: HK.probe_ranks_plain(kb, qb),
         None,   # searchsorted needs sorted keys: not the count's function
         4 * (kb.numel() + 2 * qb.numel()), k4_ops[0] * kb.numel() * PROBES,
-        k4_ops[1] * kb.numel() * PROBES,
+        k4_ops[1] * kb.numel() * PROBES, timed_shape=[B_ROWS, B_LOCAL],
         rows_limit_checked=70_000,
-        note="off the main path: assume_sorted=False")
+        note="off the sort paths: assume_sorted=False, probe_counts")
     rows.sort(key=lambda r: r["site"])
     # a kernel cannot beat the least time the card needs: a time under its
     # bound means the bound counts work the kernel does not do
@@ -2521,6 +2569,205 @@ def bucketing_phase(torch, np, card):
     return {"bucket_lengths": launches}
 
 
+def analysis_phase(torch, np, card):
+    """Phase 23: the analysis lint on the card (`python -m
+    repro_torch.analysis.lint --device cuda`, written to a temporary
+    path): 0 failures; the records, checks and sync counts equal to the
+    CPU's committed ANALYSIS_torch.json, collective by collective (the
+    programs take seeded keys and host draws, so the rounds match too);
+    every static footprint of `analysis.budgets` equal to ptxas's "bytes
+    smem" and within its register cap; K2's dynamic footprint within the
+    opt-in its launcher set, read back from the built library."""
+    import tempfile
+
+    from repro_torch.analysis import budgets, lint
+    from repro_torch.kernels import cuda
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "ANALYSIS_torch.json"
+        if lint.main(["--device", "cuda", "--out", str(out)]) != 0:
+            fail("analysis lint on the card reported failures")
+        got = json.loads(out.read_text())
+    seconds = time.perf_counter() - t0
+    want = json.loads((ROOT / "ANALYSIS_torch.json").read_text())
+    if got["failures"] or not got["ok"]:
+        fail(f"analysis lint: {got['failures']} failure(s)")
+    for key in ("checks", "comms_reports", "sync_counts",
+                "budget_footprints"):
+        if got[key] != want[key]:
+            fail(f"analysis lint on the card: {key} differ from the CPU's "
+                 "committed ANALYSIS_torch.json")
+    footprints = budgets.check_kernel_budgets()
+    log = cuda.ptxas_log()
+    try:
+        rows = budgets.check_ptxas(footprints, log)
+    except budgets.BudgetError as e:
+        print("\n".join(log.splitlines()[:8]), file=sys.stderr)
+        fail(f"the budgets against ptxas: {e}")
+    opt_in = []
+    for fp in footprints:
+        if not fp.dynamic_smem:
+            continue
+        attrs = cuda.merge_smem_attributes(int(fp.config))
+        if attrs["max_dynamic_smem"] < fp.dynamic_smem:
+            fail(f"K2 seg={fp.config}: opt-in {attrs['max_dynamic_smem']} "
+                 f"B below its {fp.dynamic_smem} B of dynamic shared memory")
+        opt_in.append({"segment": int(fp.config),
+                       "dynamic_smem": fp.dynamic_smem, **attrs})
+    emit({"measure": "analysis", "checks": len(got["checks"]),
+          "failures": got["failures"], "seconds": seconds,
+          "comms_reports": len(got["comms_reports"]),
+          "sync_counts": got["sync_counts"], "ptxas_budgets": rows,
+          "k2_opt_in": opt_in, "card": card})
+
+
+def sync_audit_phase(torch, np, card):
+    """Phase 24: each front door of `analysis.purity.DOORS` at WEAK_SCALING
+    (16,000,000 UNIF int32 keys on the card, p = 8; the batched cell's 8 x
+    2,000,000 for sort_batched) under set_sync_debug_mode("error"): a
+    sync outside the documented sites raises, and each door's counts
+    must equal its pinned formula."""
+    from repro_torch.analysis import purity
+    from repro_torch.data.distributions import make_distribution
+    from repro_torch.sort import (
+        SortSpec, argsort, semisort, sort, sort_batched, sort_kv, top_k)
+
+    x = torch.from_numpy(make_distribution("UNIF", N_WEAK, seed=0)).cuda()
+    xs = torch.from_numpy(np.stack([make_distribution("UNIF", N_REQ, seed=s)
+                                    for s in range(B)])).cuda()
+    vals = np.arange(N_WEAK, dtype=np.int32)
+    spec = SortSpec(shards=P, eps=EPS)
+    doors = {
+        "sort": (lambda: sort(x, spec).gather(), 1),
+        "sort_batched": (lambda: sort_batched(xs, spec).gather_all(), B),
+        "argsort": (lambda: argsort(x, spec), 1),
+        "sort_kv": (lambda: sort_kv(x, vals, spec), 1),
+        "semisort": (lambda: semisort(x, spec=spec).gather(), 1),
+        "top_k": (lambda: top_k(x, TOP_K, spec), 1),
+        "sort[retry]": (lambda: sort(x, spec, on_overflow="retry").gather(),
+                        1),
+        "sort[verify=full]": (lambda: sort(x, spec,
+                                           verify="full").gather(), 1),
+    }
+    if set(doors) != set(purity.DOORS):
+        fail(f"sync audit covers {sorted(doors)}, not {purity.DOORS}")
+    t0 = time.perf_counter()
+    for door, (call, batch) in doors.items():
+        call()
+        audit = purity.count_host_syncs(call, device="cuda")
+        want = purity.pinned_syncs(door, audit.events, batch=batch)
+        emit({"measure": "sync_audit", "door": door,
+              "syncs": dict(audit.syncs), "pinned": dict(want),
+              "launches": len({e.comm for e in audit.events}),
+              "rounds_entered": sum(e.kind == "round"
+                                    for e in audit.events),
+              "card": card})
+        if audit.syncs != want:
+            fail(f"sync audit {door}: {dict(audit.syncs)} against the "
+                 f"pinned {dict(want)}")
+    emit({"measure": "sync_audit_total", "doors": len(doors),
+          "seconds": time.perf_counter() - t0, "card": card})
+
+
+def legacy_phase(torch, np, card):
+    """Phase 25: the legacy entry points at full width. hss_sort,
+    sample_sort (random, regular), ams_sort and two_stage_sort of the
+    WEAK_SCALING keys equal `sort` with the same algorithm and seed bit
+    for bit, and np.sort; probe_counts of those keys, unsorted, against
+    256 sorted probes equals its plain version and the np.histogram-style
+    counts and launches the counting K4; merge_flat_runs of 8 runs of
+    2^21 keys equals np.sort; pack_tagged/unpack_tagged round-trip at 31
+    and 63 bits. Each path's kernels are gated (PATH_KERNELS)."""
+    from repro_torch.core import ams, hss, multistage, sample_sort, tagging
+    from repro_torch.data.distributions import make_distribution
+    from repro_torch.kernels.histogram import kernel as HK
+    from repro_torch.kernels.histogram import ops as hops
+    from repro_torch.kernels.merge import ops as mops
+    from repro_torch.sort import SortSpec, sort
+
+    keys = make_distribution("UNIF", N_WEAK, seed=0)
+    want = np.sort(keys)
+    x = torch.from_numpy(keys).cuda()
+    spec = SortSpec(shards=P, eps=EPS, tag=False)
+    paths = {}
+    legacy = {
+        "hss": lambda: hss.hss_sort(x, shards=P),
+        "sample_random": lambda: sample_sort.sample_sort(x, shards=P),
+        "sample_regular": lambda: sample_sort.sample_sort(
+            x, shards=P, method="regular"),
+        "ams": lambda: ams.ams_sort(x, shards=P),
+        "multistage": lambda: multistage.two_stage_sort(x, shards=P),
+    }
+    for algo, call in legacy.items():
+        got, launches = launched(torch, call)
+        front = sort(x, spec, algorithm=algo)
+        if algo == "multistage":
+            out, counts, ovf = got
+            got = hss.SortResult(out.reshape(P, -1), counts.reshape(P),
+                                 None, None, ovf, None)
+        name = f"legacy:{algo}"
+        check_path_launches(name, launches, PATH_KERNELS[name])
+        paths[name] = launches
+        if not (torch.equal(got.shards, front.shards)
+                and torch.equal(got.counts, front.counts)):
+            fail(f"{name}: not the sort front door's shards and counts")
+        if not np.array_equal(hss.gather_sorted(got), want):
+            fail(f"{name}: gather differs from np.sort")
+        emit({"measure": "legacy", "entry": name,
+              "overflow": int(got.overflow),
+              "max_count": int(got.counts.max()), "launches": launches,
+              "card": card})
+
+    rng = np.random.default_rng(5)
+    probes = np.sort(rng.choice(keys, PROBES, replace=False))
+    q = torch.from_numpy(probes).cuda()
+    counts, launches = launched(torch, lambda: hops.probe_counts(x, q))
+    check_path_launches("probe_counts", launches, PATH_KERNELS["probe_counts"])
+    paths["probe_counts"] = launches
+    ranks = HK.probe_ranks_plain(x[None], q[None])[0]
+    plain = torch.diff(torch.cat([ranks.new_zeros(1), ranks,
+                                  ranks.new_full((1,), N_WEAK)]))
+    host = np.diff(np.concatenate(
+        [[0], np.searchsorted(want, probes, side="left"), [N_WEAK]]))
+    if not torch.equal(counts, plain):
+        fail("probe_counts disagrees with its plain version")
+    if not np.array_equal(counts.cpu().numpy(), host):
+        fail("probe_counts disagrees with the histogram of np.sort")
+    emit({"measure": "legacy", "entry": "probe_counts", "keys": N_WEAK,
+          "probes": PROBES, "launches": launches,
+          "median_ms": median_ms(torch, lambda: hops.probe_counts(x, q))[0],
+          "card": card})
+
+    runs = torch.sort(torch.cat([x, x[:8 * ROW - N_WEAK]]).view(8, ROW),
+                      dim=-1).values.reshape(-1)
+    merged, launches = launched(torch,
+                                lambda: mops.merge_flat_runs(runs, ROW))
+    check_path_launches("merge_flat_runs", launches,
+                        PATH_KERNELS["merge_flat_runs"])
+    paths["merge_flat_runs"] = launches
+    if not np.array_equal(merged.cpu().numpy(), np.sort(runs.cpu().numpy())):
+        fail("merge_flat_runs differs from np.sort")
+    emit({"measure": "legacy", "entry": "merge_flat_runs", "runs": 8,
+          "run": ROW, "launches": launches, "card": card})
+
+    shard = torch.arange(P, device="cuda")[:, None]
+    for key_bits in (7, 39):        # 24 tag bits: 31 and 63 in all
+        k = (x.view(P, N_LOCAL).long() + 2 ** 31) >> (32 - key_bits)
+        packed, launches = launched(torch, lambda: tagging.pack_tagged(
+            k, shard, p=P, n_local=N_LOCAL, key_bits=key_bits))
+        check_path_launches("pack_tagged", launches, ())
+        back = tagging.unpack_tagged(packed, p=P, n_local=N_LOCAL)
+        wide = torch.int32 if key_bits == 7 else torch.int64
+        if packed.dtype != wide or not torch.equal(back.long(), k):
+            fail(f"pack_tagged at {key_bits} key bits does not round-trip")
+        if torch.unique(packed).numel() != packed.numel():
+            fail(f"pack_tagged at {key_bits} key bits: tags not distinct")
+    emit({"measure": "legacy", "entry": "pack_tagged",
+          "key_bits": [7, 39], "dtypes": ["int32", "int64"], "card": card})
+    return paths
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2578,6 +2825,10 @@ def main() -> int:
         drills_phase(torch, np, card)
         paths.update(bucketing_phase(torch, np, card))
     serve_timing_phase(torch, np, card)
+    analysis_phase(torch, np, card)
+    sync_audit_phase(torch, np, card)
+    with kernel_shapes(seen):
+        paths.update(legacy_phase(torch, np, card))
     shapes = path_shapes_phase(torch, seen, card)
     for r in rows:
         r["launches_by_path"] = {k: v[r["counter"]] for k, v in paths.items()}

@@ -27,6 +27,37 @@ def ams_sample_size(p: int, eps: float, n: int) -> int:
     return int(p * max(2.0 / eps, 2.0 * math.log(max(n, 2))))
 
 
+def ams_sort(x, shards: int = 8, seed: int = 0, eps: float = 0.05,
+             total_sample: int | None = None, ex_cfg=None,
+             kernel_policy: str = "auto", *, device="cuda", uniform=None):
+    """Legacy entry point (counterpart of core/ams.py:96): AMS sort of a
+    1-D array over `shards` emulated shards, as a SortResult whose
+    stats.n_satisfied is p-1 where the scan succeeded, else 0 (a shim
+    over `driver.run_batched` at B = 1). `uniform` is the (j, n) -> (p,
+    n) draws; AMS takes draw 0 once."""
+    from repro_torch.core.exchange import ExchangeConfig, exchange_batched
+    from repro_torch.core.hss import _driver
+    from repro_torch.sort.partitioners import null_stats_batched
+
+    ex_cfg = ex_cfg or ExchangeConfig(kernel_policy=kernel_policy)
+
+    def sort_fn(rows, comm, draws):
+        p, batch, n_local = rows.shape
+        local_sorted = dispatch.local_sort(rows, policy=kernel_policy)
+        keys, ranks, ovf, ok = ams_splitters(
+            local_sorted, comm=comm, eps=eps, u=draws(0, n_local),
+            total_sample=total_sample, kernel_policy=kernel_policy)
+        out, n_valid, ex_ovf = exchange_batched(
+            local_sorted, keys, comm=comm, cfg=ex_cfg, eps=eps)
+        sat = torch.where(ok, p - 1, 0).to(torch.int32)
+        return (out, n_valid, keys, ranks, ovf + ex_ovf,
+                null_stats_batched(batch, sat, device=rows.device))
+
+    return _driver(sort_fn, x, shards=shards, seed=seed, device=device,
+                   uniform=uniform,
+                   local_sort_fn=dispatch.local_sort_fn(kernel_policy))
+
+
 def scanning_splitters(probes: torch.Tensor, probe_ranks: torch.Tensor, *,
                        p: int, n: int, eps: float):
     """The AMS scan over each request's ranked probes: probes and
@@ -67,11 +98,12 @@ def ams_splitters(local_sorted: torch.Tensor, *, comm: Comm, eps: float,
     prob = min(1.0, total_sample / float(n))
     vals, n_hit = bernoulli_sample_rows(local_sorted, prob, cap, u,
                                         kernel_policy)
-    overflow = comm.psum(torch.clamp(n_hit - cap, min=0))
-    probes = dispatch.local_sort(gather_rows(vals, comm),
-                                 policy=kernel_policy)
-    ranks = comm.psum(dispatch.probe_ranks(local_sorted, probes,
-                                           policy=kernel_policy,
-                                           assume_sorted=True))
+    with comm.round(0):     # the one sampling and histogram round
+        overflow = comm.psum(torch.clamp(n_hit - cap, min=0))
+        probes = dispatch.local_sort(gather_rows(vals, comm),
+                                     policy=kernel_policy)
+        ranks = comm.psum(dispatch.probe_ranks(local_sorted, probes,
+                                               policy=kernel_policy,
+                                               assume_sorted=True))
     keys, kranks, ok = scanning_splitters(probes, ranks, p=p, n=n, eps=eps)
     return keys, kranks, overflow.expand(batch), ok

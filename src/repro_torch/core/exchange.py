@@ -56,6 +56,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.merge.ops import cap_to, gather_runs
 from repro_torch.parallel.comm import Comm
 from repro_torch.runtime import chaos
+from repro_torch.runtime.syncs import to_device
 
 #: Collectives of one exchange of one request. dense: payload + counts
 #: all_to_all, the send-side overflow psum and the receive-side truncation
@@ -123,8 +124,7 @@ def destination_slices(local_sorted: torch.Tensor,
     dev = local_sorted.device
     keys = splitter_keys.expand(lead + splitter_keys.shape[-1:]).contiguous()
     b = torch.searchsorted(local_sorted, keys, side="left").to(torch.int32)
-    nv = torch.as_tensor(n if n_valid is None else n_valid,
-                         dtype=torch.int32, device=dev)
+    nv = to_device(n if n_valid is None else n_valid, torch.int32, dev)
     nv = nv.expand(lead)[..., None]
     b = torch.minimum(b, nv)
     zeros = torch.zeros(lead + (1,), dtype=torch.int32, device=dev)
@@ -140,8 +140,7 @@ def _rows_valid(n_valid, p: int, batch: int, n: int,
     one count on every shard; (p, B) gives each (shard, request) row its
     own (multistage's second stage)."""
     nv = n if n_valid is None else n_valid
-    return torch.as_tensor(nv, dtype=torch.int32,
-                           device=device).expand(p, batch)
+    return to_device(nv, torch.int32, device).expand(p, batch)
 
 
 def _dense_send(local_sorted: torch.Tensor, starts: torch.Tensor,
@@ -212,8 +211,7 @@ def exchange_dense_batched(local_sorted: torch.Tensor,
     starts, counts = destination_slices(
         local_sorted, splitter_keys,
         _rows_valid(n_valid, p, batch, n, dev))       # (p_src, B, p_dst)
-    sent_counts = torch.minimum(counts, torch.tensor(cap, dtype=torch.int32,
-                                                     device=dev))
+    sent_counts = torch.clamp(counts, max=cap)
     overflow = comm.psum((counts - sent_counts).sum(dim=-1,
                                                     dtype=torch.int32))
     recv, recv_counts = _dense_send(local_sorted, starts, sent_counts, cap,
@@ -251,13 +249,12 @@ def exchange_dense_spill(local_sorted: torch.Tensor,
     cap = cfg.pair_cap(n, p)
     out_cap = cfg.out_cap(n, p, eps)
     sent_hi = hi_sentinel(local_sorted.dtype)
-    nv = torch.as_tensor(n if n_valid is None else n_valid,
-                         dtype=torch.int32, device=dev).expand(p)
+    nv = to_device(n if n_valid is None else n_valid, torch.int32,
+                   dev).expand(p)
 
     starts, counts = destination_slices(local_sorted, splitter_keys,
                                         nv)                 # (p_src, p_dst)
-    sent_counts = torch.minimum(counts, torch.tensor(cap, dtype=torch.int32,
-                                                     device=dev))
+    sent_counts = torch.clamp(counts, max=cap)
     recv, recv_counts = _dense_send(local_sorted[:, None], starts[:, None],
                                     sent_counts[:, None], cap,
                                     comm)   # (p_dst, p_src, 1, cap)

@@ -24,6 +24,7 @@ from repro_torch.core.splitters import (
     choose_splitters, refine)
 from repro_torch.kernels import dispatch
 from repro_torch.parallel.comm import Comm
+from repro_torch.runtime.syncs import to_device
 
 
 #: The stage-1 exchange's output slack: a group's shards receive up to
@@ -33,7 +34,8 @@ STAGE1_OUT_SLACK = 2.0
 
 def hss_splitters_general(local_sorted: torch.Tensor, *, comm: Comm,
                           num_parts: int, cfg: HSSConfig, uniform: Uniform,
-                          n_valid: torch.Tensor | None = None):
+                          n_valid: torch.Tensor | None = None,
+                          first_round: int = 0):
     """HSS splitter determination with the shard count (`comm.p`) apart
     from the part count (counterpart of multistage.py:26-79).
 
@@ -48,7 +50,8 @@ def hss_splitters_general(local_sorted: torch.Tensor, *, comm: Comm,
     adaptive one, the tolerance is float32 arithmetic on the row's n, the
     sample target is cap*P/2 with the cap of `num_parts`, and each round
     issues one all_gather and three psums (ranks, sample count, sample
-    overflow).
+    overflow). `first_round` numbers the rounds (`comm.round`): stage
+    2's follow stage 1's.
 
     Returns (keys (R, num_parts-1), ranks (R, num_parts-1), stats: the
     per-round (k, R) gamma sizes, sample counts and sample overflows).
@@ -61,12 +64,13 @@ def hss_splitters_general(local_sorted: torch.Tensor, *, comm: Comm,
     k = cfg.resolved_rounds(num_parts)
     cap = cfg.resolved_sample_cap(num_parts)
     f32 = dict(dtype=torch.float32, device=dev)
-    tol = torch.clamp((n.to(torch.float32) * torch.tensor(cfg.eps, **f32)
-                       / torch.tensor(float(2 * num_parts), **f32)
+    tol = torch.clamp((n.to(torch.float32)
+                       * to_device(cfg.eps, torch.float32, dev)
+                       / to_device(float(2 * num_parts), torch.float32, dev)
                        ).to(torch.int32), min=1)[:, None]
     targets = (torch.arange(1, num_parts, dtype=torch.int32, device=dev)
                * n[:, None]) // num_parts
-    f_total = torch.tensor(float(cap * comm.p) / 2.0, **f32)
+    f_total = to_device(float(cap * comm.p) / 2.0, torch.float32, dev)
     one = torch.ones((), **f32)
 
     m = num_parts - 1
@@ -83,20 +87,57 @@ def hss_splitters_general(local_sorted: torch.Tensor, *, comm: Comm,
         gamma = active_union_size(state, targets)             # (R,)
         prob = torch.minimum(
             one, f_total / torch.clamp(gamma, min=1).to(torch.float32))
-        vals, n_samp, s_ovf = _sample_round(local_sorted, state, prob, cap,
-                                            uniform(j), kernel_policy=policy)
-        probes = dispatch.local_sort(
-            comm.all_gather(vals).transpose(0, 1).reshape(rows, -1),
-            policy=policy)
-        ranks = comm.psum(dispatch.probe_ranks(
-            local_sorted, probes, policy=policy, assume_sorted=True))
-        state = refine(state, probes, ranks, targets, tol)
+        with comm.round(first_round + j):
+            vals, n_samp, s_ovf = _sample_round(
+                local_sorted, state, prob, cap, uniform(j),
+                kernel_policy=policy)
+            probes = dispatch.local_sort(
+                comm.all_gather(vals).transpose(0, 1).reshape(rows, -1),
+                policy=policy)
+            ranks = comm.psum(dispatch.probe_ranks(
+                local_sorted, probes, policy=policy, assume_sorted=True))
+            state = refine(state, probes, ranks, targets, tol)
+            cnt.append(comm.psum(n_samp))
+            ovf.append(comm.psum(s_ovf))
         gam.append(gamma)
-        cnt.append(comm.psum(n_samp))
-        ovf.append(comm.psum(s_ovf))
     keys, ranks = choose_splitters(state, targets)
     return keys, ranks, (torch.stack(gam), torch.stack(cnt),
                          torch.stack(ovf))
+
+
+def two_stage_sort(x, stages: tuple | None = None, seed: int = 0,
+                   hss_cfg: HSSConfig | None = None,
+                   ex_cfg: ExchangeConfig | None = None, *, shards: int = 8,
+                   device="cuda", uniform=None):
+    """Legacy entry point (counterpart of core/multistage.py:116): x (n,)
+    sorted over the (r1, r2) = `stages` grid of `shards` emulated shards
+    (default `driver.factor_stages(shards)`), through the shared driver
+    at B = 1. Returns, as the reference does, (out (r1, r2, cap), counts
+    (r1, r2), overflow). `uniform` is numbered as `two_stage_sort_batched`
+    takes it."""
+    from repro_torch.core.hss import _driver
+    from repro_torch.sort.driver import factor_stages
+    from repro_torch.sort.partitioners import null_stats_batched
+
+    r1, r2 = stages or factor_stages(shards)
+    if r1 * r2 != shards:
+        raise ValueError(f"stages {(r1, r2)} != {shards} shards")
+    policy = (hss_cfg or HSSConfig()).kernel_policy
+
+    def sort_fn(rows, comm, draws):
+        batch, dev = rows.shape[1], rows.device
+        out, n_valid, ovf = two_stage_sort_batched(
+            rows, comm=comm, r1=r1, r2=r2, uniform=draws, hss_cfg=hss_cfg,
+            ex_cfg=ex_cfg)
+        return (out, n_valid,
+                torch.zeros((batch, 0), dtype=rows.dtype, device=dev),
+                torch.zeros((batch, 0), dtype=torch.int32, device=dev),
+                ovf, null_stats_batched(batch, device=dev))
+
+    res = _driver(sort_fn, x, shards=shards, seed=seed, device=device,
+                  uniform=uniform, local_sort_fn=dispatch.local_sort_fn(policy))
+    return (res.shards.reshape(r1, r2, -1), res.counts.reshape(r1, r2),
+            res.overflow)
 
 
 def two_stage_sort_batched(local: torch.Tensor, *, comm: Comm, r1: int,
@@ -148,7 +189,7 @@ def two_stage_sort_batched(local: torch.Tensor, *, comm: Comm, r1: int,
 
     s_keys, _, _ = hss_splitters_general(
         mid, comm=inner, num_parts=r2, cfg=hss_cfg, uniform=stage2_draws,
-        n_valid=group_n)
+        n_valid=group_n, first_round=k1)
     out, n_valid, ovf2 = exchange_batched(
         mid, s_keys, comm=inner, cfg=ex_cfg, eps=eps, n_valid=mid_valid)
     overflow = (ovf1.reshape(r2, batch).sum(dim=0, dtype=torch.int32)

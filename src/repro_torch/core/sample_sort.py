@@ -23,6 +23,7 @@ import torch
 from repro_torch.core.common import hi_sentinel, round_up
 from repro_torch.kernels import dispatch
 from repro_torch.parallel.comm import Comm
+from repro_torch.runtime.syncs import to_device
 
 
 def default_total_sample(p: int, n_local: int, eps: float) -> int:
@@ -33,6 +34,48 @@ def default_total_sample(p: int, n_local: int, eps: float) -> int:
 def default_regular_s(p: int, eps: float) -> int:
     """Theorem 3.2's regular-sampling per-shard sample size: s = p/eps."""
     return max(2, int(p / eps))
+
+
+def sample_sort(x, shards: int = 8, method: str = "random", seed: int = 0,
+                total_sample: int | None = None, s: int | None = None,
+                eps: float = 0.05, ex_cfg=None, kernel_policy: str = "auto",
+                *, device="cuda", uniform=None):
+    """Legacy entry point (counterpart of core/sample_sort.py:93): sample
+    sort of a 1-D array over `shards` emulated shards, "random" or
+    "regular" splitters, as a SortResult (repro_torch.core.hss; a shim
+    over `driver.run_batched` at B = 1). `uniform` is the (j, n) -> (p,
+    n) draws; random sampling takes draw 0 once."""
+    from repro_torch.core.exchange import ExchangeConfig, exchange_batched
+    from repro_torch.core.hss import _driver
+    from repro_torch.sort.partitioners import null_stats_batched
+
+    if method not in ("random", "regular"):
+        raise ValueError(method)
+    ex_cfg = ex_cfg or ExchangeConfig(kernel_policy=kernel_policy)
+
+    def sort_fn(rows, comm, draws):
+        p, batch, n_local = rows.shape
+        local_sorted = dispatch.local_sort(rows, policy=kernel_policy)
+        if method == "random":
+            keys, ovf = random_sample_splitters(
+                local_sorted, comm=comm,
+                total_sample=total_sample or default_total_sample(
+                    p, n_local, eps),
+                u=draws(0, n_local), kernel_policy=kernel_policy)
+        else:
+            keys = regular_sample_splitters(
+                local_sorted, comm=comm, s=s or default_regular_s(p, eps),
+                kernel_policy=kernel_policy)
+            ovf = torch.zeros((batch,), dtype=torch.int32,
+                              device=rows.device)
+        out, n_valid, ex_ovf = exchange_batched(
+            local_sorted, keys, comm=comm, cfg=ex_cfg, eps=eps)
+        return (out, n_valid, keys, torch.zeros_like(keys, dtype=torch.int32),
+                ovf + ex_ovf, null_stats_batched(batch, device=rows.device))
+
+    return _driver(sort_fn, x, shards=shards, seed=seed, device=device,
+                   uniform=uniform,
+                   local_sort_fn=dispatch.local_sort_fn(kernel_policy))
 
 
 def sample_cap(total_sample: int, p: int) -> int:
@@ -50,7 +93,7 @@ def bernoulli_sample_rows(local_sorted: torch.Tensor, prob: float, cap: int,
     n_hit (p,))."""
     # prob meets u in u's precision, as the reference's weakly typed
     # Python float does (float64 draws under jax x64)
-    mask = u < torch.tensor(prob, dtype=u.dtype, device=u.device)
+    mask = u < to_device(prob, u.dtype, u.device)
     n_hit = mask.sum(dim=-1, dtype=torch.int32)
     vals = torch.where(mask[:, None, :], local_sorted,
                        hi_sentinel(local_sorted.dtype))

@@ -14,9 +14,13 @@ whatever B is; the replicated interval state is held once, (B, p-1).
 `hss_splitters` is `hss_splitters_batched` at B = 1. `lax.scan` over the k
 rounds becomes a Python loop, and the reference's `lax.cond` early exit
 becomes a host `if` on every request's replicated `satisfied` vector — one
-device-to-host sync per round. Until all B requests are satisfied every
-request runs the round, satisfied ones included, as in the reference. A
-skipped round records sample_count = overflow = 0, as the reference does.
+device-to-host sync a round until it fires (`sync_site("hss.early_exit")`).
+Each round runs inside `comm.round(j)`, and a skipped one is marked
+`comm.early_exit()`, so the collective contracts
+(repro_torch.analysis.contracts) can hold every round that ran. Until
+all B requests are satisfied every request runs the round, satisfied ones
+included, as in the reference. A skipped round records sample_count =
+overflow = 0, as the reference does.
 
 Random draws: round j calls `uniform(j)` for a (p, n_local) float32 tensor
 of U[0, 1) draws, row s for shard s. All B requests share it, as the
@@ -36,6 +40,7 @@ from repro_torch.core.common import (
     HSSConfig, hi_sentinel, interval_union_size, lo_sentinel, sampling_ratios)
 from repro_torch.kernels import dispatch
 from repro_torch.parallel.comm import Comm
+from repro_torch.runtime.syncs import sync_site, to_device
 
 #: Collectives one non-converged round issues: ONE all_gather of the sample
 #: buffers and ONE fused psum of the ranks + (n_sample, overflow) counts.
@@ -69,7 +74,7 @@ class SplitterStats(NamedTuple):
 def splitter_targets(n: int, p: int, device=None) -> torch.Tensor:
     """Target ranks t_i = N*i/p for i = 1..p-1."""
     t = np.arange(1, p, dtype=np.int64) * n // p
-    return torch.tensor(t.astype(np.int32), device=device)
+    return to_device(t.astype(np.int32), torch.int32, device)
 
 
 def init_state(p: int, n: int, dtype: torch.dtype, device=None,
@@ -209,11 +214,9 @@ def hss_splitters_batched(local_sorted: torch.Tensor, *, comm: Comm,
     targets = splitter_targets(n, p, dev)
     # float32 operands on both sides of every division, as the reference's
     # weakly typed scalars are
-    f_total = torch.tensor(float(cap * p) / 2.0, dtype=torch.float32,
-                           device=dev)
-    ratios = torch.tensor(sampling_ratios(p, cfg.eps, k), dtype=torch.float32,
-                          device=dev)
-    n_local_f = torch.tensor(float(n_local), dtype=torch.float32, device=dev)
+    f_total = to_device(float(cap * p) / 2.0, torch.float32, dev)
+    ratios = to_device(sampling_ratios(p, cfg.eps, k), torch.float32, dev)
+    n_local_f = to_device(float(n_local), torch.float32, dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
     zero = torch.zeros((batch,), dtype=torch.int32, device=dev)
 
@@ -224,6 +227,7 @@ def hss_splitters_batched(local_sorted: torch.Tensor, *, comm: Comm,
         state = refine(state, initial_probes, comm.psum(lr), targets, tol)
 
     gam, cnt, ovf, nsat = [], [], [], []
+    done = False
     for j in range(k):
         gamma = active_union_size(state, targets)              # (B,)
         if cfg.adaptive:
@@ -231,24 +235,33 @@ def hss_splitters_batched(local_sorted: torch.Tensor, *, comm: Comm,
                 one, f_total / torch.clamp(gamma, min=1).to(torch.float32))
         else:
             prob = torch.minimum(one, ratios[j] / n_local_f).expand(batch)
-        # Early exit once every request is satisfied: one host sync per
-        # round. Until then satisfied requests run the round too.
-        if bool(state.satisfied.all()):
-            count, over = zero, zero
-        else:
-            vals, n_samp, s_ovf = _sample_round(
-                local_sorted, state, prob, cap, uniform(j),
-                kernel_policy=policy)
-            gathered = comm.all_gather(vals)    # (p, B, cap)
-            probes = dispatch.local_sort(
-                gathered.transpose(0, 1).reshape(batch, -1), policy=policy)
-            local_ranks = dispatch.probe_ranks(
-                local_sorted, probes, policy=policy, assume_sorted=True)
-            # one fused reduction per round: ranks + sample count + overflow
-            packed = comm.psum(torch.cat(
-                [local_ranks, torch.stack([n_samp, s_ovf], dim=-1)], dim=-1))
-            state = refine(state, probes, packed[:, :-2], targets, tol)
-            count, over = packed[:, -2], packed[:, -1]
+        # Early exit once every request is satisfied: one host read a
+        # round until it fires (the state stays satisfied after). Until
+        # then satisfied requests run the round too.
+        if not done:
+            with sync_site("hss.early_exit"):
+                done = bool(state.satisfied.all())
+        with comm.round(j):
+            if done:
+                comm.early_exit()
+                count, over = zero, zero
+            else:
+                vals, n_samp, s_ovf = _sample_round(
+                    local_sorted, state, prob, cap, uniform(j),
+                    kernel_policy=policy)
+                gathered = comm.all_gather(vals)    # (p, B, cap)
+                probes = dispatch.local_sort(
+                    gathered.transpose(0, 1).reshape(batch, -1),
+                    policy=policy)
+                local_ranks = dispatch.probe_ranks(
+                    local_sorted, probes, policy=policy, assume_sorted=True)
+                # one fused reduction a round: ranks + sample count +
+                # overflow
+                packed = comm.psum(torch.cat(
+                    [local_ranks, torch.stack([n_samp, s_ovf], dim=-1)],
+                    dim=-1))
+                state = refine(state, probes, packed[:, :-2], targets, tol)
+                count, over = packed[:, -2], packed[:, -1]
         gam.append(gamma)
         cnt.append(count)
         ovf.append(over)

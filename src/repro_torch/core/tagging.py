@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from repro_torch.runtime.syncs import to_device
+
 _SIGN = -2147483648          # 0x80000000 as an int32 bit pattern
 _LOW31 = 0x7FFFFFFF
 _SIGN64 = -2 ** 63           # 0x8000000000000000 as an int64 bit pattern
@@ -63,3 +65,30 @@ def sortable_int32_to_uint32(s: torch.Tensor) -> torch.Tensor:
 
 def tag_bits(p: int, n_local: int) -> int:
     return max(1, math.ceil(math.log2(p * n_local)))
+
+
+def pack_tagged(keys: torch.Tensor, shard_id, *, p: int, n_local: int,
+                key_bits: int) -> torch.Tensor:
+    """Pack integer keys in [0, 2^key_bits) with a unique tag a key
+    (counterpart of core/tagging.py:72): (key << b) | (shard_id * n_local
+    + index), b = tag_bits(p, n_local), so keys order as the paper's
+    (key, shard, index) triplets. int32 when key_bits + b <= 31, int64
+    when <= 63 (the port needs no x64 switch), else ValueError."""
+    b = tag_bits(p, n_local)
+    total = key_bits + b
+    if total <= 31:
+        dt = torch.int32
+    elif total <= 63:
+        dt = torch.int64
+    else:
+        raise ValueError(f"key_bits={key_bits} + tag_bits={b} > 63")
+    keys = torch.as_tensor(keys).to(dt)
+    tag = (to_device(shard_id, dt, keys.device) * n_local
+           + torch.arange(n_local, dtype=dt, device=keys.device))
+    return (keys << b) | tag
+
+
+def unpack_tagged(tagged: torch.Tensor, *, p: int, n_local: int
+                  ) -> torch.Tensor:
+    """The keys of `pack_tagged` (core/tagging.py:97)."""
+    return tagged >> tag_bits(p, n_local)

@@ -714,4 +714,31 @@ int empty_launch(void* stream) {
   return cudaGetLastError();
 }
 
+// No launch: K2's shared-memory form at `seg` keys a segment as the
+// runtime holds it (cudaFuncGetAttributes), so a caller can read back the
+// dynamic shared memory its launcher opted in to (launch_merge) beside
+// the static shared memory and the registers the compiler gave it.
+int merge_smem_attributes(int seg, int* max_dynamic, int* static_smem,
+                          int* registers) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  switch (seg) {
+    case 2048: e = cudaFuncGetAttributes(&a, bitonic_merge_smem_kernel<2048>);
+      break;
+    case 4096: e = cudaFuncGetAttributes(&a, bitonic_merge_smem_kernel<4096>);
+      break;
+    case 8192: e = cudaFuncGetAttributes(&a, bitonic_merge_smem_kernel<8192>);
+      break;
+    case 16384:
+      e = cudaFuncGetAttributes(&a, bitonic_merge_smem_kernel<16384>);
+      break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return e;
+  *max_dynamic = a.maxDynamicSharedSizeBytes;
+  *static_smem = static_cast<int>(a.sharedSizeBytes);
+  *registers = a.numRegs;
+  return cudaSuccess;
+}
+
 }  // extern "C"

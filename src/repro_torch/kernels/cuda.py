@@ -51,12 +51,16 @@ SIGNATURES = {
     "empty_launch": (_P,),
 }
 
+#: Host functions that launch nothing (`merge_smem_attributes`).
+_IP = ctypes.POINTER(ctypes.c_int)
+QUERIES = {"merge_smem_attributes": (_I, _IP, _IP, _IP)}
+
 #: Launch counters: one per kernel, K2's split by role.
 COUNTERS = ("bitonic_sort_blocks", "bitonic_merge_smem.reverse",
             "bitonic_merge_smem.tail", "strided_compare_exchange",
             "probe_rank_count", "probe_rank_search")
-#: Counters of kernels that neither main path launches: the counting K4
-#: serves only `assume_sorted=False`.
+#: Counters of kernels that no sort path launches: the counting K4 serves
+#: only `assume_sorted=False`, whose path is `histogram.ops.probe_counts`.
 OFF_MAIN_PATH = ("probe_rank_count",)
 
 #: Launches per counter since the last `reset_launches()`.
@@ -131,7 +135,7 @@ def library() -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(path))
             except OSError as e:
                 raise KernelError(f"cannot load {path}: {e}") from e
-            for name, argtypes in SIGNATURES.items():
+            for name, argtypes in {**SIGNATURES, **QUERIES}.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
@@ -151,6 +155,22 @@ def launch(name: str, *args, counter: str | None = None):
         msg = lib.repro_cuda_error_string(err).decode()
         raise KernelError(f"CUDA kernel {name} failed: error {err} ({msg})")
     launches[counter or name] += 1
+
+
+def merge_smem_attributes(seg: int) -> dict:
+    """K2's shared-memory form at `seg` keys (2,048..16,384) as the
+    runtime holds it: the dynamic shared memory its launcher opted in to
+    (`maxDynamicSharedSizeBytes`), its static shared memory and its
+    registers. The opt-in is set at the form's first launch."""
+    lib = library()
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = lib.merge_smem_attributes(seg, *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise KernelError(f"cudaFuncGetAttributes(K2 seg={seg}) failed: "
+                          f"error {err} ({msg})")
+    return dict(zip(("max_dynamic_smem", "static_smem", "registers"),
+                    (v.value for v in vals)))
 
 
 def check_int32_rows(x: torch.Tensor, what: str):

@@ -35,5 +35,25 @@ def probe_ranks(keys: torch.Tensor, probes: torch.Tensor, *,
     return ranks.reshape(lead + (m,))
 
 
+def probe_counts(keys: torch.Tensor, probes: torch.Tensor, *,
+                 policy: str = "auto") -> torch.Tensor:
+    """Histogram of keys in ANY order against sorted probes (counterpart of
+    histogram/ops.py:48): count[..., m] = #{probes[m-1] <= key <
+    probes[m]}, the first bucket below probes[0] and the last at or above
+    probes[-1]; keys (..., n), probes (M,) or (..., M) -> (..., M+1)
+    int32. The ranks go through `dispatch.probe_ranks(...,
+    assume_sorted=False)`, so on the card "auto" and "kernel" count with
+    K4."""
+    from repro_torch.kernels import dispatch
+
+    r = dispatch.probe_ranks(keys, probes, policy=policy,
+                             assume_sorted=False)
+    lead = r.shape[:-1]
+    zero = torch.zeros(lead + (1,), dtype=torch.int32, device=r.device)
+    n = torch.full(lead + (1,), keys.shape[-1], dtype=torch.int32,
+                   device=r.device)
+    return torch.diff(torch.cat([zero, r, n], dim=-1), dim=-1)
+
+
 #: The reference's batched name; `probe_ranks` already takes probe rows.
 probe_ranks_batched = probe_ranks

@@ -27,6 +27,7 @@ from repro_torch.core.common import hi_sentinel, pow2_ceil
 from repro_torch.kernels.bitonic_sort import kernel as BK
 from repro_torch.kernels.bitonic_sort import ops as bops
 from repro_torch.kernels.merge import kernel as MK
+from repro_torch.runtime.syncs import sync_site
 
 
 def merge_cascade(x: torch.Tensor, run: int, *,
@@ -73,6 +74,16 @@ def merge_sorted_runs(runs: torch.Tensor, *,
 
 #: The reference's batched name; `merge_sorted_runs` already takes rows.
 merge_sorted_runs_batched = merge_sorted_runs
+
+
+def merge_flat_runs(x: torch.Tensor, run: int) -> torch.Tensor:
+    """Merge back-to-back sorted runs of equal length `run` in each row of
+    (..., n) (counterpart of merge/ops.py:134): `merge_sorted_runs`, so
+    K2 and K3 on the card."""
+    n = x.shape[-1]
+    if run < 1 or n % run:
+        raise ValueError(f"row length {n} is not a multiple of run={run}")
+    return merge_sorted_runs(x.reshape(x.shape[:-1] + (n // run, run)))
 
 
 def gather_runs(buf: torch.Tensor, starts: torch.Tensor,
@@ -131,9 +142,12 @@ def merge_ragged_runs(buf: torch.Tensor, starts: torch.Tensor,
     branch it took."""
     cap = buf.shape[-1]
     slot = pow2_ceil(cap if slot is None else min(slot, cap))
-    if slot < cap and bool((counts > slot).any()):
-        ragged_branches["full_sort"] += 1
-        return bops.local_sort(buf)
+    if slot < cap:
+        with sync_site("ragged.branch"):
+            spill = bool((counts > slot).any())
+        if spill:
+            ragged_branches["full_sort"] += 1
+            return bops.local_sort(buf)
     ragged_branches["merge_tree"] += 1
     return cap_to(merge_sorted_runs(gather_runs(buf, starts, counts, slot)),
                   cap)

@@ -31,12 +31,84 @@ call is counted in `axis_log` by (axis, collective), and `log` sums it by
 collective, so tests can hold the port to the reference's
 per-round collective contracts (repro.core.splitters.ROUND_COLLECTIVES,
 repro.core.exchange.EXCHANGE_COLLECTIVES).
+
+Every call also makes a `CommRecord`: its axis, its collective, the
+PER-SHARD operand (the leading shard axis dropped, so an all_gather of a
+(p, B, cap) int32 tensor records (B, cap) and 4*B*cap bytes) and the
+splitter round it ran in (`with comm.round(j):`, None outside every
+round). `early_exit()` marks a round that the host's early exit skipped.
+`recording()` collects the records and marks of every Comm the calling
+thread uses inside it, in call order: the one stream the cost model
+(repro_torch.analysis.comms) and the contracts read.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
+import math
+import threading
 from collections import Counter
+from typing import NamedTuple
 
 import torch
+
+from repro_torch.runtime.syncs import to_device
+
+
+class CommRecord(NamedTuple):
+    """One collective call, as the cost model reads it."""
+
+    axis: str
+    collective: str
+    shape: tuple        # per-shard operand shape (shard axis dropped)
+    dtype: str          # NumPy's name of the operand dtype
+    nbytes: int         # per-shard operand bytes
+    round: int | None   # the splitter round it ran in, None outside
+
+
+class CommEvent(NamedTuple):
+    """An entry of a `recording()`: kind "call" (record set), "round"
+    (a round entered) or "exit" (the host's early exit fired in round
+    `j`); `comm` tells the launches apart (one id per root Comm, shared
+    by its `along` views)."""
+
+    kind: str
+    comm: int
+    j: int | None
+    record: CommRecord | None = None
+
+
+_ids = itertools.count()
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect the CommEvents of every Comm the calling thread uses inside
+    the block, in order, into the list it yields."""
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    events: list = []
+    stack.append(events)
+    try:
+        yield events
+    finally:
+        stack.remove(events)
+
+
+def _emit(event: CommEvent):
+    for events in getattr(_local, "stack", ()):
+        events.append(event)
+
+
+class _Shared:
+    """The state a Comm shares with its `along` views."""
+
+    def __init__(self):
+        self.id = next(_ids)
+        self.axis_log: Counter = Counter()
+        self.round = None
 
 
 class Comm:
@@ -48,7 +120,8 @@ class Comm:
         if p < 1:
             raise ValueError(f"need at least one shard, got p={p}")
         self.p = p
-        self.axis_log: Counter = Counter()
+        self._shared = _Shared()
+        self.axis_log = self._shared.axis_log
 
     @property
     def log(self) -> Counter:
@@ -58,11 +131,32 @@ class Comm:
             out[name] += k
         return out
 
+    @contextlib.contextmanager
+    def round(self, j: int):
+        """Calls inside the block ran in splitter round j."""
+        shared = self._shared
+        prev, shared.round = shared.round, j
+        _emit(CommEvent("round", shared.id, j))
+        try:
+            yield
+        finally:
+            shared.round = prev
+
+    def early_exit(self):
+        """The host's early exit skipped the current round."""
+        _emit(CommEvent("exit", self._shared.id, self._shared.round))
+
     def _call(self, x: torch.Tensor, name: str):
         if x.shape[0] != self.p:
             raise ValueError(
                 f"{name}: leading (shard) axis {x.shape[0]} != p={self.p}")
         self.axis_log[(self.axis, name)] += 1
+        shape = tuple(x.shape[1:])
+        rec = CommRecord(self.axis, name, shape,
+                         str(x.dtype).removeprefix("torch."),
+                         math.prod(shape) * x.element_size(),
+                         self._shared.round)
+        _emit(CommEvent("call", self._shared.id, rec.round, rec))
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         self._call(x, "all_gather")
@@ -86,8 +180,9 @@ class Comm:
         self._call(x, "ppermute")
         out = torch.zeros_like(x)
         if perm:
-            src, dst = zip(*perm)
-            out[list(dst)] = x[list(src)]
+            src, dst = (to_device(list(v), torch.int64, x.device)
+                        for v in zip(*perm))
+            out[dst] = x[src]
         return out
 
     def ragged_all_to_all(self, operand: torch.Tensor, output: torch.Tensor,
@@ -146,13 +241,15 @@ class AxisComm(Comm):
     the axis's shards lead and row other*B + b is request b of the group
     at index `other` of the other axis; `unfold` is its inverse, and
     `rows` repeats a per-request (B, ...) value for every group. Its log
-    is the parent's, so a pipeline's totals stay in one place."""
+    and its round are the parent's, so a pipeline's totals stay in one
+    place."""
 
     def __init__(self, parent: Comm, axis: str, r1: int, r2: int):
         if axis not in ("outer", "inner"):
             raise ValueError(f"axis must be 'outer' or 'inner', got {axis!r}")
         self.p, self.other = (r1, r2) if axis == "outer" else (r2, r1)
         self.axis, self.r1, self.r2 = axis, r1, r2
+        self._shared = parent._shared
         self.axis_log = parent.axis_log
 
     def fold(self, x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ poisons the worker.
 
 The reference's third class, TrainSupervisor, wraps a train loop in
 checkpoint and restart; it needs the checkpoint stack and belongs to the
-model stack's port (ROADMAP queue 1 item 10), so it is not here.
+model stack's port (ROADMAP queue 1 item 4), so it is not here.
 """
 from __future__ import annotations
 

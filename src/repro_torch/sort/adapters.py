@@ -46,6 +46,7 @@ from repro_torch.core.tagging import (
     float32_to_sortable_int32, float64_to_sortable_int64,
     sortable_int32_to_float32, sortable_int32_to_uint32,
     sortable_int64_to_float64, tag_bits, uint32_to_sortable_int32)
+from repro_torch.runtime.syncs import move, sync_site
 from repro_torch.sort.spec import SortSpec
 
 KEY_DTYPES = (torch.int32, torch.uint32, torch.float32, torch.int64,
@@ -279,27 +280,30 @@ def as_keys(x, device) -> torch.Tensor:
         x = torch.from_numpy(np.ascontiguousarray(x))
     elif not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x))
-    return x.to(device).contiguous()
+    # an upload from pageable memory is queued, not waited for
+    return move(x, device).contiguous()
 
 
 def _needs_tags(x: torch.Tensor, spec: SortSpec, want_indices: bool):
-    """-> (wanted, required). Required tagging errors out when the packing
-    budget does not fit; merely wanted tagging (auto duplicate detection)
-    falls back to untagged, which still sorts correctly. `want_indices`
-    (argsort, sort_kv) always tags."""
+    """-> (wanted, required, duplicated). Required tagging errors out when
+    the packing budget does not fit; merely wanted tagging (auto duplicate
+    detection) falls back to untagged, which still sorts correctly.
+    `want_indices` (argsort, sort_kv) always tags. `duplicated` is None,
+    or under auto detection a device flag that decides `wanted` once the
+    plan reads it on the host."""
     if spec.tag is not None:
         if not spec.tag and want_indices:
             raise ValueError("argsort/sort_kv require tagging (tag=False set)")
-        return spec.tag, spec.tag
+        return spec.tag, spec.tag, None
     if spec.stable or want_indices:
-        return True, True
+        return True, True, None
     # auto duplicate detection, as the reference does it with a plain
     # jnp.sort outside any kernel: sort each row, compare neighbours (float
-    # keys compare as floats, so -0.0 == 0.0); only a scalar reaches the
-    # host. On a (B, n) batch any duplicated row tags the whole batch.
+    # keys compare as floats, so -0.0 == 0.0). On a (B, n) batch any
+    # duplicated row tags the whole batch.
     s = torch.sort(x.view(torch.int32) if x.dtype == torch.uint32 else x,
                    dim=-1).values
-    return bool((s[..., 1:] == s[..., :-1]).any()), False
+    return False, False, (s[..., 1:] == s[..., :-1]).any()
 
 
 def make_plan(x: torch.Tensor, spec: SortSpec, p: int,
@@ -319,8 +323,16 @@ def make_plan(x: torch.Tensor, spec: SortSpec, p: int,
     enc = to_core(x)
     plan._enc = enc
 
-    wanted, required = _needs_tags(x, spec, want_indices)
-    key_max = int(enc.max())
+    wanted, required, duplicated = _needs_tags(x, spec, want_indices)
+    # the key range and the duplicate flag reach the host in one copy
+    probe = [enc.max(), enc.min()]
+    if duplicated is not None:
+        probe.append(duplicated)
+    with sync_site("plan.probe"):
+        probe = torch.stack([v.to(torch.int64) for v in probe]).tolist()
+    key_max, key_min = probe[:2]
+    if duplicated is not None:
+        wanted = bool(probe[2])
     if key_max == torch.iinfo(enc.dtype).max:
         # keys whose encoded value equals the hi sentinel of the untagged
         # path (dtype max, or a float NaN payload mapping onto it) would be
@@ -334,7 +346,6 @@ def make_plan(x: torch.Tensor, spec: SortSpec, p: int,
     if not wanted:
         return plan
 
-    key_min = int(enc.min())
     key_bits = max(1, (key_max - key_min).bit_length())
     b = tag_bits(p, (n + n_pad) // p)
     total = key_bits + b

@@ -48,6 +48,7 @@ from repro_torch.core.sample_sort import (
     default_regular_s, default_total_sample)
 from repro_torch.kernels import dispatch
 from repro_torch.runtime import chaos
+from repro_torch.runtime.syncs import sync_site
 from repro_torch.sort import driver, verify
 from repro_torch.sort.adapters import (
     BatchedSortOutput, SortOutput, as_keys, make_plan)
@@ -320,7 +321,8 @@ def _sort_batched_buckets(arrs, spec: SortSpec, uniform) -> list:
 def _host_overflow(out) -> int:
     """The overflow counter on the host: the retry policy's one deliberate
     host sync per launch (the max over the batch on the batched path)."""
-    return int(out.overflow.max())
+    with sync_site("retry.overflow"):
+        return int(out.overflow.max())
 
 
 def _warm_started(spec: SortSpec, out) -> SortSpec:
@@ -405,8 +407,13 @@ def _finalize_audit(out, spec: SortSpec):
 
 def _imbalance(out):
     """achieved_imbalance = max shard load / (N/p), per request on the
-    batched path ((B,) array)."""
-    counts = out.counts.cpu().numpy()
+    batched path ((B,) array). The loads are copied once an output and
+    kept on it."""
+    counts = getattr(out, "_host_counts", None)
+    if counts is None:
+        with sync_site("imbalance"):
+            counts = out.counts.cpu().numpy()
+        out._host_counts = counts
     p = counts.shape[-1]
     return counts.max(axis=-1).astype(np.float64) * p / float(out.n)
 

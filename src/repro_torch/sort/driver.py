@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core.common import hi_sentinel, lo_sentinel
 from repro_torch.parallel.comm import Comm
+from repro_torch.runtime.syncs import sync_site, to_device
 
 
 class ExecutableCache:
@@ -267,7 +268,8 @@ def _draws(uniform, p: int, seed: int, device):
         return default_uniform(p, seed, device)
 
     def draws(j, n):
-        u = torch.as_tensor(uniform(j, n), device=device)
+        u = torch.as_tensor(uniform(j, n))
+        u = to_device(u, u.dtype, device)
         if tuple(u.shape) != (p, n):
             raise ValueError(f"injected draws {j}: shape {tuple(u.shape)}, "
                              f"want {(p, n)}")
@@ -283,6 +285,8 @@ def masked_concat(shards: torch.Tensor, counts: torch.Tensor) -> np.ndarray:
     cap = shards.shape[1]
     pos = torch.arange(cap, dtype=torch.int32, device=shards.device)
     valid = pos[None, :] < counts.to(torch.int32)[:, None]
-    if shards.dtype == torch.uint32:
-        return shards.view(torch.int32)[valid].cpu().numpy().view(np.uint32)
-    return shards[valid].cpu().numpy()
+    with sync_site("gather"):
+        if shards.dtype == torch.uint32:
+            return (shards.view(torch.int32)[valid].cpu().numpy()
+                    .view(np.uint32))
+        return shards[valid].cpu().numpy()

@@ -23,13 +23,16 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.analysis.contracts import CommsContract, register_contract
 from repro_torch.core.ams import ams_splitters
-from repro_torch.core.exchange import exchange_batched
+from repro_torch.core.exchange import (
+    BATCH_FUSED_STRATEGIES, EXCHANGE_COLLECTIVES, exchange_batched)
 from repro_torch.core.multistage import two_stage_sort_batched
 from repro_torch.core.sample_sort import (
     default_regular_s, default_total_sample, random_sample_splitters,
     regular_sample_splitters)
-from repro_torch.core.splitters import SplitterStats, hss_splitters_batched
+from repro_torch.core.splitters import (
+    ROUND_COLLECTIVES, SplitterStats, hss_splitters_batched)
 from repro_torch.kernels import dispatch
 from repro_torch.parallel.comm import Comm
 from repro_torch.sort.driver import factor_stages
@@ -144,6 +147,77 @@ def available_algorithms() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+# Wire contracts of the splitter phases, one per algorithm (counterpart of
+# repro/sort/partitioners.py:216-246), proved by `python -m
+# repro_torch.analysis.lint` over `analysis.programs.splitters_program`.
+# The port counts calls as they run (repro_torch.analysis.contracts):
+# total_counts are the calls OUTSIDE every splitter round and
+# round_collectives those of EVERY round that ran, so HSS's and AMS's
+# round calls sit under round_collectives where the reference counts
+# its round body once in its totals. A splitter phase exchanges no
+# payload, so every contract bans all_to_all. The full pipeline's totals
+# are these plus the strategy's `exchange:<strategy>` contract below.
+_BATCH_INVARIANT = ("all_gather", "all_to_all", "psum", "ppermute",
+                    "ragged_all_to_all")
+_NO_ROUND_CALLS = {"all_gather": 0, "psum": 0, "all_to_all": 0}
+
+register_contract("splitters:hss", CommsContract(
+    name="splitters:hss",
+    description="k-round histogram refinement: ONE sample all_gather and "
+                "ONE fused rank/meta psum in every round that runs, none "
+                "outside the rounds, and no call after the host's early "
+                "exit fires",
+    total_counts=dict(_NO_ROUND_CALLS),
+    round_collectives=dict(ROUND_COLLECTIVES),
+    converged_branch_pure=True,
+    batch_invariant=_BATCH_INVARIANT))
+
+register_contract("splitters:sample_random", CommsContract(
+    name="splitters:sample_random",
+    description="one Bernoulli sample all_gather + overflow/valid psums",
+    total_counts={"all_gather": 1, "psum": 2, "all_to_all": 0},
+    batch_invariant=_BATCH_INVARIANT))
+
+register_contract("splitters:sample_regular", CommsContract(
+    name="splitters:sample_regular",
+    description="one regular-sample all_gather, fully deterministic",
+    total_counts={"all_gather": 1, "psum": 0, "all_to_all": 0},
+    batch_invariant=_BATCH_INVARIANT))
+
+register_contract("splitters:ams", CommsContract(
+    name="splitters:ams",
+    description="its one round: the sample all_gather, the overflow psum "
+                "and ONE fused histogram psum; the scan communicates "
+                "nothing",
+    total_counts=dict(_NO_ROUND_CALLS),
+    round_collectives={"all_gather": 1, "psum": 2},
+    batch_invariant=_BATCH_INVARIANT))
+
+# The exchange strategies' contracts: the port's own table
+# (core.exchange.EXCHANGE_COLLECTIVES), which differs from the
+# reference's in two places on purpose (ROADMAP queue 3 item 16).
+_EXCHANGE_NOTES = {
+    "dense": "capacity-padded all_to_all of keys and counts, the send "
+             "overflow psum and the receive truncation psum",
+    "dense_spill": "the dense channel's two all_to_all, the spill rows' "
+                   "and counts' all_gather and the truncation psum; one "
+                   "request at a time, so it is not batch-fused",
+    "allgather": "payload and counts all_gather and the truncation psum",
+    "ragged": "counts and offsets all_to_all around one ragged_all_to_all, "
+              "plus a truncation psum the reference's row lacks, and "
+              "batch-fused where the reference loops over requests "
+              "(ROADMAP queue 3 item 16)",
+}
+for _strategy, _calls in EXCHANGE_COLLECTIVES.items():
+    register_contract(f"exchange:{_strategy}", CommsContract(
+        name=f"exchange:{_strategy}",
+        description=_EXCHANGE_NOTES[_strategy],
+        total_counts=dict(_calls),
+        forbid=("ppermute",),
+        batch_invariant=(_BATCH_INVARIANT
+                         if _strategy in BATCH_FUSED_STRATEGIES else ())))
+
+
 @register_partitioner("hss")
 class HSSPartitioner(Partitioner):
     """Histogram Sort with Sampling (the paper's algorithm, Section 4)."""
@@ -201,6 +275,25 @@ class AMSPartitioner(Partitioner):
         sat = torch.where(ok, p - 1, 0).to(torch.int32)
         return keys, ranks, overflow, null_stats_batched(
             batch, sat, device=keys.device)
+
+
+#: Collectives of the two-stage pipeline outside its exchanges and its
+#: rounds (counterpart of repro/sort/partitioners.py:368): the group-size
+#: psum. Each round of either stage makes MULTISTAGE_ROUND_COLLECTIVES
+#: (one all_gather, three psums: ranks, sample count, sample overflow).
+#: The reference's base, all_gather 2 and psum 7, is both round bodies
+#: counted once plus that psum. A stage's exchange runs every group of
+#: the stage as one batched call (`Comm.along`), so a batch-fused
+#: strategy adds its row twice (once a stage), as the reference's does,
+#: and dense_spill, one request at a time, adds it once for each of the
+#: r2 stage-1 rows and the r1 stage-2 rows.
+MULTISTAGE_BASE_COLLECTIVES = {"all_gather": 0, "psum": 1, "all_to_all": 0}
+MULTISTAGE_ROUND_COLLECTIVES = {"all_gather": 1, "psum": 3}
+
+
+def multistage_exchange_calls(strategy: str, r1: int, r2: int) -> int:
+    """How many exchanges of `strategy` the two-stage pipeline makes."""
+    return 2 if strategy in BATCH_FUSED_STRATEGIES else r1 + r2
 
 
 @register_partitioner("multistage")

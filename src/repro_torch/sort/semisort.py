@@ -44,6 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import CommsContract, register_contract
 from repro_torch.core.common import hi_sentinel, round_up
 from repro_torch.core.splitters import heavy_candidates
 from repro_torch.kernels import dispatch
@@ -51,6 +52,7 @@ from repro_torch.parallel.comm import Comm
 from repro_torch.sort import driver
 from repro_torch.sort.adapters import as_keys, from_core, make_plan, to_core
 from repro_torch.runtime import chaos
+from repro_torch.runtime.syncs import sync_site, to_device
 from repro_torch.sort.api import (
     _as_spec, _cache_key, _mesh_fingerprint, _sort_batched_impl, _sort_one,
     _with_policies, resolve_device, sort_kv)
@@ -73,7 +75,8 @@ def _host(t) -> np.ndarray:
     """A tensor on the host as NumPy (uint32 through its int32 bits)."""
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
-    t = t.cpu()
+    with sync_site("semisort.host"):
+        t = t.cpu()
     if t.dtype == torch.uint32:
         return t.view(torch.int32).numpy().view(np.uint32)
     return t.numpy()
@@ -244,7 +247,7 @@ def _semisort_shard_fn(part, spec: SortSpec, n_local: int, s_loc: int,
     def heavy_split(ls, comm):
         p, batch, _ = ls.shape
         sent = hi_sentinel(ls.dtype)
-        samp = ls[..., samp_idx.to(ls.device)]                # (p, B, s)
+        samp = ls[..., to_device(samp_idx, torch.int64, ls.device)]
         g = comm.all_gather(samp)
         pooled = torch.sort(g.transpose(0, 1).reshape(batch, p * s_loc),
                             dim=-1).values
@@ -449,6 +452,19 @@ def topk_program(rows: torch.Tensor, comm: Comm, c: int, k: int,
     g = comm.all_gather(ls[..., n_local - c:])                # (p, B, c)
     merged = dispatch.merge_runs(g.transpose(0, 1), policy=kernel_policy)
     return merged[:, p * c - k:].flip(-1)
+
+
+# The wire contract of `topk_program` (counterpart of
+# repro/sort/semisort.py:510), proved by the analysis lint with
+# gather_widths pinned to the concrete c at check time: the pruning claim
+# above, stated as counts.
+register_contract("top_k", CommsContract(
+    name="top_k",
+    description="shard-local pruning: ZERO all_to_all, exactly ONE "
+                "all_gather of the (c,) pruned suffix per shard",
+    total_counts={"all_to_all": 0, "all_gather": 1, "psum": 0,
+                  "ppermute": 0},
+    batch_invariant=("all_gather", "all_to_all", "psum", "ppermute")))
 
 
 def _topk_impl(enc: torch.Tensor, k: int, spec: SortSpec) -> torch.Tensor:

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.common import hi_sentinel, lo_sentinel
+from repro_torch.runtime.syncs import sync_site
 
 TIERS = ("off", "cheap", "full")
 _LANES = {"cheap": 2, "full": 4}
@@ -335,7 +336,8 @@ def finalize(audit_vec: torch.Tensor, *, tier: str, n_expected: int,
     launch) and judge it. `n_expected` is the padded per-request key
     count, which the count word equals when nothing was dropped."""
     lanes = lanes_for(tier)
-    v = audit_vec.cpu().numpy().astype(np.uint64)
+    with sync_site("audit.copy"):
+        v = audit_vec.cpu().numpy().astype(np.uint64)
     v = v.reshape(-1, audit_width(tier))
     fp_ok = np.all(v[:, :lanes] == v[:, lanes:2 * lanes], axis=1)
     count = v[:, 2 * lanes].astype(np.int64)

@@ -589,3 +589,86 @@ def test_cuda_service_batch_launches_the_kernels(card, kind):
         assert all(launched[k] > 0 for k in cuda.COUNTERS
                    if k not in cuda.OFF_MAIN_PATH), launched
         assert all(launched[k] == 0 for k in cuda.OFF_MAIN_PATH), launched
+
+
+@pytest.mark.cuda
+def test_cuda_sync_audit_raises_on_an_undocumented_sync(card):
+    """Under the audit's "error" mode a raw device-to-host read raises; a
+    documented site lets its own through and counts it."""
+    from repro_torch.analysis import purity
+    from repro_torch.runtime.syncs import sync_site
+
+    x = _card_keys((1024,))
+    with pytest.raises(purity.HostSyncViolation):
+        purity.count_host_syncs(lambda: int(x.max()), device="cuda")
+
+    def documented():
+        with sync_site("gather"):
+            return int(x.max())
+
+    audit = purity.count_host_syncs(documented, device="cuda")
+    assert audit.result == int(x.max()) and audit.syncs == {"gather": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("door", ["sort", "sort_batched", "argsort",
+                                  "sort_kv", "semisort", "top_k",
+                                  "sort[retry]", "sort[verify=full]"])
+def test_cuda_front_door_syncs_match_their_pinned_formula(card, door):
+    from repro_torch.analysis import lint, purity
+
+    call, batch = lint.purity_doors("cuda")[door]
+    call()
+    audit = purity.count_host_syncs(call, device="cuda")
+    purity.check_pinned(door, audit, batch)
+
+
+@pytest.mark.cuda
+def test_cuda_card_input_on_a_cpu_spec_is_copied_before_it_is_read(card):
+    """Card tensors given to a CPU sort (keys and injected draws) come to
+    the host with a blocking copy, and a pinned source's upload is done
+    before the call returns, so the caller may overwrite it."""
+    from repro_torch.runtime import syncs
+    from repro_torch.sort import SortSpec, sort
+
+    x = _card_keys((8 * 4096,), seed=5)
+    draws = lambda j, n: torch.rand((8, n), device="cuda")  # noqa: E731
+    assert not syncs.queues_upload(x, "cpu")
+    got = sort(x, SortSpec(device="cpu"), uniform=draws).gather()
+    np.testing.assert_array_equal(got, np.sort(x.cpu().numpy()))
+    host = syncs.move(x, "cpu")
+    assert torch.equal(host, x.cpu())
+
+    src = torch.arange(1 << 22, dtype=torch.int64).pin_memory()
+    assert not syncs.queues_upload(src, "cuda")
+    up = syncs.to_device(src, torch.int64, "cuda")
+    src.zero_()
+    assert torch.equal(up.cpu(), torch.arange(1 << 22, dtype=torch.int64))
+
+
+@pytest.mark.cuda
+def test_cuda_probe_counts_launches_the_counting_kernel(card):
+    from repro_torch.kernels.histogram import ops as hops
+
+    x = _card_keys((1 << 20,))
+    q = torch.sort(_card_keys((256,), seed=3)).values
+    cuda.reset_launches()
+    got = hops.probe_counts(x, q)
+    torch.cuda.synchronize()
+    assert cuda.launches["probe_rank_count"] == 1
+    assert sum(cuda.launches.values()) == 1
+    want = hops.probe_counts(x.cpu(), q.cpu(), policy="torch")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_legacy_hss_sort_equals_the_front_door(card):
+    from repro_torch.core import hss
+    from repro_torch.sort import SortSpec, sort
+
+    x = _card_keys((8 * 65536,))
+    got = hss.hss_sort(x)
+    front = sort(x, SortSpec(tag=False))
+    assert torch.equal(got.shards, front.shards)
+    np.testing.assert_array_equal(hss.gather_sorted(got),
+                                  np.sort(x.cpu().numpy()))
