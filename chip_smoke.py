@@ -191,10 +191,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      to its plain version and to np.sort's histogram; `merge_flat_runs`
      of 8 runs of 2^21 keys; `pack_tagged`/`unpack_tagged` at 31 and 63
      bits;
-  last (phase 12, run after 13-25): every kernel (K1, K2 by role, K3,
+  26. model serving (repro_torch.models, repro_torch.launch.serve): (a)
+     Phi-3.5-MoE (src/repro/configs/phi35_moe.py) at full width with 8
+     of its 32 layers (78 GiB of bf16 weights at 32 do not fit the card),
+     bf16, seeded random weights on the card: `serve_batch` of 8 prompts
+     of 2,048 tokens (the chunked flash attention and the big-T MoE
+     dispatch in prefill, the small-T one in decode) and 16 generated
+     tokens, warmed once: tokens in [0, vocab), logits finite, MoE drops,
+     prefill and decode times, tokens/s and peak memory printed; (b) its
+     cached decode (2 layers, float32, capacity factor 4.0) against the
+     teacher-forced forward within 1e-3 (float32; the reference's bf16
+     smoke tolerance, tests/test_arch_smoke.py:91-101, is 0.15);
+     (c) mamba2-370m whole: `serve_batch` of 8 x 256 tokens in bf16 and
+     the same check in float32; (d) `serve_bucketed` of 64 requests of
+     lognormal(3.5, 0.6) lengths clipped to [8, 128] over 8 buckets on
+     (a)'s configuration: each request served once, buckets contiguous
+     and non-decreasing, pad fractions printed, the bucketing sort's
+     kernels gated (`PATH_KERNELS["serve_bucketed"]`: K1, K2's reverse
+     role and K4s; its 8-key shard rows reach neither K2's tail nor K3);
+  last (phase 12, run after 13-26): every kernel (K1, K2 by role, K3,
      K4s) against its plain version,
      exactly, at every shape and parameter the main paths of phases 4-5,
-     7-10, 13-17, 19-22 and 25 called it with (recorded as they ran,
+     7-10, 13-17, 19-22, 25 and 26 called it with (recorded as they ran,
      `kernel_shapes`):
      multistage's stage 2 searching 8 rows of 4,200,008 keys with
      sentinel tails, ams's 960 probes a row, ragged's full sort of (8,
@@ -2768,6 +2786,215 @@ def legacy_phase(torch, np, card):
     return paths
 
 
+#: Phase 26: the model stack's serving path. Phi-3.5-MoE
+#: (src/repro/configs/phi35_moe.py) at full width with 8 of its 32
+#: layers: all 32 are 41.9 B parameters, 78 GiB of bf16 weights, which do
+#: not fit one 80 GB card beside a cache and activations; 8 are 10.67 B,
+#: 19.9 GiB. A prompt of 2,048 tokens is over attn_chunk (1,024), so the
+#: prefill runs the chunked flash attention and the big-T MoE dispatch;
+#: decode runs the small-T one.
+SERVE_ARCH = "phi3.5-moe-42b-a6.6b"
+SERVE_LAYERS = 8
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 16
+CHECK_LAYERS, CHECK_SEQ, CHECK_PREFILL, CHECK_STEPS = 2, 64, 32, 3
+#: The decode-against-forward checks' tolerance and their capacity factor.
+#: Both checks run in float32, where a sound cached decode reads 1.5e-5
+#: (Phi-3.5-MoE) to 4.2e-5 (mamba2) on an H100 (PERF.md §6); 1e-3
+#: holds them well under the reference's bf16 smoke tolerance of 0.15
+#: (tests/test_arch_smoke.py:91-101), which would pass a decode many times
+#: worse. The capacity factor is smoke_config's 4.0 (registry.py:50), so
+#: that the forward drops no routed token that the decode keeps.
+CHECK_TOL, CHECK_CAPACITY = 1e-3, 4.0
+MAMBA_ARCH = "mamba2-370m"
+MAMBA_PROMPT = 256
+BUCKET_REQUESTS, BUCKETS = 64, 8
+#: serve_bucketed's sort of 64 prompt lengths over 8 shards (7 key bits, 6
+#: tag bits: int32 packing, the kernels): K1 sorts each 8-key shard row
+#: and the 64-key sample, K2 in its reverse role merges the received runs
+#: (64-key rows), K4s ranks; no row is long enough for K2's tail or K3.
+PATH_KERNELS["serve_bucketed"] = ("bitonic_sort_blocks",
+                                  "bitonic_merge_smem.reverse",
+                                  "probe_rank_search")
+
+
+@contextlib.contextmanager
+def model_observer(torch):
+    """While the block runs, keep each MoE layer's drop count and whether
+    each logits tensor is finite (device tensors, read after the block)."""
+    import repro_torch.models.lm as lm
+    import repro_torch.models.moe as moe
+
+    real_ffn, real_unembed = moe.moe_ffn, lm.unembed
+    seen = {"dropped": [], "finite": []}
+
+    def moe_ffn(x, p, cfg, ctx):
+        y, aux = real_ffn(x, p, cfg, ctx)
+        seen["dropped"].append((x.shape[1], aux["dropped"]))
+        return y, aux
+
+    def unembed(params, h, cfg, ctx):
+        logits = real_unembed(params, h, cfg, ctx)
+        seen["finite"].append(torch.isfinite(logits[..., :cfg.vocab]).all())
+        return logits
+
+    moe.moe_ffn, lm.unembed = moe_ffn, unembed
+    try:
+        yield seen
+    finally:
+        moe.moe_ffn, lm.unembed = real_ffn, real_unembed
+
+
+def free_device(torch):
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def served_line(torch, np, cfg, card, name, batch, prompt, gen, **extra):
+    """serve_batch of `cfg` (seeded weights), once to warm up (gen 2) and
+    once measured: tokens in [0, vocab), logits finite, the MoE drops
+    counted by path; one JSON line."""
+    from repro_torch.launch.serve import seeded_params, serve_batch
+    from repro_torch.models import flops
+    from repro_torch.models.lm import tree_map
+
+    t0 = time.perf_counter()
+    params = seeded_params(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    serve_batch(cfg, batch=batch, prompt_len=prompt, gen=2, params=params,
+                device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with model_observer(torch) as seen:
+        toks, stats = serve_batch(cfg, batch=batch, prompt_len=prompt,
+                                  gen=gen, params=params, device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    leaves = []
+    tree_map(leaves.append, params)
+    if toks.shape != (batch, gen) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        fail(f"{name}: tokens outside [0, {cfg.vocab}) or of shape "
+             f"{toks.shape}")
+    if not all(bool(f) for f in seen["finite"]) or not seen["finite"]:
+        fail(f"{name}: non-finite logits")
+    drops = {"prefill": sum(int(d) for s, d in seen["dropped"] if s > 1),
+             "decode": sum(int(d) for s, d in seen["dropped"] if s == 1)}
+    prefill_flops = flops.model_flops(cfg, "prefill", prompt, batch)
+    decode_flops = flops.model_flops(cfg, "decode", prompt + gen // 2, batch)
+    decode_ms = stats["decode_s"] * 1e3 / (gen - 1)
+    emit({"measure": "model_serve", "arch": cfg.name, "family": cfg.family,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": batch,
+          "prompt_len": prompt, "gen": gen, "params": cfg.param_count(),
+          "param_gib": sum(t.numel() * t.element_size() for t in
+                           leaves) / 2 ** 30,
+          "init_s": init_s, "prefill_ms": stats["prefill_s"] * 1e3,
+          "decode_ms_per_token": decode_ms, "tok_per_s": stats["tok_per_s"],
+          "prefill_tflops": prefill_flops / stats["prefill_s"] / 1e12,
+          "decode_tflops": decode_flops / (decode_ms / 1e3) / 1e12,
+          "moe_dropped": drops if cfg.n_experts else None,
+          "peak_gib": peak / 2 ** 30,
+          "tokens_head": toks[0, :8].tolist(), **extra, "card": card})
+    del params, leaves
+    free_device(torch)
+
+
+def decode_check_line(torch, np, cfg, card, name, **extra):
+    """Prefill CHECK_PREFILL tokens, then CHECK_STEPS cached decode steps,
+    each against the teacher-forced forward over CHECK_SEQ tokens, within
+    CHECK_TOL."""
+    from repro_torch.launch.serve import seeded_params
+    from repro_torch.models.lm import forward, tree_map
+    from repro_torch.models.steps import make_prefill_step, make_serve_step
+    from repro_torch.parallel.ctx import local_ctx
+
+    ctx = local_ctx()
+    params = seeded_params(cfg, 1, "cuda")
+    leaves = []
+    tree_map(leaves.append, params)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, CHECK_SEQ)).astype(np.int32)).to(leaves[0].device)
+    with torch.no_grad(), model_observer(torch) as seen:
+        full, _, _ = forward(params, toks, cfg, ctx)
+    fwd_drops = sum(int(d) for _, d in seen["dropped"])
+    last, cache = make_prefill_step(cfg, ctx, CHECK_SEQ)(
+        params, {"tokens": toks[:, :CHECK_PREFILL]})
+    diffs = [float((last - full[:, CHECK_PREFILL - 1]).abs().max())]
+    ok = torch.allclose(last, full[:, CHECK_PREFILL - 1], rtol=CHECK_TOL,
+                        atol=CHECK_TOL)
+    serve = make_serve_step(cfg, ctx)
+    for t in range(CHECK_PREFILL, CHECK_PREFILL + CHECK_STEPS):
+        logits, cache = serve(params, cache, toks[:, t:t + 1], t)
+        diffs.append(float((logits - full[:, t]).abs().max()))
+        ok = ok and torch.allclose(logits, full[:, t], rtol=CHECK_TOL,
+                                   atol=CHECK_TOL)
+    if not ok:
+        fail(f"{name}: cached decode differs from the forward ({diffs})")
+    emit({"measure": "decode_vs_forward", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype, "seq": CHECK_SEQ,
+          "prefill": CHECK_PREFILL, "steps": CHECK_STEPS,
+          "max_abs_diff": diffs, "tol": CHECK_TOL,
+          "forward_moe_dropped": fwd_drops if cfg.n_experts else None,
+          **extra, "card": card})
+    del params, leaves, cache, full
+    free_device(torch)
+
+
+def model_phase(torch, np, card):
+    """Phase 26: the model stack's serving path on the card. (a)
+    Phi-3.5-MoE at full width, 8 of 32 layers, bf16: serve_batch of 8
+    prompts of 2,048 tokens and 16 generated tokens; (b) its cached decode
+    against the teacher-forced forward (2 layers, float32); (c)
+    mamba2-370m whole: serve_batch of 8 x 256 tokens in bf16 and the same
+    check in float32; (d) serve_bucketed of 64 lognormal-length requests
+    (launch/serve.py:129-130) over 8 buckets on (a)'s configuration:
+    every request served once, contiguous non-decreasing buckets, the
+    bucketing sort's kernels gated (PATH_KERNELS)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_bucketed
+
+    cut = f"n_layers {SERVE_LAYERS} of 32 (78 GiB of bf16 weights at 32)"
+    phi = dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
+    served_line(torch, np, phi, card, "phi3.5-moe serve", SERVE_BATCH,
+                SERVE_PROMPT, SERVE_GEN, cut=cut)
+
+    lens = np.random.default_rng(0).lognormal(
+        3.5, 0.6, size=BUCKET_REQUESTS).clip(8, 128).astype(np.int32)
+    t0 = time.perf_counter()
+    (results, totals), launches = launched(torch, lambda: serve_bucketed(
+        phi, prompt_lens=lens, gen=SERVE_GEN, n_buckets=BUCKETS,
+        device="cuda"))
+    wall_s = time.perf_counter() - t0
+    check_path_launches("serve_bucketed", launches,
+                        PATH_KERNELS["serve_bucketed"])
+    flat = np.concatenate([ids for ids, _ in results])
+    if not np.array_equal(np.sort(flat), np.arange(BUCKET_REQUESTS)):
+        fail("serve_bucketed: a request is not served exactly once")
+    if np.any(np.diff(lens[flat]) < 0):
+        fail("serve_bucketed: buckets are not contiguous and non-decreasing")
+    emit({"measure": "serve_bucketed", "arch": phi.name,
+          "n_layers": phi.n_layers, "requests": BUCKET_REQUESTS,
+          "buckets": totals["buckets"], "gen": SERVE_GEN,
+          "sizes": [int(ids.size) for ids, _ in results],
+          "max_len": [int(lens[ids].max()) for ids, _ in results],
+          "pad_frac": [stats["pad_frac"] for _, stats in results],
+          "tokens": totals["tokens"], "serve_s": totals["total_s"],
+          "wall_s": wall_s, "launches": launches, "cut": cut, "card": card})
+    free_device(torch)
+
+    check = dict(n_layers=CHECK_LAYERS, dtype="float32",
+                 moe_capacity_factor=CHECK_CAPACITY)
+    decode_check_line(torch, np, dataclasses.replace(
+        get_config(SERVE_ARCH), **check), card, "phi3.5-moe check",
+        cut=f"n_layers {CHECK_LAYERS} of 32, float32, capacity factor "
+            f"{CHECK_CAPACITY}")
+    mamba = get_config(MAMBA_ARCH)
+    served_line(torch, np, mamba, card, "mamba2 serve", SERVE_BATCH,
+                MAMBA_PROMPT, SERVE_GEN, cut="none")
+    decode_check_line(torch, np, dataclasses.replace(mamba, dtype="float32"),
+                      card, "mamba2 check", cut="none, float32")
+    return {"serve_bucketed": launches}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2829,6 +3056,7 @@ def main() -> int:
     sync_audit_phase(torch, np, card)
     with kernel_shapes(seen):
         paths.update(legacy_phase(torch, np, card))
+        paths.update(model_phase(torch, np, card))
     shapes = path_shapes_phase(torch, seen, card)
     for r in rows:
         r["launches_by_path"] = {k: v[r["counter"]] for k, v in paths.items()}

@@ -29,6 +29,15 @@ process on the CPU and exchange only NumPy arrays:
     (the reference's `repro.sort.semisort` functions called directly);
     `chaotic(fn, chaos, plan)` runs a front door under a FaultPlan of
     either package's chaos module;
+  * `model_ctx(tp, shard_heads)`: the model stack's reference
+    ParallelCtx over an Auto (1, tp) ("data", "model") mesh (the default
+    `repro.parallel.local_ctx()` builds Explicit axes, which the
+    reference's sharding constraints refuse) beside the port's
+    ParallelCtx(tp_size=tp); `model_both(arch, seed, **changes)`: a
+    smoke config in float32 on both sides (`dataclasses.replace`), the
+    reference's `init_params` and its tree carried into the port with
+    `params_from_reference`; `assert_tree_close` compares two trees of
+    arrays leaf by leaf;
   * `assert_bits_equal` / `assert_sort_outputs_equal` /
     `assert_batched_outputs_equal` / `assert_recovery_equal` /
     `assert_audit_equal` / `assert_semisort_equal`:
@@ -49,7 +58,11 @@ import numpy as np
 import torch
 from jax.sharding import AxisType
 
+import repro.configs as rconfigs
+import repro.models.params as rparams
 import repro.sort as rsort
+import repro_torch.configs as tconfigs
+import repro_torch.models.params as tparams
 import repro.sort.driver as rdriver
 import repro_torch.sort as tsort
 from repro.core.common import HSSConfig
@@ -57,6 +70,8 @@ from repro.core.exchange import ExchangeConfig
 from repro.sort import SortSpec as RefSortSpec
 from repro_torch.core.common import HSSConfig as TorchHSSConfig
 from repro_torch.core.exchange import ExchangeConfig as TorchExchangeConfig
+from repro.parallel.ctx import ParallelCtx as RefParallelCtx
+from repro_torch.parallel.ctx import ParallelCtx
 
 
 def auto_mesh(p: int):
@@ -68,6 +83,50 @@ def auto_mesh2d(r1: int, r2: int):
     return jax.make_mesh((r1, r2), ("outer", "inner"),
                          axis_types=(AxisType.Auto,) * 2,
                          devices=jax.devices()[:r1 * r2])
+
+
+def model_ctx(tp: int = 1, shard_heads: bool = True):
+    """(port ctx, reference ctx) of one (dp=1, tp) layout; the reference's
+    over an Auto-axes ("data", "model") mesh of 1 x tp host devices."""
+    mesh = jax.make_mesh((1, tp), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2,
+                         devices=jax.devices()[:tp])
+    ref = RefParallelCtx(mesh=mesh, dp_axes=("data",), tp_axis="model",
+                         shard_heads=shard_heads)
+    return ParallelCtx(tp_size=tp, shard_heads=shard_heads), ref
+
+
+def model_both(arch: str, seed: int = 0, **changes):
+    """(port cfg, reference cfg, port params, reference params): the
+    smoke config of `arch` in float32 with `changes`, the reference's
+    init_params(jr.key(seed)) and its carried copy on the CPU."""
+    changes.setdefault("dtype", "float32")
+    ref_cfg = dataclasses.replace(rconfigs.smoke_config(arch), **changes)
+    cfg = dataclasses.replace(tconfigs.smoke_config(arch), **changes)
+    ref_params = rparams.init_params(ref_cfg, jr.key(seed))
+    params = tparams.params_from_reference(
+        jax.tree.map(np.asarray, ref_params), device="cpu")
+    return cfg, ref_cfg, params, ref_params
+
+
+def assert_tree_close(got, want, rtol: float, atol: float, what: str = ""):
+    """Two trees of arrays (dicts and tuples), leaf by leaf: same
+    structure, shapes and dtypes, values within the tolerance."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), (
+            what, sorted(got), sorted(want))
+        for k in want:
+            assert_tree_close(got[k], want[k], rtol, atol, f"{what}/{k}")
+        return
+    if isinstance(want, (tuple, list)):
+        assert len(got) == len(want), what
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_tree_close(g, w, rtol, atol, f"{what}[{i}]")
+        return
+    g, w = to_numpy(got), np.asarray(want)
+    assert g.shape == w.shape, (what, g.shape, w.shape)
+    assert g.dtype == w.dtype, (what, g.dtype, w.dtype)
+    np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=what)
 
 
 def reference_uniform(seed: int, p: int, n_local: int, k: int):
