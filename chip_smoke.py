@@ -209,7 +209,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      and non-decreasing, pad fractions printed, the bucketing sort's
      kernels gated (`PATH_KERNELS["serve_bucketed"]`: K1, K2's reverse
      role and K4s; its 8-key shard rows reach neither K2's tail nor K3);
-  last (phase 12, run after 13-26): every kernel (K1, K2 by role, K3,
+  27. model training (repro_torch.launch.train, models/steps, optim,
+     ckpt, runtime/ft.TrainSupervisor): (a) Phi-3.5-MoE at full width
+     with 2 of its 32 layers (AdamW's 12 bytes a parameter: 32.0 GiB at
+     2), bf16, `train` of 4 steps of 8 x 2,048 tokens (the chunked flash
+     attention and its backward, the big-T MoE dispatch, remat "block"):
+     each step's loss, grad norm, lr and MoE drops, the warm step time,
+     tokens/s, TFLOP/s and peak memory; every loss and grad norm finite,
+     grad norms above 0, every parameter leaf changed but the norms
+     initialised to ones (bf16 1.0 minus 3e-4 rounds back), no kernel launched
+     (the path runs no sort: `check_path_launches("train", ..., ())`);
+     (a') whether (a)'s rise in loss is the model's or bf16's: Phi at
+     full width with 1 layer, the same 4 steps from the same seed in
+     bf16 and float32 at lr 3e-4 and in bf16 at 3e-5, each run's losses
+     (a reading, gated on finite losses);
+     (b) the flash attention's backward (`layers.FlashAttention`)
+     against plain autograd through `attention_full` at Phi's head shape
+     (32 heads, 8 KV heads, head_dim 128), 2,048 tokens in chunks of
+     1,024, float32, causal, within 5e-4 (the reference's tolerance,
+     tests/test_attention.py:46); (c) mamba2-370m whole (48 layers), bf16,
+     6 steps of 8 x 512 tokens twice without a checkpoint and once under
+     TrainSupervisor (a checkpoint every 2 steps, keep 2, a failure raised
+     after step 3): the two uninterrupted runs equal bit for bit (the
+     step is deterministic on the card), one restart, the restored
+     tensors equal to the saved snapshot and written into the state's
+     own tensors (no device bytes allocated), the resumed losses equal to the
+     uninterrupted run's bit for bit, each save's bytes and seconds; the
+     checkpoint directory removed;
+  last (phase 12, run after 13-27): every kernel (K1, K2 by role, K3,
      K4s) against its plain version,
      exactly, at every shape and parameter the main paths of phases 4-5,
      7-10, 13-17, 19-22, 25 and 26 called it with (recorded as they ran,
@@ -2995,6 +3022,338 @@ def model_phase(torch, np, card):
     return {"serve_bucketed": launches}
 
 
+#: Phase 27: the model stack's training path. (a) Phi-3.5-MoE at full
+#: width with 2 of its 32 layers, bf16, AdamW (the config's optimizer and
+#: remat "block"): 2.86 B parameters hold 32.0 GiB standing (bf16
+#: parameter and gradient, float32 m and v: 12 bytes a parameter), and
+#: each float32 temporary of the update of the stacked (2, 16, 4,096,
+#: 6,400) expert weights adds 3.1 GiB; 3 layers (46.5 GiB standing) leave
+#: no margin on one 80 GB card, 8 (119 GiB) do not fit. 8 x 2,048 tokens
+#: is over attn_chunk (1,024): the chunked flash attention, its backward
+#: and the big-T MoE dispatch run. (a') The same steps at 1 layer in bf16
+#: and float32 at (a)'s lr and in bf16 at a tenth of it. (b) The flash backward at Phi's head
+#: shape against plain autograd through attention_full, float32, within
+#: the reference's own tolerance for that comparison
+#: (tests/test_attention.py:46). (c) mamba2-370m whole (48 layers) under
+#: TrainSupervisor: a checkpoint every 2 steps, keep 2, one failure
+#: injected after step 3.
+TRAIN_LAYERS = 2
+PROBE_LAYERS = 1
+PROBE_RUNS = (("bfloat16", 3e-4), ("float32", 3e-4), ("bfloat16", 3e-5))
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 4
+FLASH_SHAPE = dict(heads=32, kv_heads=8, head_dim=128, seq=2048, chunk=1024)
+FLASH_TOL = 5e-4
+DRILL_STEPS, DRILL_BATCH, DRILL_SEQ = 6, 8, 512
+DRILL_SAVE_EVERY, DRILL_KEEP, DRILL_FAIL_AT = 2, 2, 3
+
+
+def train_reckoning(cfg, batch: int, seq: int) -> dict:
+    """The training state's device memory, derived from the config's
+    shapes (not measured): 12 bytes a parameter standing under AdamW
+    (bf16 parameter and gradient, float32 m and v), the float32 temporary
+    of the update of the largest leaf, the logits in bf16 and float32."""
+    import math
+    from repro_torch.models.params import arch_layout
+
+    n = cfg.param_count()
+    largest = max(math.prod(p.shape) for p in arch_layout(cfg).values())
+    logits = batch * seq * cfg.padded_vocab
+    return {"params": n, "standing_gib": 12 * n / 2 ** 30,
+            "largest_leaf": largest, "update_temp_gib": 4 * largest / 2 ** 30,
+            "logits_bf16_gib": 2 * logits / 2 ** 30,
+            "logits_f32_gib": 4 * logits / 2 ** 30}
+
+
+def model_train_line(torch, np, cfg, card, cut: str):
+    """Phase 27 (a): launch/train.train of `cfg`, TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens, no checkpoint; each step's metrics, the
+    warm step time, tokens/s, TFLOP/s and peak memory; gated on finite
+    losses and grad norms, a grad norm above 0, every parameter leaf
+    changed but those initialised to ones (a bf16 1.0 moves by less than
+    half an ulp at this lr), and no sort-kernel launch."""
+    from repro_torch.launch.serve import seeded_params
+    from repro_torch.launch.train import train
+    from repro_torch.models import flops
+    from repro_torch.models.lm import tree_paths
+    from repro_torch.models.params import arch_layout
+
+    emit({"measure": "train_memory_reckoning", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          **train_reckoning(cfg, TRAIN_BATCH, TRAIN_SEQ),
+          "derived": "from shapes, not measured", "card": card})
+    steps, stamps = [], []
+
+    def on_metrics(step, metrics, slow):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        steps.append({k: float(v) for k, v in metrics.items()})
+
+    torch.cuda.reset_peak_memory_stats()
+    (state, _), launches = launched(torch, lambda: train(
+        cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        ckpt_dir=None, on_metrics=on_metrics, device="cuda"))
+    peak = torch.cuda.max_memory_allocated()
+    check_path_launches("train", launches, ())
+    params, _ = state
+    init = tree_paths(seeded_params(cfg, 0, "cuda"))
+    unchanged = sorted(p for p, t in tree_paths(params).items()
+                       if torch.equal(t, init[p]))
+    # a leaf initialised to ones (the norms) moves by lr (at most 3e-4
+    # here) a step, under half a bf16 ulp at 1.0: it may stay put
+    ones = {p for p, spec in arch_layout(cfg).items() if spec.init == "ones"}
+    losses = [m["loss"] for m in steps]
+    norms = [m["grad_norm"] for m in steps]
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        fail(f"model_train: non-finite loss or grad norm ({losses}, {norms})")
+    if min(norms) <= 0:
+        fail(f"model_train: a grad norm of 0 ({norms})")
+    if not set(unchanged) <= ones or len(unchanged) == len(init):
+        fail(f"model_train: parameter leaves unchanged: {unchanged}")
+    step_s = statistics.median(b - a for a, b in zip(stamps, stamps[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit({"measure": "model_train", "arch": cfg.name, "family": cfg.family,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          "optimizer": cfg.optimizer, "remat": cfg.remat,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "loss": losses, "grad_norm": norms,
+          "lr": [m["lr"] for m in steps],
+          "moe_dropped": [m.get("moe_dropped") for m in steps],
+          "step_ms": step_s * 1e3,
+          "step_ms_each": [(b - a) * 1e3 for a, b in zip(stamps,
+                                                          stamps[1:])],
+          "tok_per_s": tokens / step_s,
+          "train_tflops": flops.model_flops(cfg, "train", TRAIN_SEQ,
+                                            TRAIN_BATCH) / step_s / 1e12,
+          "flops_note": "models/flops.model_flops(cfg, 'train'): 6 N D "
+                        "plus attention; remat's second forward not counted",
+          "peak_gib": peak / 2 ** 30,
+          "leaves_changed": f"{len(init) - len(unchanged)}/{len(init)}",
+          "unchanged_ones_leaves": unchanged,
+          "launches": launches, "cut": cut, "card": card})
+    del state, params
+    free_device(torch)
+    return launches
+
+
+def train_dtype_probe_line(torch, np, cfg, card):
+    """Phase 27 (a'): is (a)'s rise in loss a property of the model and
+    the 4-step schedule, or a bf16 fault of the port? `cfg` at
+    PROBE_LAYERS layers, TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+    tokens from the same seed, for each (dtype, lr) of PROBE_RUNS: each
+    run's losses and grad norms. A reading, gated on finite losses."""
+    from repro_torch.launch.train import train
+
+    runs = []
+    t0 = time.perf_counter()
+    for dtype, lr in PROBE_RUNS:
+        c = dataclasses.replace(cfg, n_layers=PROBE_LAYERS, dtype=dtype)
+        norms = []
+        _, losses = train(
+            c, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            ckpt_dir=None, lr=lr, device="cuda",
+            on_metrics=lambda s, m, slow: norms.append(float(m["grad_norm"])))
+        free_device(torch)
+        if not np.isfinite(losses).all():
+            fail(f"train_dtype_probe: non-finite loss ({dtype}, lr {lr}: "
+                 f"{losses})")
+        runs.append({"dtype": dtype, "lr": lr, "loss": losses,
+                     "grad_norm": norms})
+    emit({"measure": "train_dtype_probe", "arch": cfg.name,
+          "n_layers": PROBE_LAYERS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "steps": TRAIN_STEPS, "runs": runs,
+          "wall_s": time.perf_counter() - t0, "card": card})
+
+
+def flash_grad_line(torch, card):
+    """Phase 27 (b): the flash Function's dq, dk, dv (and output) against
+    plain autograd through attention_full at Phi-3.5-MoE's head shape,
+    batch 1, float32, causal, within FLASH_TOL; and each one's warm time
+    (forward and backward, median of 3)."""
+    from repro_torch.models.layers import attention_chunked, attention_full
+    from repro_torch.sort.api import resolve_device
+
+    f = FLASH_SHAPE
+    dev = resolve_device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(h):
+        return torch.randn((1, f["seq"], h, f["head_dim"]), generator=g,
+                           device=dev, dtype=torch.float32)
+
+    q, k, v = draw(f["heads"]), draw(f["kv_heads"]), draw(f["kv_heads"])
+    do = draw(f["heads"])
+
+    def run(fn):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*qkv)
+        return (out.detach(),) + torch.autograd.grad(out, qkv, do)
+
+    flash = lambda *a: attention_chunked(*a, causal=True, chunk=f["chunk"])
+    full = lambda *a: attention_full(*a, causal=True)
+    got, want = run(flash), run(full)
+    diffs = {name: float((a - b).abs().max())
+             for name, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+    if max(diffs.values()) > FLASH_TOL:
+        fail(f"flash_grad_check: {diffs} over {FLASH_TOL}")
+    times = {}
+    for name, fn in (("flash_ms", flash), ("full_ms", full)):
+        times[name] = median_ms(torch, lambda fn=fn: run(fn), reps=3)[0]
+    emit({"measure": "flash_grad_check", **f, "batch": 1, "dtype": "float32",
+          "causal": True, "max_abs_diff": diffs, "tol": FLASH_TOL,
+          "tol_source": "tests/test_attention.py:46", **times, "card": card})
+    del q, k, v, do, got, want
+    free_device(torch)
+
+
+@contextlib.contextmanager
+def drill_observer(torch):
+    """While the block runs: keep the supervisors train() builds (with
+    keep DRILL_KEEP), each save's seconds and bytes and the snapshot it
+    wrote, and for each restore its step and whether its tensors equal
+    that step's snapshot (compared as restored: the step then updates
+    them in place), whether it wrote into the supervisor's own tensors
+    and the device bytes it allocated."""
+    import os
+
+    import repro_torch.ckpt.checkpoint as ck
+    import repro_torch.launch.train as tr
+    import repro_torch.runtime.ft as ft
+    from repro_torch.models.lm import tree_leaves
+
+    real_sup, real_save, real_restore = tr.TrainSupervisor, ck.save, \
+        ft.restore
+    seen = {"supervisors": [], "saves": [], "snapshots": {}, "restored": []}
+
+    def supervisor(*a, **kw):
+        sup = real_sup(*a, **{**kw, "keep": DRILL_KEEP})
+        seen["supervisors"].append(sup)
+        return sup
+
+    def save(ckpt_dir, step, tree, **kw):
+        t0 = time.perf_counter()
+        final = real_save(ckpt_dir, step, tree, **kw)
+        seconds = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(final, n))
+                   for n in os.listdir(final))
+        seen["saves"].append({"step": step, "s": seconds, "bytes": size})
+        seen["snapshots"][step] = tree
+        return final
+
+    def restore(ckpt_dir, step, like, **kw):
+        before = torch.cuda.memory_allocated()
+        out = real_restore(ckpt_dir, step, like, **kw)
+        grown = torch.cuda.memory_allocated() - before
+        leaves = tree_leaves(list(out[0]))
+        in_place = all(a is b for a, b in zip(leaves,
+                                              tree_leaves(list(like))))
+        equal = all(a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                    for a, b in zip(leaves, tree_leaves(
+                        list(seen["snapshots"][step]))))
+        seen["restored"].append((step, equal, in_place, grown))
+        return out
+
+    tr.TrainSupervisor, ck.save, ft.restore = supervisor, save, restore
+    try:
+        yield seen
+    finally:
+        tr.TrainSupervisor, ck.save, ft.restore = real_sup, real_save, \
+            real_restore
+
+
+def train_drill_line(torch, np, cfg, card):
+    """Phase 27 (c): train() of `cfg` for DRILL_STEPS steps twice without
+    a checkpoint and once under TrainSupervisor (a checkpoint every
+    DRILL_SAVE_EVERY steps, keep DRILL_KEEP, a failure raised after step
+    DRILL_FAIL_AT): the two uninterrupted runs equal bit for bit, one
+    restart, the restored tensors equal to the saved snapshot and
+    written into the state's own tensors (no device bytes allocated), and
+    the resumed steps' losses equal to the uninterrupted run's bit for
+    bit."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.train import train
+
+    kw = dict(steps=DRILL_STEPS, batch=DRILL_BATCH, seq=DRILL_SEQ,
+              device="cuda")
+    plain = [train(cfg, ckpt_dir=None, on_metrics=lambda *a: None, **kw)[1]
+             for _ in range(2)]
+    free_device(torch)
+    deterministic = plain[0] == plain[1]
+    failed = []
+
+    def on_metrics(step, metrics, slow):
+        if step == DRILL_FAIL_AT and not failed:
+            failed.append(step)
+            raise RuntimeError("injected failure (chip_smoke drill)")
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        with drill_observer(torch) as seen:
+            _, history = train(cfg, ckpt_dir=d, save_every=DRILL_SAVE_EVERY,
+                               on_metrics=on_metrics, **kw)
+        wall_s = time.perf_counter() - t0
+        kept = sorted(os.listdir(d))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    (sup,) = seen["supervisors"]
+    if sup.restarts != 1 or len(seen["restored"]) != 1:
+        fail(f"train drill: {sup.restarts} restarts, "
+             f"{len(seen['restored'])} restores (want 1 and 1)")
+    step, equal, in_place, grown = seen["restored"][0]
+    if not equal:
+        fail(f"train drill: the tensors restored at step {step} differ from "
+             "those saved")
+    # the restore writes into the state the step updates: one copy of the
+    # state on the card across a restart
+    if not in_place or grown > 0:
+        fail(f"train drill: the restore made a second copy of the state "
+             f"(in place {in_place}, {grown} device bytes allocated)")
+    # history: steps 0..DRILL_FAIL_AT, then step..DRILL_STEPS-1 again
+    resumed = history[DRILL_FAIL_AT + 1:]
+    want = plain[0][step:]
+    # the step is deterministic on the card (PERF.md §6), so the
+    # gate is bit for bit
+    if not deterministic:
+        fail(f"train drill: two uninterrupted runs differ ({plain})")
+    if resumed != want:
+        fail(f"train drill: resumed losses {resumed} != {want}")
+    emit({"measure": "train_drill", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": DRILL_BATCH,
+          "seq": DRILL_SEQ, "steps": DRILL_STEPS,
+          "save_every": DRILL_SAVE_EVERY, "keep": DRILL_KEEP,
+          "failed_after_step": DRILL_FAIL_AT, "restored_step": step,
+          "restarts": sup.restarts, "restored_equal_saved": equal,
+          "restored_in_place": in_place, "restore_alloc_bytes": grown,
+          "deterministic": deterministic,
+          "uninterrupted_losses": plain, "resumed_losses": resumed,
+          "saves": seen["saves"],
+          "kept": kept, "wall_s": wall_s, "card": card})
+    free_device(torch)
+
+
+def train_phase(torch, np, card):
+    """Phase 27: the model stack's training path on the card: (a) Phi-3.5-
+    MoE at full width, 2 of 32 layers, launch/train.train of 8 x 2,048
+    tokens; (a') the same at 1 layer in bf16 and float32; (b) the flash
+    backward against plain autograd; (c) the mamba2-370m supervisor
+    drill."""
+    from repro_torch.configs import get_config
+
+    phi = dataclasses.replace(get_config(SERVE_ARCH), n_layers=TRAIN_LAYERS)
+    launches = model_train_line(
+        torch, np, phi, card,
+        cut=f"n_layers {TRAIN_LAYERS} of 32: AdamW holds 12 bytes a "
+            "parameter, 32.0 GiB at 2 layers, 46.5 GiB at 3 plus 3.1 GiB a "
+            "float32 update temporary")
+    train_dtype_probe_line(torch, np, phi, card)
+    flash_grad_line(torch, card)
+    train_drill_line(torch, np, get_config(MAMBA_ARCH), card)
+    return {"train": launches}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3057,6 +3416,7 @@ def main() -> int:
     with kernel_shapes(seen):
         paths.update(legacy_phase(torch, np, card))
         paths.update(model_phase(torch, np, card))
+        paths.update(train_phase(torch, np, card))
     shapes = path_shapes_phase(torch, seen, card)
     for r in rows:
         r["launches_by_path"] = {k: v[r["counter"]] for k, v in paths.items()}

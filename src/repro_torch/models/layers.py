@@ -1,5 +1,5 @@
 """Core layers: RMSNorm, RoPE, GQA attention (full / chunked-causal flash /
-context-parallel / decode-with-cache), SwiGLU MLP. Forward only.
+context-parallel / decode-with-cache), SwiGLU MLP.
 
 Counterpart of `repro.models.layers`: plain functions over param dicts of
 tensors, written as explicit torch ops that follow the reference's
@@ -100,7 +100,9 @@ def _pair_mask(i, j, chunk: int, causal: bool, window: int, device, off=0):
 
 def _online_softmax(qg, k, v, pairs, chunk, mask_fn):
     """The flash scan's carry over `pairs`: acc (b,s,hkv,g,d), m and l
-    (b,hkv,g,s), all float32; one online-softmax step a pair."""
+    (b,hkv,g,s), all float32; one online-softmax step a pair. The carry is
+    written in place, so the scan runs outside autograd (inside
+    `FlashAttention.forward`)."""
     b, s, hkv, g, d = qg.shape
     scale = 1.0 / math.sqrt(d)
     dev = qg.device
@@ -127,37 +129,75 @@ def _online_softmax(qg, k, v, pairs, chunk, mask_fn):
     return acc, m, l
 
 
-def _flash_forward(qg, k, v, *, causal, chunk, window):
-    """Online-softmax block attention forward. Returns (out, lse)."""
-    s = qg.shape[1]
-    t = s // chunk
-    pairs = _pair_lists(t, chunk, causal, window)
-    acc, m, l = _online_softmax(
-        qg, k, v, pairs, chunk,
-        lambda i, j: _pair_mask(i, j, chunk, causal, window, qg.device))
+def _flash_forward(qg, k, v, pairs, chunk, mask_fn):
+    """Online-softmax block attention forward over `pairs`. Returns (out,
+    lse); lse: (b, hkv, g, s)."""
+    acc, m, l = _online_softmax(qg, k, v, pairs, chunk, mask_fn)
     l_safe = torch.clamp(l, min=1e-20)
     out = (acc / l_safe.permute(0, 3, 1, 2)[..., None]).to(qg.dtype)
     lse = torch.where(l > 0, torch.where(torch.isfinite(m), m, 0.0)
                       + torch.log(l_safe), -math.inf)
-    return out, lse                     # lse: (b, hkv, g, s)
+    return out, lse
 
 
-def _flash_offset_fwd(qg, k, v, off: int, *, causal, chunk, window):
-    """Flash forward where the q rows sit at global offset `off` into the
-    kv context (a context-parallel shard): the pair grid is the full
-    (s_q/chunk x s_kv/chunk) rectangle, causality a mask."""
-    t_q, t_kv = qg.shape[1] // chunk, k.shape[1] // chunk
-    pairs = [(i, j) for i in range(t_q) for j in range(t_kv)]
-    acc, _, l = _online_softmax(
-        qg, k, v, pairs, chunk,
-        lambda i, j: _pair_mask(i, j, chunk, causal, window, qg.device, off))
-    l_safe = torch.clamp(l, min=1e-20)
-    return (acc / l_safe.permute(0, 3, 1, 2)[..., None]).to(qg.dtype)
+def _flash_backward(qg, k, v, out, lse, do, pairs, chunk, mask_fn):
+    """The FlashAttention-2 backward over `pairs`: each block's
+    probabilities recomputed from the saved logsumexp (rows whose lse is
+    -inf see no key), dq, dk and dv accumulated in float32 and cast to the
+    inputs' dtypes."""
+    b, s, hkv, g, d = qg.shape
+    scale = 1.0 / math.sqrt(d)
+    f32 = dict(dtype=torch.float32, device=qg.device)
+    # delta = rowsum(do * out): (b, hkv, g, s)
+    delta = torch.sum(do.float() * out.float(), dim=-1).permute(0, 2, 3, 1)
+    dq = torch.zeros((b, s, hkv, g, d), **f32)
+    dk = torch.zeros(k.shape, **f32)
+    dv = torch.zeros(v.shape, **f32)
+    for i, j in pairs:
+        qs, ks = slice(i * chunk, (i + 1) * chunk), slice(j * chunk,
+                                                          (j + 1) * chunk)
+        qc, kc, vc = qg[:, qs].float(), k[:, ks].float(), v[:, ks].float()
+        doc = do[:, qs].float()
+        lsec = lse[..., qs]
+        sco = _scores(qc, kc, scale)
+        live = torch.isfinite(lsec)
+        p = torch.exp(sco - torch.where(live, lsec, 0.0)[..., None])
+        p = torch.where(mask_fn(i, j)[None, None, None] & live[..., None],
+                        p, 0.0)
+        dv[:, ks] += torch.einsum("bhgqk,bqhgd->bkhd", p, doc)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", doc, vc)
+        ds = p * (dp - delta[..., qs, None]) * scale
+        dq[:, qs] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kc)
+        dk[:, ks] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qc)
+    return dq.to(qg.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the reference's memory-exact backward (the
+    custom VJP of `_make_flash`, layers.py:127-195): the forward saves
+    (qg, k, v, out, lse) and no per-block residual; the backward recomputes
+    each block's probabilities. `pairs` and `mask_fn(i, j)` say which
+    (q chunk, kv chunk) blocks the scan visits and which of their entries
+    are live, so the context-parallel shard (q rows at an offset into the
+    context) runs the same Function."""
+
+    @staticmethod
+    def forward(ctx, qg, k, v, pairs, chunk, mask_fn):
+        out, lse = _flash_forward(qg, k, v, pairs, chunk, mask_fn)
+        ctx.save_for_backward(qg, k, v, out, lse)
+        ctx.pairs, ctx.chunk, ctx.mask_fn = pairs, chunk, mask_fn
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qg, k, v, out, lse = ctx.saved_tensors
+        return _flash_backward(qg, k, v, out, lse, do, ctx.pairs, ctx.chunk,
+                               ctx.mask_fn) + (None, None, None)
 
 
 def attention_chunked(q, k, v, *, causal: bool, chunk: int, ctx=None,
                       window: int = 0):
-    """Flash-style block attention (the forward of the reference's
+    """Flash-style block attention (`FlashAttention`: the reference's
     custom-VJP flash attention)."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
@@ -165,8 +205,9 @@ def attention_chunked(q, k, v, *, causal: bool, chunk: int, ctx=None,
     if s % chunk:
         raise ValueError(f"context {s} is not a multiple of chunk {chunk}")
     qg = q.reshape(b, s, hkv, g, d)
-    out, _ = _flash_forward(qg, k, v, causal=causal, chunk=chunk,
-                            window=window)
+    out = FlashAttention.apply(
+        qg, k, v, _pair_lists(s // chunk, chunk, causal, window), chunk,
+        lambda i, j: _pair_mask(i, j, chunk, causal, window, qg.device))
     return out.reshape(b, s, hq, d)
 
 
@@ -174,20 +215,28 @@ def attention_seqpar(q, k, v, *, causal: bool, chunk: int, ctx,
                      window: int = 0):
     """Context-parallel attention for archs whose head counts do not divide
     the TP axis: q splits over the context dim into the ctx's tp shards,
-    K/V stay whole, and each shard runs the offset flash scan over its q
-    rows against the whole context."""
+    K/V stay whole, and each shard runs the flash scan over its q rows
+    against the whole context: the full (q chunks x kv chunks) rectangle
+    of pairs, causality a mask at the shard's offset. The reference
+    differentiates this scan as a plain scan; the port runs the same
+    `FlashAttention`, whose backward gives the same gradients, and dk/dv
+    sum over the shards as the reference's shard_map transpose sums them."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
     tp = ctx.tp_size
     s_local = s // tp
     c = min(chunk, s_local)
+    pairs = [(i, j) for i in range(s_local // c)
+             for j in range(k.shape[1] // c)]
     outs = []
     for r in range(tp):
-        qb = q[:, r * s_local:(r + 1) * s_local]
-        qg = qb.reshape(b, s_local, hkv, g, d)
-        o = _flash_offset_fwd(qg, k, v, r * s_local, causal=causal, chunk=c,
-                              window=window)
+        qg = q[:, r * s_local:(r + 1) * s_local].reshape(b, s_local, hkv, g,
+                                                         d)
+        o = FlashAttention.apply(
+            qg, k, v, pairs, c,
+            lambda i, j, off=r * s_local: _pair_mask(
+                i, j, c, causal, window, q.device, off))
         outs.append(o.reshape(b, s_local, hq, d))
     return torch.cat(outs, dim=1)
 

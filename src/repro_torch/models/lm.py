@@ -1,17 +1,18 @@
-"""Model assembly: forward, prefill and single-token decode for all assigned
-families (dense / moe / ssm / hybrid / encdec / vlm).
+"""Model assembly: train forward and loss, prefill, and single-token decode
+for all assigned families (dense / moe / ssm / hybrid / encdec / vlm).
 
-Counterpart of `repro.models.lm`, forward only. Layer params carry a
-leading L axis; the reference's `lax.scan` over them is a Python loop here
-(remat has no meaning for serving), and a decode cache is a tree of
-stacked (L, ...) tensors that each step updates in place, layer by layer
-(the serving loop owns it, as the reference's donated cache). The hybrid
-(Zamba2) family interleaves loop segments with its single shared
-attention block.
+Counterpart of `repro.models.lm`. Layer params carry a leading L axis;
+the reference's `lax.scan` over them is a Python loop here, each layer
+under activation checkpointing when the config asks for remat and
+gradients are on, and a decode cache is a tree of stacked (L, ...)
+tensors that each step updates in place, layer by layer (the serving loop
+owns it, as the reference's donated cache). The hybrid (Zamba2) family
+interleaves loop segments with its single shared attention block.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import attn_block, mlp_block, rmsnorm
@@ -30,6 +31,36 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, *leaves) for leaves in zip(tree, *rest))
     return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree, in `tree_map`'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_paths(tree, prefix=()) -> dict:
+    """{path key: leaf} over nested dicts (sorted keys, as jax flattens
+    them) and tuples or lists (by index), keys joined by "/"
+    ("layers/attn/wq"; "0/embed/w" in a (params, state) pair)."""
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {"/".join(prefix): tree}
+    flat = {}
+    for k, v in items:
+        flat.update(tree_paths(v, prefix + (str(k),)))
+    return flat
+
+
+def tree_unflatten(like, leaves):
+    """A tree of `like`'s structure holding `leaves` in `tree_map`'s
+    order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def _store(full: torch.Tensor, new: torch.Tensor):
@@ -86,21 +117,26 @@ def _ssm_body(cfg, ctx):
     return body
 
 
-def _n_layers(layer_params) -> int:
-    leaves = []
-    tree_map(leaves.append, layer_params)
-    return leaves[0].shape[0]
-
-
 def _scan_layers(body, h, layer_params, positions, cfg, *, ctx=None,
                  cache=None, pos=None):
     """Run `body` over the stacked layer params (and per-layer cache,
-    written back in place). Returns (h, cache, aux stacked over layers)."""
+    written back in place). Returns (h, cache, aux stacked over layers).
+
+    With cfg.remat == "block", gradients on and no cache, each layer's
+    body runs under activation checkpointing (the reference's
+    jax.checkpoint of its scan body): the backward recomputes the layer
+    from its input instead of keeping its activations."""
+    remat = (cfg.remat == "block" and cache is None
+             and torch.is_grad_enabled())
     auxes = []
-    for i in range(_n_layers(layer_params)):
+    for i in range(tree_leaves(layer_params)[0].shape[0]):
         lp = tree_map(lambda t: t[i], layer_params)
         lc = tree_map(lambda t: t[i], cache)
-        h, nc, aux = body(h, lp, positions, cache=lc, pos=pos)
+        if remat:
+            h, nc, aux = checkpoint(body, h, lp, positions,
+                                    use_reentrant=False)
+        else:
+            h, nc, aux = body(h, lp, positions, cache=lc, pos=pos)
         if cache is not None:
             tree_map(_store, lc, nc)
         auxes.append(aux)
@@ -253,3 +289,20 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, ctx,
                 "enc_out": torch.zeros((batch, cfg.enc_ctx, cfg.d_model),
                                        dtype=dt, device=device)}
     raise ValueError(cfg.family)
+
+
+# ---------------------------------------------------------------- losses
+def lm_loss(logits, labels, cfg: ArchConfig):
+    """Mean cross-entropy over labels >= 0, with a float32 logsumexp.
+
+    The label's logit is gathered, which gives the reference's iota-mask
+    sum bit for bit (one term, the rest zeros) without a (b, s, V)
+    temporary."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    valid = labels >= 0
+    idx = torch.where(valid, labels, 0).long()[..., None]
+    ll = torch.where(valid, torch.gather(lf, -1, idx)[..., 0], 0.0)
+    mask = valid.float()
+    n = torch.clamp(mask.sum(), min=1.0)
+    return torch.sum((lse - ll) * mask) / n

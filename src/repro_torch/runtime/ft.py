@@ -1,5 +1,5 @@
-"""Fault tolerance of the serving layer: straggler detection and a
-supervised executor (counterpart of repro.runtime.ft, :32-137).
+"""Fault tolerance: straggler detection, a supervised executor and the
+train loop's restart supervisor (counterpart of repro.runtime.ft).
 
 StepTimer keeps an EWMA of step wall time and flags stragglers (steps
 slower than `threshold` x the EWMA). The serving layer
@@ -11,9 +11,9 @@ SupervisedExecutor is a one-worker thread pool under restart supervision:
 the sort service runs every batch on it, and rebuilds it when a batch
 poisons the worker.
 
-The reference's third class, TrainSupervisor, wraps a train loop in
-checkpoint and restart; it needs the checkpoint stack and belongs to the
-model stack's port (ROADMAP queue 1 item 4), so it is not here.
+TrainSupervisor wraps a train loop in checkpoint and restart: on any
+step exception the loop restarts from the latest atomically committed
+checkpoint (repro_torch.ckpt), at most `max_restarts` times.
 """
 from __future__ import annotations
 
@@ -21,6 +21,11 @@ import concurrent.futures
 import dataclasses
 import statistics
 import threading
+import time
+from typing import Callable
+
+from repro_torch.ckpt import AsyncCheckpointer, latest_step, restore, save
+from repro_torch.sort.api import resolve_device
 
 
 @dataclasses.dataclass
@@ -126,3 +131,77 @@ class SupervisedExecutor:
     def snapshot(self) -> dict:
         return {"restarts": self.restarts,
                 "max_restarts": self.max_restarts}
+
+
+class TrainSupervisor:
+    """Checkpoint/restart supervision of a train loop (the reference's
+    TrainSupervisor, ft.py:139-196), restoring onto `device`.
+
+    A step function may update the state in place, as the port's train
+    step does (the reference donates its state instead). So after a step
+    has run, `init_state` is no longer the initial state: a failure with
+    no committed checkpoint to restore is raised, not restarted from it.
+    A restart restores the checkpoint into `init_state`'s own tensors, so
+    the device holds one copy of the state across restarts.
+    """
+
+    def __init__(self, ckpt_dir: str, *, save_every: int = 100,
+                 max_restarts: int = 3, keep: int = 3, async_save: bool = True,
+                 device="cuda"):
+        self.ckpt_dir = ckpt_dir
+        self.save_every = save_every
+        self.max_restarts = max_restarts
+        self.keep = keep
+        self.device = resolve_device(device)
+        self.timer = StepTimer()
+        self._ckpt = AsyncCheckpointer(ckpt_dir, keep=keep) if async_save \
+            else None
+        self.restarts = 0
+
+    def _save(self, step, state, extra):
+        if self._ckpt is not None:
+            self._ckpt.save(step, state, extra)
+        else:
+            save(self.ckpt_dir, step, state, extra=extra, keep=self.keep)
+
+    def resume_or_init(self, init_state):
+        """Restore the latest checkpoint into init_state's tensors (in
+        place), or return (0, init_state) for a cold start."""
+        step = latest_step(self.ckpt_dir)
+        if step is None:
+            return 0, init_state
+        state, extra = restore(self.ckpt_dir, step, init_state,
+                               device=self.device)
+        return extra.get("next_step", step), state
+
+    def run(self, init_state, total_steps: int, step_fn: Callable,
+            *, on_metrics: Callable | None = None):
+        """step_fn(step, state) -> (state, metrics). Restarts on exception."""
+        while True:
+            start, state = self.resume_or_init(init_state)
+            try:
+                for step in range(start, total_steps):
+                    t0 = time.monotonic()
+                    state, metrics = step_fn(step, state)
+                    slow = self.timer.record(time.monotonic() - t0)
+                    if on_metrics:
+                        on_metrics(step, metrics, slow)
+                    if (step + 1) % self.save_every == 0 or \
+                            step + 1 == total_steps:
+                        self._save(step + 1, state,
+                                   {"next_step": step + 1})
+                if self._ckpt is not None:
+                    self._ckpt.wait()
+                return state
+            except KeyboardInterrupt:
+                raise
+            except Exception:
+                self.restarts += 1
+                if self.restarts > self.max_restarts:
+                    raise
+                if self._ckpt is not None:
+                    self._ckpt.wait()
+                if latest_step(self.ckpt_dir) is None:
+                    raise
+                # fall through: restore from the latest good checkpoint
+

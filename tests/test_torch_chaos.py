@@ -84,8 +84,9 @@ def test_runtime_package_is_lazy():
     assert issubclass(truntime.InjectedFault, RuntimeError)
     assert not issubclass(truntime.ExecutorDeath, Exception)
     assert truntime.StepTimer.__module__ == "repro_torch.runtime.ft"
-    with pytest.raises(AttributeError):
-        truntime.TrainSupervisor
+    assert truntime.TrainSupervisor.__module__ == "repro_torch.runtime.ft"
+    assert sorted(truntime.__all__) == sorted(
+        __import__("repro.runtime", fromlist=["__all__"]).__all__)
 
 
 @pytest.mark.parametrize("clamp", [None, 8, 40, 10_000])

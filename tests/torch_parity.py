@@ -38,6 +38,8 @@ process on the CPU and exchange only NumPy arrays:
     reference's `init_params` and its tree carried into the port with
     `params_from_reference`; `assert_tree_close` compares two trees of
     arrays leaf by leaf;
+  * `torch_one_thread`: a fixture that runs a test on one torch thread
+    (the training tests' many small ops under several workers);
   * `assert_bits_equal` / `assert_sort_outputs_equal` /
     `assert_batched_outputs_equal` / `assert_recovery_equal` /
     `assert_audit_equal` / `assert_semisort_equal`:
@@ -55,6 +57,7 @@ import dataclasses
 import jax
 import jax.random as jr
 import numpy as np
+import pytest
 import torch
 from jax.sharding import AxisType
 
@@ -72,6 +75,19 @@ from repro_torch.core.common import HSSConfig as TorchHSSConfig
 from repro_torch.core.exchange import ExchangeConfig as TorchExchangeConfig
 from repro.parallel.ctx import ParallelCtx as RefParallelCtx
 from repro_torch.parallel.ctx import ParallelCtx
+
+
+@pytest.fixture
+def torch_one_thread():
+    """One torch intra-op thread while the test runs. The suite runs one
+    worker a core or so; torch's default of a thread a core then has the
+    workers' small ops spin against each other, many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def auto_mesh(p: int):
@@ -107,6 +123,22 @@ def model_both(arch: str, seed: int = 0, **changes):
     params = tparams.params_from_reference(
         jax.tree.map(np.asarray, ref_params), device="cpu")
     return cfg, ref_cfg, params, ref_params
+
+
+def train_batch(cfg, b: int, s: int, seed: int = 0) -> dict:
+    """A NumPy train batch of the family's inputs, (b, s) tokens and
+    labels; three labels are -1 (ignored by the loss)."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    batch["labels"][0, :3] = -1
+    if cfg.family == "encdec":
+        batch["enc"] = rng.standard_normal(
+            (b, cfg.enc_ctx, cfg.d_model)).astype(np.float32)
+    if cfg.embed_inputs:
+        batch["embeds"] = rng.standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def assert_tree_close(got, want, rtol: float, atol: float, what: str = ""):
