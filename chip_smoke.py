@@ -236,7 +236,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      own tensors (no device bytes allocated), the resumed losses equal to the
      uninterrupted run's bit for bit, each save's bytes and seconds; the
      checkpoint directory removed;
-  last (phase 12, run after 13-27): every kernel (K1, K2 by role, K3,
+  28. the launch layer (repro_torch.launch.mesh, specs, dryrun,
+     hillclimb; dp above one): (a) the dry run of all 40 cells on the
+     (16, 16) and (2, 16, 16) meshes on `meta`, in worker processes that
+     see no card: 32 OK and 8 SKIP(full-attention) a mesh (the multi-pod
+     mesh runs its ten train_4k cells only if the single-pod one took
+     over 90 s), no FAIL (a shard that does not divide fails its cell),
+     and kimi-k2's train_4k cell run in this process holding no device
+     byte; the records written to experiments/dryrun_torch.json; (b)
+     phase 27's cell (Phi-3.5-MoE, 2 of 32 layers, bf16, AdamW, 8 x
+     2,048) reckoned on a (1, 1) mesh: its argument bytes equal to what
+     the card holds once the parameters, state and batch sit there,
+     within 512 bytes a tensor, and its FLOPs equal to FlopCounterMode's
+     count of the real step on the card; the reckoned peak printed beside
+     max_memory_allocated and model_flops; (c) the same cell trained 4
+     steps at dp 2 x tp 2 and at dp 1 (losses finite; drops, step time,
+     peak), and decode against forward at dp 2 x tp 2 (2 layers, float32,
+     1e-3, capacity factor 16); (d) hillclimb's kimi_base and
+     granite_base; (e) the card's bf16 matmul rate at 8,192^3 and its
+     copy rate beside the datasheet constants hillclimb uses; (f) the
+     five examples/torch_*.py at their defaults, each a subprocess
+     exiting 0. Paths (b)-(d) launch no kernel (`PATH_KERNELS`);
+  last (phase 12, run after 13-28): every kernel (K1, K2 by role, K3,
      K4s) against its plain version,
      exactly, at every shape and parameter the main paths of phases 4-5,
      7-10, 13-17, 19-22, 25 and 26 called it with (recorded as they ran,
@@ -2925,16 +2946,16 @@ def served_line(torch, np, cfg, card, name, batch, prompt, gen, **extra):
     free_device(torch)
 
 
-def decode_check_line(torch, np, cfg, card, name, **extra):
+def decode_check_line(torch, np, cfg, card, name, ctx=None, **extra):
     """Prefill CHECK_PREFILL tokens, then CHECK_STEPS cached decode steps,
     each against the teacher-forced forward over CHECK_SEQ tokens, within
-    CHECK_TOL."""
+    CHECK_TOL, under `ctx` (default the local (1, 1) layout)."""
     from repro_torch.launch.serve import seeded_params
     from repro_torch.models.lm import forward, tree_map
     from repro_torch.models.steps import make_prefill_step, make_serve_step
     from repro_torch.parallel.ctx import local_ctx
 
-    ctx = local_ctx()
+    ctx = ctx or local_ctx()
     params = seeded_params(cfg, 1, "cuda")
     leaves = []
     tree_map(leaves.append, params)
@@ -2957,6 +2978,7 @@ def decode_check_line(torch, np, cfg, card, name, **extra):
     if not ok:
         fail(f"{name}: cached decode differs from the forward ({diffs})")
     emit({"measure": "decode_vs_forward", "arch": cfg.name,
+          "dp": ctx.dp_size, "tp": ctx.tp_size,
           "n_layers": cfg.n_layers, "dtype": cfg.dtype, "seq": CHECK_SEQ,
           "prefill": CHECK_PREFILL, "steps": CHECK_STEPS,
           "max_abs_diff": diffs, "tol": CHECK_TOL,
@@ -3354,6 +3376,331 @@ def train_phase(torch, np, card):
     return {"train": launches}
 
 
+#: Phase 28: the launch layer on the card. (a) The dry run of every cell
+#: of cells(ARCH_IDS) on both production meshes, on `meta`, in DRY_JOBS
+#: worker processes that see no card (CUDA_VISIBLE_DEVICES empty), both
+#: meshes' 80 cells in one pool, the costliest shapes first (DRY_ORDER):
+#: 32 OK and 8 SKIP(full-attention) a mesh, within DRY_BUDGET_S. The
+#: records go to DRY_OUT. (b) Phase 27's cell (Phi-3.5-MoE at
+#: full width, 2 of 32 layers, bf16, AdamW, 8 x 2,048 tokens) reckoned on
+#: a (1, 1) mesh against the card: the argument bytes against
+#: memory_allocated() with the parameters, state and batch on the card
+#: (the caching allocator rounds each tensor up to 512 bytes), the FLOPs
+#: against FlopCounterMode's count of the real step. (c) The same cell
+#: trained at dp 2 x tp 2 beside dp 1, and decode against forward at dp 2
+#: x tp 2 (2 layers, float32). (d) hillclimb's kimi_base and
+#: granite_base. (e) The card's bf16 matmul and copy rates beside the
+#: datasheet constants hillclimb uses. (f) The five examples at their
+#: defaults, each a subprocess.
+DRY_JOBS = 7
+#: the same 80 cells took 95.8 s to 154.9 s in calls on one card type
+#: (the host's CPUs vary; PERF.md §6): 240 s leaves a margin
+DRY_BUDGET_S = 240.0
+#: the shapes by their cells' cost on `meta` (469, 191, 21 and 19 s of
+#: cell time over both meshes in one H100 machine's run)
+DRY_ORDER = ("prefill_32k", "train_4k", "decode_32k", "long_500k")
+DRY_OUT = "experiments/dryrun_torch.json"
+DP_STEP = dict(dp_size=2, tp_size=2)
+#: The dp 2 x tp 2 decode check's capacity factor: Phi's 16 experts, so
+#: that each expert's capacity holds every token a grid shard routes
+#: (cap >= t_local * k at any tp) and neither the forward nor the prefill
+#: drops one. Where they drop, each shard's capacity is cut for its own
+#: t_local (32 tokens in the 64-token forward, 16 in the prefill) and the
+#: reference's own decode leaves its forward too:
+#: tests/test_torch_dp.py::test_decode_against_forward_at_dp2_tp2 holds
+#: the port's prefill and decode to the reference's at 1e-5 there.
+CHECK_CAPACITY_DP = 16.0
+PEAK_N, PEAK_REPS = 8192, 20
+COPY_BYTES = 1 << 30
+EXAMPLES = ("torch_quickstart", "torch_sort_load", "torch_sort_service",
+            "torch_moe_routing", "torch_train_lm")
+EXAMPLE_TIMEOUT_S = 240
+HILLCLIMB = ("kimi_base", "granite_base")
+#: the launch layer runs no sort: its paths launch no kernel
+PATH_KERNELS.update({"dryrun_vs_card": (), "dp_step": (), "hillclimb": ()})
+
+
+def dryrun_line(torch, card):
+    """Phase 28 (a): every cell on both production meshes, gated on the
+    statuses, on the seconds, on no device bytes allocated in this
+    process (one cell run here) and on none visible to the workers."""
+    import os
+
+    from repro_torch.configs import ARCH_IDS, cells
+    from repro_torch.launch.dryrun import run_cell, run_cells
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    here = run_cell("kimi-k2-1t-a32b", "train_4k", False)
+    here_s = time.perf_counter() - t0
+    grown = torch.cuda.memory_allocated() - before
+    peak_grown = torch.cuda.max_memory_allocated() - before
+    if here["status"] != "OK" or grown or peak_grown:
+        fail(f"dryrun: kimi train_4k in this process: {here['status']}, "
+             f"{grown} device bytes held, {peak_grown} at the peak")
+    keys = sorted(((a, s, multi) for multi in (False, True)
+                   for a, s, _ in cells(ARCH_IDS)),
+                  key=lambda k: DRY_ORDER.index(k[1]))
+    hidden = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""      # the workers see no card
+    try:
+        t0 = time.perf_counter()
+        records = list(run_cells(keys, DRY_JOBS))
+        seconds = time.perf_counter() - t0
+    finally:
+        if hidden is None:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = hidden
+    out = ROOT / DRY_OUT
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(records, indent=1))
+    meshes = {}
+    for name in ("16x16", "2x16x16"):
+        recs = [r for r in records if r["mesh"] == name]
+        status = [r["status"] for r in recs]
+        meshes[name] = {
+            "cells": len(recs), "ok": status.count("OK"),
+            "skip": sum(st.startswith("SKIP") for st in status),
+            "fail": [f"{r['arch']} {r['shape']}: {r['status']} "
+                     f"{r.get('error', '')[:200]}" for r in recs
+                     if r["status"].startswith("FAIL")],
+            "cell_seconds": sum(r.get("calib_s", 0.0) for r in recs)}
+        m = meshes[name]
+        if m["fail"] or (m["ok"], m["skip"]) != (32, 8):
+            fail(f"dryrun {name}: {m['ok']} OK, {m['skip']} SKIP (want "
+                 f"32, 8), failures {m['fail']}")
+    if seconds > DRY_BUDGET_S:
+        fail(f"dryrun: {seconds:.1f} s for both meshes, over the "
+             f"{DRY_BUDGET_S} s budget")
+    ok = [r for r in records if r["status"] == "OK"]
+    top = max(ok, key=lambda r: r["memory"]["peak_live_bytes"])
+    emit({"measure": "dryrun", "jobs": DRY_JOBS, "meshes": meshes,
+          "seconds": seconds, "budget_s": DRY_BUDGET_S,
+          "in_process": {"cell": "kimi-k2-1t-a32b train_4k 16x16",
+                         "seconds": here_s, "device_bytes": grown,
+                         "peak_device_bytes": peak_grown,
+                         "peak_live_gib": here["memory"]["peak_live_bytes"]
+                         / 2 ** 30},
+          "largest_peak": {"cell": f"{top['arch']} {top['shape']} "
+                                   f"{top['mesh']}",
+                           "peak_live_gib": top["memory"]["peak_live_bytes"]
+                           / 2 ** 30},
+          "records": DRY_OUT, "card": card})
+
+
+def dryrun_vs_card_line(torch, np, card):
+    """Phase 28 (b): phase 27's cell reckoned on a (1, 1) mesh against the
+    card: argument bytes against the bytes the card holds for them, FLOPs
+    against FlopCounterMode's count of the real step, the reckoned peak
+    beside max_memory_allocated and models/flops.model_flops."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.launch.dryrun import cell_figures
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.launch.serve import seeded_params
+    from repro_torch.models import flops
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import cosine_schedule, make_optimizer
+    from repro_torch.parallel.ctx import Mesh
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=TRAIN_LAYERS)
+    shape = Shape("phase27", "train", TRAIN_SEQ, TRAIN_BATCH)
+    ctx = make_ctx(cfg, Mesh(("data", "model"), (1, 1)))
+    t0 = time.perf_counter()
+    mem, cal = cell_figures(cfg, shape, ctx)
+    dry_s = time.perf_counter() - t0
+
+    def run():
+        free_device(torch)
+        base = torch.cuda.memory_allocated()
+        params = seeded_params(cfg, 0, "cuda")
+        opt = make_optimizer(cfg.optimizer)
+        state = opt.init(params)
+        tokens, labels = SyntheticTokens(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+            seed=0).batch(0)
+        batch = {"tokens": torch.from_numpy(tokens).cuda(),
+                 "labels": torch.from_numpy(labels).cuda()}
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        n = len(tree_leaves((params, state, batch)))
+        step = make_train_step(cfg, ctx, opt,
+                               cosine_schedule(3e-4, 2000, 100_000))
+        with FlopCounterMode(display=False) as counter:
+            step(params, state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        return held, n, counter.get_total_flops(), \
+            torch.cuda.max_memory_allocated()
+
+    (held, n, card_flops, peak), launches = launched(torch, run)
+    free_device(torch)
+    check_path_launches("dryrun_vs_card", launches, ())
+    if abs(held - mem["argument_bytes"]) > 512 * n:
+        fail(f"dryrun_vs_card: argument bytes {mem['argument_bytes']} "
+             f"against {held} on the card ({n} tensors)")
+    if int(round(cal["flops"])) != card_flops:
+        fail(f"dryrun_vs_card: dry-run FLOPs {cal['flops']} against "
+             f"{card_flops} counted on the card")
+    emit({"measure": "dryrun_vs_card", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "mesh": "1x1", "dry_s": dry_s,
+          "argument_bytes": mem["argument_bytes"], "card_bytes": held,
+          "tensors": n, "tolerance_bytes": 512 * n,
+          "flops_dry": cal["flops"], "flops_card": card_flops,
+          "model_flops": flops.model_flops(cfg, "train", TRAIN_SEQ,
+                                           TRAIN_BATCH),
+          "reckoned_peak_gib": mem["peak_live_bytes"] / 2 ** 30,
+          "reckoned_temp_gib": mem["temp_bytes"] / 2 ** 30,
+          "max_allocated_gib": peak / 2 ** 30,
+          "launches": launches, "card": card})
+    return launches
+
+
+def dp_step_line(torch, np, card):
+    """Phase 28 (c): phase 27's cell trained for TRAIN_STEPS steps at dp 2
+    x tp 2 and at dp 1: losses (gated finite), drops a step, the warm
+    step time and the peak; then decode against forward at dp 2 x tp 2
+    (2 layers, float32, CHECK_TOL)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.parallel.ctx import ParallelCtx
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=TRAIN_LAYERS)
+    runs = {}
+    launches = {}
+    for name, ctx in (("dp2_tp2", ParallelCtx(**DP_STEP)),
+                      ("dp1_tp1", ParallelCtx())):
+        stamps, steps = [], []
+
+        def on_metrics(step, metrics, slow):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            steps.append({k: float(v) for k, v in metrics.items()})
+
+        free_device(torch)
+        torch.cuda.reset_peak_memory_stats()
+        state, launches[name] = launched(torch, lambda: train(
+            cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            ckpt_dir=None, ctx=ctx, on_metrics=on_metrics, device="cuda"))
+        peak = torch.cuda.max_memory_allocated()
+        del state           # one run's state on the card at a time
+        check_path_launches(f"dp_step[{name}]", launches[name], ())
+        losses = [m["loss"] for m in steps]
+        if not np.isfinite(losses).all():
+            fail(f"dp_step {name}: non-finite loss ({losses})")
+        step_s = statistics.median(b - a for a, b in zip(stamps, stamps[1:]))
+        runs[name] = {"dp": ctx.dp_size, "tp": ctx.tp_size, "loss": losses,
+                      "moe_dropped": [m["moe_dropped"] for m in steps],
+                      "step_ms": step_s * 1e3,
+                      "step_ms_each": [(b - a) * 1e3 for a, b in
+                                       zip(stamps, stamps[1:])],
+                      "peak_gib": peak / 2 ** 30}
+    free_device(torch)
+    emit({"measure": "dp_step", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "dtype": cfg.dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "steps": TRAIN_STEPS, "runs": runs,
+          "launches": launches["dp2_tp2"], "card": card})
+    check = dict(n_layers=CHECK_LAYERS, dtype="float32",
+                 moe_capacity_factor=CHECK_CAPACITY_DP)
+    decode_check_line(torch, np, dataclasses.replace(
+        get_config(SERVE_ARCH), **check), card, "phi3.5-moe check at dp 2",
+        ctx=ParallelCtx(**DP_STEP),
+        cut=f"n_layers {CHECK_LAYERS} of 32, float32, capacity factor "
+            f"{CHECK_CAPACITY_DP}")
+    return launches["dp2_tp2"]
+
+
+def hillclimb_line(torch, card):
+    """Phase 28 (d): hillclimb's kimi_base and granite_base on `meta`,
+    with their roofline terms."""
+    from repro_torch.launch import hillclimb
+
+    recs = []
+
+    def run():
+        for exp in HILLCLIMB:
+            t0 = time.perf_counter()
+            rec = hillclimb.measure(*hillclimb.EXPERIMENTS[exp])
+            recs.append({"exp": exp, **rec,
+                         "seconds": time.perf_counter() - t0})
+
+    _, launches = launched(torch, run)
+    check_path_launches("hillclimb", launches, ())
+    emit({"measure": "hillclimb", "experiments": recs,
+          "constants": {"peak_flops": hillclimb.PEAK,
+                        "hbm_bytes_per_s": hillclimb.HBM,
+                        "collective_bytes_per_s": hillclimb.COLLECTIVE},
+          "card": card})
+    return launches
+
+
+def card_peaks_line(torch, card):
+    """Phase 28 (e): the card's bf16 torch.matmul rate at PEAK_N^3 and its
+    device-to-device copy rate (COPY_BYTES read and written), by CUDA
+    events, beside the datasheet constants hillclimb uses."""
+    from repro_torch.launch import hillclimb
+
+    a = torch.randn((PEAK_N, PEAK_N), device="cuda", dtype=torch.bfloat16)
+    b = torch.randn((PEAK_N, PEAK_N), device="cuda", dtype=torch.bfloat16)
+    mm_ms = time_ms(torch, lambda: torch.matmul(a, b), PEAK_REPS)
+    x = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    y = torch.empty_like(x)
+    copy_ms = time_ms(torch, lambda: y.copy_(x), PEAK_REPS)
+    del a, b, x, y
+    free_device(torch)
+    tflops = 2 * PEAK_N ** 3 / (mm_ms / 1e3) / 1e12
+    gbps = 2 * COPY_BYTES / (copy_ms / 1e3) / 1e9
+    emit({"measure": "card_peaks", "matmul_n": PEAK_N, "matmul_ms": mm_ms,
+          "bf16_tflops": tflops,
+          "datasheet_bf16_tflops": hillclimb.PEAK / 1e12,
+          "copy_bytes": COPY_BYTES, "copy_ms": copy_ms,
+          "copy_gb_per_s": gbps, "datasheet_hbm_gb_per_s": hillclimb.HBM / 1e9,
+          "card": card})
+
+
+def examples_line(card):
+    """Phase 28 (f): each example at its defaults, a subprocess on the
+    card: exit 0 and its seconds."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = []
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" /
+                                                   f"{name}.py")],
+                              cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=EXAMPLE_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        if proc.returncode:
+            fail(f"example {name}: exit {proc.returncode}\n"
+                 f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        runs.append({"example": name, "seconds": seconds,
+                     "last_line": proc.stdout.strip().splitlines()[-1]})
+    emit({"measure": "examples", "runs": runs, "card": card})
+
+
+def launch_phase(torch, np, card):
+    """Phase 28: the launch layer on the card ((a)-(f) above)."""
+    dryrun_line(torch, card)
+    paths = {"dryrun_vs_card": dryrun_vs_card_line(torch, np, card),
+             "dp_step": dp_step_line(torch, np, card),
+             "hillclimb": hillclimb_line(torch, card)}
+    card_peaks_line(torch, card)
+    examples_line(card)
+    return paths
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3417,6 +3764,7 @@ def main() -> int:
         paths.update(legacy_phase(torch, np, card))
         paths.update(model_phase(torch, np, card))
         paths.update(train_phase(torch, np, card))
+        paths.update(launch_phase(torch, np, card))
     shapes = path_shapes_phase(torch, seen, card)
     for r in rows:
         r["launches_by_path"] = {k: v[r["counter"]] for k, v in paths.items()}

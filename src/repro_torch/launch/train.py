@@ -9,9 +9,14 @@ directory is given: checkpoint and restart, straggler flagging,
 asynchronous saves; the data pipeline is cursor-seekable, so a restart
 resumes mid-stream deterministically. The step updates the parameters and
 the optimizer state in place; the loop reads the loss on the host once a
-step, for its history. The reference's `--production-mesh` and
-`--multi-pod` wait for the port's `launch/mesh` (ROADMAP queue 1 item
-4.3).
+step, for its history.
+
+The port runs on one device (`launch.serve.N_DEVICES`), so `train` keeps
+the local (1, 1) ctx unless the caller passes one: a dp > 1 ctx runs the
+same step with the MoE dispatch cut for that layout (`ParallelCtx`), as
+the reference's `host_mesh_ctx` runs dp = its device count.
+`--production-mesh` (with `--multi-pod`) builds the production layout
+through `launch.mesh`, emulated on the one device.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data.synthetic import SyntheticTokens
+from repro_torch.launch.mesh import make_ctx, make_production_mesh
 from repro_torch.launch.serve import _bf16, seeded_params
 from repro_torch.models.steps import make_train_step
 from repro_torch.optim import cosine_schedule, make_optimizer
@@ -86,23 +92,38 @@ def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str | None,
     return state, history
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def cli_ctx(cfg, args):
+    """The ctx the CLI asks for: the production layout with
+    --production-mesh, else None (train's local ctx)."""
+    if not args.production_mesh:
+        return None
+    mesh = make_production_mesh(multi_pod=args.multi_pod)
+    return make_ctx(cfg, mesh, multi_pod=args.multi_pod)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     t0 = time.time()
     _, history = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-                       ckpt_dir=args.ckpt_dir, lr=args.lr, device=args.device)
+                       ckpt_dir=args.ckpt_dir, lr=args.lr,
+                       ctx=cli_ctx(cfg, args), device=args.device)
     print(f"done: {args.steps} steps in {time.time()-t0:.1f}s; "
           f"loss {history[0]:.3f} -> {history[-1]:.3f}")
 

@@ -1,11 +1,13 @@
 """Single-source-of-truth parameter layout: shapes + logical axes + init.
 
 Counterpart of `repro.models.params`. `arch_layout(cfg)` returns a flat
-{path: ParamSpec} dict; `init_params` and `abstract_params` are views of
-the same layout, so the tensors the port serves have the reference's
-names, shapes and dtypes. The logical axis names are kept as data (the
-port places every parameter on one device). Layer weights carry a leading
-L axis, as the reference's scanned layers do.
+{path: ParamSpec} dict; `init_params`, `abstract_params` and
+`param_pspecs` are views of the same layout, so the tensors the port
+serves have the reference's names, shapes and dtypes, and the dry run
+(`launch/dryrun`) reckons its shards from the same specs. The port
+places every parameter on one device: the logical axes only feed
+`param_pspecs`. Layer weights carry a leading L axis, as the reference's
+scanned layers do.
 
 `params_from_reference(tree)` carries the reference's parameter pytree,
 given as NumPy arrays, into the port's tree leaf for leaf.
@@ -187,6 +189,13 @@ def abstract_params(cfg: ArchConfig) -> dict:
     dtypes, no storage."""
     return _nest({p: torch.empty(s.shape, dtype=param_dtype(cfg, s),
                                  device="meta")
+                  for p, s in arch_layout(cfg).items()})
+
+
+def param_pspecs(cfg: ArchConfig, ctx) -> dict:
+    """The parameter tree of `PSpec`s: each leaf's logical axes mapped
+    through `ctx.spec` (the reference's `param_pspecs`)."""
+    return _nest({p: ctx.spec(*s.logical)
                   for p, s in arch_layout(cfg).items()})
 
 

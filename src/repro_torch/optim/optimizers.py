@@ -10,9 +10,10 @@ device tensors: an update reads nothing on the host.
 `update(grads, state, params, lr)` writes the new parameters and state
 into the given tensors under `torch.no_grad()` and returns the same two
 trees, as the reference's train step donates its parameters and state
-(`donate_argnums=(0, 1)`): the card holds one copy of each. The
-reference's third member, `state_pspecs`, maps PartitionSpecs, which wait
-for the port's parameter specs (ROADMAP queue 1 item 4.3).
+(`donate_argnums=(0, 1)`): the card holds one copy of each. The third
+member, `state_pspecs`, maps the parameter specs
+(`models.params.param_pspecs`) to the state's: the state inherits each
+parameter's sharding, so ZeRO follows from the parameter layout.
 
 `state_from_reference(tree)` carries the reference's optimizer state (its
 NumPy leaves; bf16 bit for bit) into the port's tree, as
@@ -27,12 +28,14 @@ import torch
 
 from repro_torch.models.lm import tree_leaves, tree_map
 from repro_torch.models.params import params_from_reference
+from repro_torch.parallel.ctx import PSpec, map_specs
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable                 # params -> state
     update: Callable               # (grads, state, params, lr) -> (params, state)
+    state_pspecs: Callable         # param_pspecs -> state pspecs
 
 
 def _zeros(p, dtype):
@@ -72,7 +75,10 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
         state["count"].copy_(c)
         return params, state
 
-    return Optimizer(init, update)
+    def state_pspecs(pspecs):
+        return {"m": pspecs, "v": pspecs, "count": PSpec()}
+
+    return Optimizer(init, update, state_pspecs)
 
 
 def adafactor(decay=0.99, eps=1e-30, clip_threshold=1.0, weight_decay=0.0,
@@ -120,7 +126,19 @@ def adafactor(decay=0.99, eps=1e-30, clip_threshold=1.0, weight_decay=0.0,
         state["count"].copy_(c)
         return params, state
 
-    return Optimizer(init, update)
+    def state_pspecs(pspecs):
+        def v_spec(ps):
+            parts = tuple(ps) if ps is not None else ()
+            if len(parts) >= 2:
+                # r drops the last dimension, c the one before it
+                return {"r": PSpec(*parts[:-1]),
+                        "c": PSpec(*(parts[:-2] + parts[-1:]))}
+            return {"v": PSpec(*parts)}
+
+        return {"m": pspecs, "v": map_specs(v_spec, pspecs),
+                "count": PSpec()}
+
+    return Optimizer(init, update, state_pspecs)
 
 
 def make_optimizer(name: str, **kw) -> Optimizer:

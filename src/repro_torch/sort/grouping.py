@@ -95,35 +95,37 @@ def group_slots(sorted_group_ids: torch.Tensor, n_groups: int,
 
 def _class_ranks(group_ids: torch.Tensor, n_groups: int):
     """Stable counting-sort bookkeeping over the classes {-1} + [0,
-    n_groups), ids out of range in class -1 -> (cls, rank, pos), int32:
-    each item's class, its 0-based stable rank in the class and its
-    position in the grouped (class-major, input order within a class)
-    permutation. The one-hot cumsum is (n, n_groups+1) int32; the rank is
-    read off it at each item's class (the reference sums the masked row,
-    the same value)."""
+    n_groups), ids out of range in class -1 -> (cls, rank, pos), int32,
+    along the last axis (each leading index is a row of its own): each
+    item's class, its 0-based stable rank in the class and its position
+    in the grouped (class-major, input order within a class) permutation.
+    The one-hot cumsum is (..., n, n_groups+1) int32; the rank is read off
+    it at each item's class (the reference sums the masked row, the same
+    value)."""
     dev = group_ids.device
     valid = (group_ids >= 0) & (group_ids < n_groups)
     cls = torch.where(valid, group_ids, -1).to(torch.int32)
-    onehot = cls[:, None] == torch.arange(-1, n_groups, dtype=torch.int32,
-                                          device=dev)[None]
-    sizes = onehot.sum(dim=0, dtype=torch.int32)
+    onehot = cls[..., None] == torch.arange(-1, n_groups, dtype=torch.int32,
+                                            device=dev)
+    sizes = onehot.sum(dim=-2, dtype=torch.int32)
     counts = onehot.to(torch.int32)
     del onehot
-    counts.cumsum_(dim=0)          # in place: one (n, n_groups+1) buffer
-    col = (cls + 1).to(torch.int64)[:, None]
-    rank = torch.gather(counts, 1, col)[:, 0] - 1
+    counts.cumsum_(dim=-2)         # in place: one (..., n, n_groups+1) buffer
+    col = (cls + 1).to(torch.int64)
+    rank = torch.gather(counts, -1, col[..., None])[..., 0] - 1
     del counts
-    starts = torch.cumsum(sizes, dim=0, dtype=torch.int32) - sizes
-    pos = starts[col[:, 0]] + rank
+    starts = torch.cumsum(sizes, dim=-1, dtype=torch.int32) - sizes
+    pos = torch.gather(starts, -1, col) + rank
     return cls, rank, pos
 
 
 def _scatter_order(pos: torch.Tensor) -> torch.Tensor:
-    """order[pos[i]] = i, int32."""
-    n = pos.shape[0]
-    order = torch.zeros((n,), dtype=torch.int32, device=pos.device)
-    order[pos.to(torch.int64)] = torch.arange(n, dtype=torch.int32,
-                                              device=pos.device)
+    """order[..., pos[..., i]] = i, int32."""
+    n = pos.shape[-1]
+    order = torch.zeros(pos.shape, dtype=torch.int32, device=pos.device)
+    order.scatter_(-1, pos.to(torch.int64),
+                   torch.arange(n, dtype=torch.int32,
+                                device=pos.device).expand(pos.shape))
     return order
 
 
@@ -142,7 +144,9 @@ def counting_dispatch(group_ids: torch.Tensor, n_groups: int, capacity: int,
     """Stable dispatch of items into per-group capacity bins -> (order,
     slot, keep): `order` the stable grouping permutation (int32; ties keep
     input order), slot and keep indexed by grouped position, as
-    `group_slots` of the ordered ids gives them. Scatter pattern:
+    `group_slots` of the ordered ids gives them. Under "counting" the ids
+    may carry leading axes, each row dispatched on its own. Scatter
+    pattern:
 
         buf = zeros((n_groups*capacity + 1, d)); buf[slot] = rows[order]
 
@@ -170,4 +174,4 @@ def counting_dispatch(group_ids: torch.Tensor, n_groups: int, capacity: int,
         + torch.clamp(rank, 0, capacity - 1),
         n_groups * capacity)
     o = order.to(torch.int64)
-    return order, slot_i[o], keep_i[o]
+    return order, torch.gather(slot_i, -1, o), torch.gather(keep_i, -1, o)

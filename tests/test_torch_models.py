@@ -170,8 +170,11 @@ def test_ctx_is_the_reference_layout():
     assert (ctx.dp_size, ctx.tp_size) == (ref.dp_size, ref.tp_size)
     ctx4, ref4 = model_ctx(4, shard_heads=False)
     assert ctx4.rules() == ref4.rules() and ctx4.tp_size == 4
-    with pytest.raises(NotImplementedError):
-        ParallelCtx(dp_size=2)
+    ctx2, ref2 = model_ctx(4, dp=2)
+    assert ctx2.rules() == ref2.rules()
+    assert (ctx2.dp_size, ctx2.tp_size) == (ref2.dp_size, ref2.tp_size) == \
+        (2, 4)
+    assert ParallelCtx(dp_size=2) == ParallelCtx(dp_size=2, tp_size=1)
 
 
 # -------------------------------------------------------------- layers

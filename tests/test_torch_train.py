@@ -90,11 +90,12 @@ def _batch(cfg, seed=0):
     return train_batch(cfg, B, S, seed)
 
 
-def _stepped(arch, tp=1):
-    """One reference train step (jitted) from init_params(key(0)), and
-    everything the port needs to take the same step."""
+def _stepped(arch, tp=1, dp=1):
+    """One reference train step (jitted) from init_params(key(0)) at the
+    (dp, tp) layout, and everything the port needs to take the same
+    step."""
     cfg, ref_cfg, params, ref_params = model_both(arch)
-    ctx, ref_ctx = model_ctx(tp)
+    ctx, ref_ctx = model_ctx(tp, dp=dp)
     batch = _batch(cfg)
     ropt = roptim.make_optimizer(ref_cfg.optimizer)
     rstate = ropt.init(ref_params)

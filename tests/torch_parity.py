@@ -29,11 +29,11 @@ process on the CPU and exchange only NumPy arrays:
     (the reference's `repro.sort.semisort` functions called directly);
     `chaotic(fn, chaos, plan)` runs a front door under a FaultPlan of
     either package's chaos module;
-  * `model_ctx(tp, shard_heads)`: the model stack's reference
-    ParallelCtx over an Auto (1, tp) ("data", "model") mesh (the default
+  * `model_ctx(tp, shard_heads, dp)`: the model stack's reference
+    ParallelCtx over an Auto (dp, tp) ("data", "model") mesh (the default
     `repro.parallel.local_ctx()` builds Explicit axes, which the
     reference's sharding constraints refuse) beside the port's
-    ParallelCtx(tp_size=tp); `model_both(arch, seed, **changes)`: a
+    ParallelCtx(tp_size=tp, dp_size=dp); `model_both(arch, seed, **changes)`: a
     smoke config in float32 on both sides (`dataclasses.replace`), the
     reference's `init_params` and its tree carried into the port with
     `params_from_reference`; `assert_tree_close` compares two trees of
@@ -101,15 +101,15 @@ def auto_mesh2d(r1: int, r2: int):
                          devices=jax.devices()[:r1 * r2])
 
 
-def model_ctx(tp: int = 1, shard_heads: bool = True):
-    """(port ctx, reference ctx) of one (dp=1, tp) layout; the reference's
-    over an Auto-axes ("data", "model") mesh of 1 x tp host devices."""
-    mesh = jax.make_mesh((1, tp), ("data", "model"),
+def model_ctx(tp: int = 1, shard_heads: bool = True, dp: int = 1):
+    """(port ctx, reference ctx) of one (dp, tp) layout; the reference's
+    over an Auto-axes ("data", "model") mesh of dp x tp host devices."""
+    mesh = jax.make_mesh((dp, tp), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2,
-                         devices=jax.devices()[:tp])
+                         devices=jax.devices()[:dp * tp])
     ref = RefParallelCtx(mesh=mesh, dp_axes=("data",), tp_axis="model",
                          shard_heads=shard_heads)
-    return ParallelCtx(tp_size=tp, shard_heads=shard_heads), ref
+    return ParallelCtx(tp_size=tp, dp_size=dp, shard_heads=shard_heads), ref
 
 
 def model_both(arch: str, seed: int = 0, **changes):
