@@ -24,6 +24,7 @@ from repro_torch.core.splitters import (
     choose_splitters, refine)
 from repro_torch.kernels import dispatch
 from repro_torch.parallel.comm import Comm
+from repro_torch.runtime import trace
 from repro_torch.runtime.syncs import to_device
 
 
@@ -161,18 +162,22 @@ def two_stage_sort_batched(local: torch.Tensor, *, comm: Comm, r1: int,
     ex_cfg = ex_cfg or ExchangeConfig(kernel_policy=hss_cfg.kernel_policy)
     eps = hss_cfg.eps
     p, batch, n_local = local.shape
-    local_sorted = dispatch.local_sort(local, policy=hss_cfg.kernel_policy)
+    with trace.span("local_sort"):
+        local_sorted = dispatch.local_sort(
+            local, policy=hss_cfg.kernel_policy)
 
     # -- stage 1: r1 groups over all p shards, exchanged along outer
     k1 = hss_cfg.resolved_rounds(r1)
-    g_keys, _, _ = hss_splitters_general(
-        local_sorted, comm=comm, num_parts=r1, cfg=hss_cfg,
-        uniform=lambda j: uniform(j, n_local))
+    with trace.span("splitters"):
+        g_keys, _, _ = hss_splitters_general(
+            local_sorted, comm=comm, num_parts=r1, cfg=hss_cfg,
+            uniform=lambda j: uniform(j, n_local))
     outer = comm.along("outer", r1, r2)
-    mid, mid_valid, ovf1 = exchange_batched(
-        outer.fold(local_sorted), outer.rows(g_keys), comm=outer,
-        cfg=dataclasses.replace(ex_cfg, out_slack=STAGE1_OUT_SLACK),
-        eps=eps)
+    with trace.span("exchange"):
+        mid, mid_valid, ovf1 = exchange_batched(
+            outer.fold(local_sorted), outer.rows(g_keys), comm=outer,
+            cfg=dataclasses.replace(ex_cfg, out_slack=STAGE1_OUT_SLACK),
+            eps=eps)
     mid = outer.unfold(mid)                               # (p, B, cap1)
     mid_valid = outer.unfold(mid_valid)                   # (p, B)
     del local_sorted
@@ -187,11 +192,13 @@ def two_stage_sort_batched(local: torch.Tensor, *, comm: Comm, r1: int,
         u = uniform(k1 + j, cap1)[:, None].expand(p, batch, cap1)
         return inner.fold(u)
 
-    s_keys, _, _ = hss_splitters_general(
-        mid, comm=inner, num_parts=r2, cfg=hss_cfg, uniform=stage2_draws,
-        n_valid=group_n, first_round=k1)
-    out, n_valid, ovf2 = exchange_batched(
-        mid, s_keys, comm=inner, cfg=ex_cfg, eps=eps, n_valid=mid_valid)
+    with trace.span("splitters"):
+        s_keys, _, _ = hss_splitters_general(
+            mid, comm=inner, num_parts=r2, cfg=hss_cfg,
+            uniform=stage2_draws, n_valid=group_n, first_round=k1)
+    with trace.span("exchange"):
+        out, n_valid, ovf2 = exchange_batched(
+            mid, s_keys, comm=inner, cfg=ex_cfg, eps=eps, n_valid=mid_valid)
     overflow = (ovf1.reshape(r2, batch).sum(dim=0, dtype=torch.int32)
                 + ovf2.reshape(r1, batch).sum(dim=0, dtype=torch.int32))
     return inner.unfold(out), inner.unfold(n_valid), overflow

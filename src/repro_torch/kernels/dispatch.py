@@ -31,6 +31,7 @@ from repro_torch.kernels.bitonic_sort import ops as bops
 from repro_torch.kernels.histogram import ops as hops
 from repro_torch.kernels.histogram import ref as href
 from repro_torch.kernels.merge import ops as mops
+from repro_torch.runtime import trace
 
 POLICIES = ("auto", "kernel", "torch")
 
@@ -102,10 +103,11 @@ def merge_runs(runs: torch.Tensor, *, policy: str = "auto") -> torch.Tensor:
 
     Bit-identical to `torch.sort` of each row; the kernel path merges in
     log(k) passes instead of re-sorting."""
-    if resolve_policy(policy, runs.device, runs.dtype) == "torch":
-        return torch.sort(runs.reshape(runs.shape[:-2] + (-1,)),
-                          dim=-1).values
-    return mops.merge_sorted_runs(runs)
+    with trace.span("merge"):
+        if resolve_policy(policy, runs.device, runs.dtype) == "torch":
+            return torch.sort(runs.reshape(runs.shape[:-2] + (-1,)),
+                              dim=-1).values
+        return mops.merge_sorted_runs(runs)
 
 
 def merge_ragged(buf: torch.Tensor, starts: torch.Tensor,
@@ -115,9 +117,10 @@ def merge_ragged(buf: torch.Tensor, starts: torch.Tensor,
     (starts, counts (..., k)), the hi sentinel elsewhere. Bit-identical to
     `torch.sort` of each row; see kernels.merge.ops.merge_ragged_runs for
     the slot and its full-sort branch."""
-    if resolve_policy(policy, buf.device, buf.dtype) == "torch":
-        return torch.sort(buf, dim=-1).values
-    return mops.merge_ragged_runs(buf, starts, counts, slot=slot)
+    with trace.span("merge"):
+        if resolve_policy(policy, buf.device, buf.dtype) == "torch":
+            return torch.sort(buf, dim=-1).values
+        return mops.merge_ragged_runs(buf, starts, counts, slot=slot)
 
 
 # The reference's batched names (dispatch.py:67-179): the same functions.

@@ -46,6 +46,7 @@ from repro_torch.core.tagging import (
     float32_to_sortable_int32, float64_to_sortable_int64,
     sortable_int32_to_float32, sortable_int32_to_uint32,
     sortable_int64_to_float64, tag_bits, uint32_to_sortable_int32)
+from repro_torch.runtime import trace
 from repro_torch.runtime.syncs import move, sync_site
 from repro_torch.sort.spec import SortSpec
 
@@ -320,16 +321,17 @@ def make_plan(x: torch.Tensor, spec: SortSpec, p: int,
             "uint32, float32, int64 and float64 keys")
     n_pad = (-n) % p
     plan = AdapterPlan(n=n, n_pad=n_pad, out_dtype=x.dtype)
-    enc = to_core(x)
-    plan._enc = enc
+    with trace.span("plan"):
+        enc = to_core(x)
+        plan._enc = enc
 
-    wanted, required, duplicated = _needs_tags(x, spec, want_indices)
-    # the key range and the duplicate flag reach the host in one copy
-    probe = [enc.max(), enc.min()]
-    if duplicated is not None:
-        probe.append(duplicated)
-    with sync_site("plan.probe"):
-        probe = torch.stack([v.to(torch.int64) for v in probe]).tolist()
+        wanted, required, duplicated = _needs_tags(x, spec, want_indices)
+        # the key range and the duplicate flag reach the host in one copy
+        probe = [enc.max(), enc.min()]
+        if duplicated is not None:
+            probe.append(duplicated)
+        with sync_site("plan.probe"):
+            probe = torch.stack([v.to(torch.int64) for v in probe]).tolist()
     key_max, key_min = probe[:2]
     if duplicated is not None:
         wanted = bool(probe[2])

@@ -47,7 +47,7 @@ from repro_torch.core.ams import ams_sample_size
 from repro_torch.core.sample_sort import (
     default_regular_s, default_total_sample)
 from repro_torch.kernels import dispatch
-from repro_torch.runtime import chaos
+from repro_torch.runtime import chaos, trace
 from repro_torch.runtime.syncs import sync_site
 from repro_torch.sort import driver, verify
 from repro_torch.sort.adapters import (
@@ -202,9 +202,10 @@ def sort(x, spec: SortSpec | None = None, *, uniform=None,
     spec = _as_spec(spec, overrides)
     if spec.batch:
         return sort_batched(x, spec, uniform=uniform)
-    x = as_keys(x, resolve_device(spec.device))
-    return _with_policies(
-        lambda s: _sort_one(x, s, uniform, want_indices=False), spec)
+    with trace.root("sort", spec.device):
+        x = as_keys(x, resolve_device(spec.device))
+        return _with_policies(
+            lambda s: _sort_one(x, s, uniform, want_indices=False), spec)
 
 
 def _sort_one(x, spec: SortSpec, uniform, want_indices: bool) -> SortOutput:
@@ -241,11 +242,12 @@ def sort_batched(xs, spec: SortSpec | None = None, *, uniform=None,
     `sort`: every request shares the shards' draws.
     """
     spec = _as_spec(spec, overrides)
-    if isinstance(xs, (list, tuple)):
-        return _sort_batched_buckets(xs, spec, uniform)
-    xs = as_keys(xs, resolve_device(spec.device))
-    return _with_policies(
-        lambda s: _sort_batched_impl(xs, s, uniform), spec, batched=True)
+    with trace.root("sort", spec.device):
+        if isinstance(xs, (list, tuple)):
+            return _sort_batched_buckets(xs, spec, uniform)
+        xs = as_keys(xs, resolve_device(spec.device))
+        return _with_policies(
+            lambda s: _sort_batched_impl(xs, s, uniform), spec, batched=True)
 
 
 def _sort_batched_impl(xs, spec: SortSpec, uniform,
@@ -562,10 +564,11 @@ def argsort(x, spec: SortSpec | None = None, *, uniform=None,
     on_overflow="retry"/"spill" recover instead. `uniform` is as in
     `sort`."""
     spec = dataclasses.replace(_as_spec(spec, overrides), stable=True)
-    x = as_keys(x, resolve_device(spec.device))
-    out = _with_policies(
-        lambda s: _sort_one(x, s, uniform, want_indices=True), spec)
-    return gather_perm_checked(out, "argsort")
+    with trace.root("sort", spec.device):
+        x = as_keys(x, resolve_device(spec.device))
+        out = _with_policies(
+            lambda s: _sort_one(x, s, uniform, want_indices=True), spec)
+        return gather_perm_checked(out, "argsort")
 
 
 def sort_kv(keys, values, spec: SortSpec | None = None, *, uniform=None,
@@ -578,11 +581,12 @@ def sort_kv(keys, values, spec: SortSpec | None = None, *, uniform=None,
         raise ValueError(f"values leading dim {values.shape[:1]} != "
                          f"keys shape {tuple(np.shape(keys))}")
     spec = dataclasses.replace(_as_spec(spec, overrides), stable=True)
-    keys = as_keys(keys, resolve_device(spec.device))
-    out = _with_policies(
-        lambda s: _sort_one(keys, s, uniform, want_indices=True), spec)
-    order = gather_perm_checked(out, "sort_kv")
-    return out.gather(), values[order]
+    with trace.root("sort", spec.device):
+        keys = as_keys(keys, resolve_device(spec.device))
+        out = _with_policies(
+            lambda s: _sort_one(keys, s, uniform, want_indices=True), spec)
+        order = gather_perm_checked(out, "sort_kv")
+        return out.gather(), values[order]
 
 
 def gather(out: SortOutput) -> np.ndarray:

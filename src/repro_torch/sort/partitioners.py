@@ -35,6 +35,7 @@ from repro_torch.core.splitters import (
     ROUND_COLLECTIVES, SplitterStats, hss_splitters_batched)
 from repro_torch.kernels import dispatch
 from repro_torch.parallel.comm import Comm
+from repro_torch.runtime import trace
 from repro_torch.sort.driver import factor_stages
 from repro_torch.sort.spec import SortSpec
 
@@ -82,12 +83,16 @@ class Partitioner:
         """Full shard-level sort of (p, B, n_local) rows: local sort ->
         splitters -> exchange; B = 1 is the unbatched sort. Returns ((p, B,
         cap), (p, B), keys, ranks, overflow (B,), stats)."""
-        local_sorted = dispatch.local_sort(
-            local, policy=ctx.spec.kernel_policy)
-        keys, ranks, s_ovf, stats = self.splitters_batched(local_sorted, ctx)
-        out, n_valid, e_ovf = exchange_batched(
-            local_sorted, keys, comm=ctx.comm, cfg=ctx.spec.exchange_config(),
-            eps=ctx.spec.eps)
+        with trace.span("local_sort"):
+            local_sorted = dispatch.local_sort(
+                local, policy=ctx.spec.kernel_policy)
+        with trace.span("splitters"):
+            keys, ranks, s_ovf, stats = self.splitters_batched(
+                local_sorted, ctx)
+        with trace.span("exchange"):
+            out, n_valid, e_ovf = exchange_batched(
+                local_sorted, keys, comm=ctx.comm,
+                cfg=ctx.spec.exchange_config(), eps=ctx.spec.eps)
         return out, n_valid, keys, ranks, s_ovf + e_ovf, stats
 
     def partition_sorted_batched(self, local_sorted: torch.Tensor,
@@ -102,11 +107,15 @@ class Partitioner:
         rounds see the sentinel tail as real maximum keys, which only
         biases the top splitters up: grouping, not total order, is the
         contract here. Returns as `sharded_batched`."""
-        keys, ranks, s_ovf, stats = self.splitters_batched(local_sorted, ctx)
-        out, n_out, e_ovf = exchange_batched(
-            local_sorted, keys, comm=ctx.comm,
-            cfg=ex_cfg if ex_cfg is not None else ctx.spec.exchange_config(),
-            eps=ctx.spec.eps, n_valid=n_valid)
+        with trace.span("splitters"):
+            keys, ranks, s_ovf, stats = self.splitters_batched(
+                local_sorted, ctx)
+        with trace.span("exchange"):
+            out, n_out, e_ovf = exchange_batched(
+                local_sorted, keys, comm=ctx.comm,
+                cfg=(ex_cfg if ex_cfg is not None
+                     else ctx.spec.exchange_config()),
+                eps=ctx.spec.eps, n_valid=n_valid)
         return out, n_out, keys, ranks, s_ovf + e_ovf, stats
 
     def partition_sorted(self, local_sorted: torch.Tensor, ctx: ShardCtx,

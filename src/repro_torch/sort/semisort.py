@@ -51,7 +51,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.parallel.comm import Comm
 from repro_torch.sort import driver
 from repro_torch.sort.adapters import as_keys, from_core, make_plan, to_core
-from repro_torch.runtime import chaos
+from repro_torch.runtime import chaos, trace
 from repro_torch.runtime.syncs import sync_site, to_device
 from repro_torch.sort.api import (
     _as_spec, _cache_key, _mesh_fingerprint, _sort_batched_impl, _sort_one,
@@ -271,7 +271,8 @@ def _semisort_shard_fn(part, spec: SortSpec, n_local: int, s_loc: int,
         return hkeys, hcnt, lights, n_light
 
     def shard_fn(local, comm, draws):
-        ls = dispatch.local_sort(local, policy=policy)
+        with trace.span("local_sort"):
+            ls = dispatch.local_sort(local, policy=policy)
         hkeys, hcnt, lights, n_light = heavy_split(ls, comm)
         del ls
         ctx = ShardCtx(spec=spec, comm=comm, uniform=draws)
@@ -380,15 +381,16 @@ def semisort(keys, values=None, spec: SortSpec | None = None, *,
     spec = _as_spec(spec, overrides)
     if values is not None:
         return sort_kv(keys, values, spec, uniform=uniform)
-    x = as_keys(keys, resolve_device(spec.device))
-    if x.dim() != 1:
-        raise ValueError(
-            f"semisort expects a 1-D key array, got {tuple(x.shape)}")
-    fast = dataclasses.replace(spec, tag=False, stable=False)
-    try:
-        return _semisort_fast(x[None], fast, uniform, batched=False)
-    except ValueError:
-        return _semisort_tagged(x[None], spec, uniform, batched=False)
+    with trace.root("sort", spec.device):
+        x = as_keys(keys, resolve_device(spec.device))
+        if x.dim() != 1:
+            raise ValueError(
+                f"semisort expects a 1-D key array, got {tuple(x.shape)}")
+        fast = dataclasses.replace(spec, tag=False, stable=False)
+        try:
+            return _semisort_fast(x[None], fast, uniform, batched=False)
+        except ValueError:
+            return _semisort_tagged(x[None], spec, uniform, batched=False)
 
 
 def semisort_batched(xs, spec: SortSpec | None = None, *, uniform=None,
@@ -399,15 +401,16 @@ def semisort_batched(xs, spec: SortSpec | None = None, *, uniform=None,
     `semisort` of that row (when both plans agree). Returns a
     BatchedSemisortOutput."""
     spec = _as_spec(spec, overrides)
-    xs = as_keys(xs, resolve_device(spec.device))
-    if xs.dim() != 2:
-        raise ValueError(f"semisort_batched expects a (B, n) key array, "
-                         f"got {tuple(xs.shape)}")
-    fast = dataclasses.replace(spec, tag=False, stable=False)
-    try:
-        return _semisort_fast(xs, fast, uniform, batched=True)
-    except ValueError:
-        return _semisort_tagged(xs, spec, uniform, batched=True)
+    with trace.root("sort", spec.device):
+        xs = as_keys(xs, resolve_device(spec.device))
+        if xs.dim() != 2:
+            raise ValueError(f"semisort_batched expects a (B, n) key array, "
+                             f"got {tuple(xs.shape)}")
+        fast = dataclasses.replace(spec, tag=False, stable=False)
+        try:
+            return _semisort_fast(xs, fast, uniform, batched=True)
+        except ValueError:
+            return _semisort_tagged(xs, spec, uniform, batched=True)
 
 
 def groupby_aggregate(keys, values=None, op: str = "sum",
@@ -424,11 +427,13 @@ def groupby_aggregate(keys, values=None, op: str = "sum",
         raise ValueError(f"op must be one of {GROUPBY_OPS}, got {op!r}")
     spec = _as_spec(spec, overrides)
     if op == "count":
-        return semisort(keys, spec=spec, uniform=uniform).groups()
+        with trace.root("sort", spec.device):
+            return semisort(keys, spec=spec, uniform=uniform).groups()
     if values is None:
         raise ValueError(f"groupby_aggregate(op={op!r}) requires values")
-    sk, sv = sort_kv(keys, values, spec, uniform=uniform)
-    uniq, starts = np.unique(sk, return_index=True)
+    with trace.root("sort", spec.device):
+        sk, sv = sort_kv(keys, values, spec, uniform=uniform)
+        uniq, starts = np.unique(sk, return_index=True)
     if op == "max":
         return uniq, np.maximum.reduceat(sv, starts)
     acc = sv.astype(np.float64 if np.issubdtype(sv.dtype, np.floating)
@@ -448,9 +453,11 @@ def topk_program(rows: torch.Tensor, comm: Comm, c: int, k: int,
     come out descending, (B, k). No all_to_all; the gather moves p*c keys
     a request where a full sort's exchange moves N."""
     p, batch, n_local = rows.shape
-    ls = dispatch.local_sort(rows, policy=kernel_policy)
-    g = comm.all_gather(ls[..., n_local - c:])                # (p, B, c)
-    merged = dispatch.merge_runs(g.transpose(0, 1), policy=kernel_policy)
+    with trace.span("local_sort"):
+        ls = dispatch.local_sort(rows, policy=kernel_policy)
+    with trace.span("exchange"):
+        g = comm.all_gather(ls[..., n_local - c:])            # (p, B, c)
+        merged = dispatch.merge_runs(g.transpose(0, 1), policy=kernel_policy)
     return merged[:, p * c - k:].flip(-1)
 
 
@@ -503,19 +510,21 @@ def top_k(keys, k: int, spec: SortSpec | None = None, **overrides):
     takes; dtype-max keys are fine (the pads are LO sentinels, and a pad
     equal to a real dtype-min key is the same value)."""
     spec = _as_spec(spec, overrides)
-    x = as_keys(keys, resolve_device(spec.device))
-    if x.dim() != 1:
-        raise ValueError(
-            f"top_k expects a 1-D key array, got {tuple(x.shape)}")
-    return _top_k_rows(x[None], k, spec)[0]
+    with trace.root("sort", spec.device):
+        x = as_keys(keys, resolve_device(spec.device))
+        if x.dim() != 1:
+            raise ValueError(
+                f"top_k expects a 1-D key array, got {tuple(x.shape)}")
+        return _top_k_rows(x[None], k, spec)[0]
 
 
 def top_k_batched(xs, k: int, spec: SortSpec | None = None, **overrides):
     """Per-row top k of a (B, n) batch in one pipeline -> (B, k) NumPy,
     each row descending; the same bits per row as `top_k`."""
     spec = _as_spec(spec, overrides)
-    xs = as_keys(xs, resolve_device(spec.device))
-    if xs.dim() != 2:
-        raise ValueError(
-            f"top_k_batched expects (B, n), got {tuple(xs.shape)}")
-    return _top_k_rows(xs, k, spec)
+    with trace.root("sort", spec.device):
+        xs = as_keys(xs, resolve_device(spec.device))
+        if xs.dim() != 2:
+            raise ValueError(
+                f"top_k_batched expects (B, n), got {tuple(xs.shape)}")
+        return _top_k_rows(xs, k, spec)
