@@ -16,23 +16,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      random) and on a row read at a one-key offset, and K2 at every
      power-of-two segment 2..16,384, both roles, on 5 such rows (the last
      unsorted), each against its plain version; then
-     each hand-written kernel (K1-K3, K4s, K4) against its
+     each hand-written kernel (K1-K3, K4s, K4, K5) against its
      plain PyTorch version on the card, exactly (torch.equal), at the
      shapes each main path gives it — the sort's (8, 2^21) shard rows and
      the batched sort's 64 = B*p rows of 2^18 (K4s and K4: sorted keys
      (8, 2,000,000) x 256 probes and (64, 250,000) x a distinct probe row
      each, and 70,000 rows past gridDim.y's 65,535, K4s also against K4;
-     K3 also on the batched merges' 64 rows of 2^20 and 2^21 keys, and K3
-     at every distance above 16,384 with K2's tail on the post-exchange
-     merges' 8 rows of 2^22..2^25 keys: dense at capacity_scale 1..4 and
-     the spill merges) — then
+     K5: the benchmark's post-exchange merge, 8 rows of 8 runs of
+     12,582,912 slots holding about 2^22 keys each, its three levels
+     also against torch.sort of the rows) — then
      timed by CUDA events beside its plain version, its bound, the floor
      of an empty launch and, where one PyTorch call computes the same
      function, that call (`library_ms`, a yardstick only); one row per
      Pallas site, path and kernel (#7 and #8 run on both paths, so they
      have a row for each; #5 and #6 have a row for K4s, the main paths'
      search over sorted rows, and one for the counting K4, which only
-     `assume_sorted=False` reaches and no main path launches);
+     `assume_sorted=False` reaches and no main path launches; K5, which
+     replaces no Pallas site, is row 9);
   4. slice 1: `repro_torch.sort.sort` with 8 shards, eps 0.05 and the
      default "auto" policy on WEAK_SCALING (16,000,000 UNIF int32 keys,
      repro/configs/paper_sort.py:18 at p = 8), 16,000,000 standard-normal
@@ -189,8 +189,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      (shards and counts) and to np.sort; `probe_counts` of those keys,
      unsorted, against 256 sorted probes (the counting K4's path) equal
      to its plain version and to np.sort's histogram; `merge_flat_runs`
-     of 8 runs of 2^21 keys; `pack_tagged`/`unpack_tagged` at 31 and 63
-     bits;
+     of 8 runs of 2^21 keys (K5 alone); `pack_tagged`/`unpack_tagged` at
+     31 and 63 bits;
   26. model serving (repro_torch.models, repro_torch.launch.serve): (a)
      Phi-3.5-MoE (src/repro/configs/phi35_moe.py) at full width with 8
      of its 32 layers (78 GiB of bf16 weights at 32 do not fit the card),
@@ -207,8 +207,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      lognormal(3.5, 0.6) lengths clipped to [8, 128] over 8 buckets on
      (a)'s configuration: each request served once, buckets contiguous
      and non-decreasing, pad fractions printed, the bucketing sort's
-     kernels gated (`PATH_KERNELS["serve_bucketed"]`: K1, K2's reverse
-     role and K4s; its 8-key shard rows reach neither K2's tail nor K3);
+     kernels gated (`PATH_KERNELS["serve_bucketed"]`: K1, K5 and K4s;
+     its 8-key shard rows reach neither K2 nor K3);
   27. model training (repro_torch.launch.train, models/steps, optim,
      ckpt, runtime/ft.TrainSupervisor): (a) Phi-3.5-MoE at full width
      with 2 of its 32 layers (AdamW's 12 bytes a parameter: 32.0 GiB at
@@ -258,7 +258,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      five examples/torch_*.py at their defaults, each a subprocess
      exiting 0. Paths (b)-(d) launch no kernel (`PATH_KERNELS`);
   last (phase 12, run after 13-28): every kernel (K1, K2 by role, K3,
-     K4s) against its plain version,
+     K4s, K5) against its plain version,
      exactly, at every shape and parameter the main paths of phases 4-5,
      7-10, 13-17, 19-22, 25 and 26 called it with (recorded as they ran,
      `kernel_shapes`):
@@ -268,7 +268,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      (rows, n) checked in `shapes_checked`.
 
 Each path's kernels are gated (`check_path_launches`): every kernel it
-launches by the code, none other. The HSS paths launch K1-K3 and K4s; the
+launches by the code, none other. The HSS paths launch K1-K3, K4s and
+K5 (every post-exchange merge); the
 sample sorts and top_k rank nothing, so they launch no K4s; the counting
 dispatch launches no kernel (`PATH_KERNELS`); only `probe_counts`
 (phase 25) launches the counting K4, whose operations per pair are read
@@ -325,14 +326,19 @@ HEAD_START_CYCLES = 40_000_000
 BASELINES = ("sample_random", "sample_regular", "ams", "multistage")
 #: The kernels each path of phase 10 launches, from the code: every local
 #: sort (the shards', the sample buffers', the gathered probes') runs K1,
-#: K2 in both roles and K3 at these sizes; ams, multistage and HSS rank a
+#: K2 in both roles and K3 at these sizes; every post-exchange merge runs
+#: K5 (MERGING); ams, multistage and HSS rank a
 #: sample with K4s; the sample sorts rank nothing. Only probe_counts
 #: counts (K4).
 SORTING = ("bitonic_sort_blocks", "bitonic_merge_smem.reverse",
            "bitonic_merge_smem.tail", "strided_compare_exchange")
-RANKING = SORTING + ("probe_rank_search",)
-PATH_KERNELS = {"sample_random": SORTING, "sample_regular": SORTING,
+MERGING = SORTING + ("merge_path_pairs",)
+RANKING = MERGING + ("probe_rank_search",)
+PATH_KERNELS = {"sample_random": MERGING, "sample_regular": MERGING,
                 "ams": RANKING, "multistage": RANKING, "ragged": RANKING,
+                # PRESORTED shards outgrow the ragged slot: a full local
+                # sort of each buffer, no merge
+                "ragged_presorted": SORTING + ("probe_rank_search",),
                 # phase 17: semisort sorts the shards and the masked lights
                 # and ranks with HSS; the value aggregates ride sort_kv;
                 # top_k sorts and merges, ranking nothing; the counting
@@ -340,23 +346,22 @@ PATH_KERNELS = {"sample_random": SORTING, "sample_regular": SORTING,
                 # is jnp with no Pallas)
                 "semisort": RANKING, "groupby_aggregate[count]": RANKING,
                 "groupby_aggregate[sum]": RANKING,
-                "groupby_aggregate[max]": RANKING, "top_k": SORTING,
+                "groupby_aggregate[max]": RANKING, "top_k": MERGING,
                 "counting_dispatch": (),
                 # phase 25: the legacy entry points sort as their
                 # algorithm's front door does; probe_counts counts keys in
                 # any order (K4, its one path); merge_flat_runs of 2^21-key
-                # runs merges by HBM passes (K3, then K2's tail)
-                "legacy:hss": RANKING, "legacy:sample_random": SORTING,
-                "legacy:sample_regular": SORTING, "legacy:ams": RANKING,
+                # runs merges by K5 alone
+                "legacy:hss": RANKING, "legacy:sample_random": MERGING,
+                "legacy:sample_regular": MERGING, "legacy:ams": RANKING,
                 "legacy:multistage": RANKING,
                 "probe_counts": ("probe_rank_count",),
-                "merge_flat_runs": ("strided_compare_exchange",
-                                    "bitonic_merge_smem.tail")}
+                "merge_flat_runs": ("merge_path_pairs",)}
 # The CUDA functions of csrc/sort_kernels.cu, as the profiler names them.
 PORT_KERNELS = ("bitonic_sort_warp_kernel", "bitonic_merge_smem_kernel",
                 "bitonic_merge_warp_kernel", "strided_ce_kernel",
                 "strided_ce_vec4_kernel", "probe_rank_count_kernel",
-                "probe_rank_search_kernel")
+                "probe_rank_search_kernel", "merge_path_pairs_kernel")
 
 
 def fail(msg: str):
@@ -631,6 +636,63 @@ def k2_segment_checks(torch, BK, keys, check, card):
           "equal": True, "card": card})
 
 
+#: The post-exchange merge of the benchmark's `hss_p8_2p28` (2^28 keys over
+#: p = 8 shards): 8 destination rows of 8 runs, each about 2^22 keys in its
+#: pair capacity; ceil(log2 8) = 3 K5 levels.
+MERGE_N_LOCAL = 1 << 25
+MERGE_LEVELS = 3
+
+
+def merge_path_row(torch, row, check, gen):
+    """K5's row (9; it replaces no Pallas site) at the benchmark's merge:
+    runs of pair_cap slots holding 2^22 +- 4,096 sorted keys and the hi
+    sentinel past them; the three levels against the plain version's and
+    against torch.sort of each row cut to out_cap. Bound: the function's
+    bytes, one read of each valid key and one write of each out_cap row;
+    `levels_bound_ms` is the three pairwise levels' own, 8 bytes a valid
+    key a level."""
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.kernels.merge import kernel as MK
+    from repro_torch.kernels.merge import ops as mops
+
+    cfg = ExchangeConfig()
+    cap = cfg.pair_cap(MERGE_N_LOCAL, P)
+    out_cap = cfg.out_cap(MERGE_N_LOCAL, P, EPS)
+    counts = (1 << 22) + torch.randint(-4096, 4097, (P, P), generator=gen,
+                                       device="cuda", dtype=torch.int32)
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (P, P, cap), generator=gen,
+                      device="cuda", dtype=torch.int32)
+    x = torch.where(torch.arange(cap, device="cuda") < counts[..., None], x,
+                    2 ** 31 - 1)
+    x = torch.sort(x, dim=-1).values
+
+    def kernel():
+        return mops.merge_sorted_runs(x, counts=counts, out_len=out_cap)
+
+    def plain():
+        y, c = x, counts
+        while y.shape[1] > 2:
+            y, c = MK.merge_path_pairs_plain(y, c)
+        return MK.merge_path_pairs_plain(y, c, out_len=out_cap)[0][:, 0]
+
+    def library():
+        return torch.sort(x.view(P, -1), dim=-1).values
+
+    got = kernel()
+    err = max(check("merge_path_pairs", got, plain()),
+              check("merge_path_pairs[vs torch.sort]", got,
+                    library()[:, :out_cap]))
+    del got
+    valid = int(counts.sum())
+    row(9, "merge_path_pairs", "K5", "merge_path_pairs", "sort",
+        "none (the post-exchange merge, which the reference runs as #7 "
+        "and #8)", err, kernel, plain, library,
+        4 * valid + 4 * P * out_cap, MERGE_LEVELS * valid,
+        timed_shape=[P, P, cap], levels=MERGE_LEVELS, valid_keys=valid,
+        out_len=out_cap,
+        levels_bound_ms=MERGE_LEVELS * 8 * valid / HBM_BYTES_PER_S * 1e3)
+
+
 def kernel_phase(torch, card, floor_ms, k4_ops):
     """One row per Pallas site and kernel, in site order; `launches` is
     filled in from the main paths' runs later. k4_ops: the counting K4's
@@ -738,39 +800,11 @@ def kernel_phase(torch, card, floor_ms, k4_ops):
             f"strided_compare_exchange(flip={flip})",
             MK.strided_compare_exchange(x, d, flip),
             MK.strided_compare_exchange_plain(x, d, flip)))
-    # ... and #7 K3 with #8 K2's tail at the post-exchange merges of 8
-    # rows: 8 runs of 2^18..2^21 keys (dense at capacity_scale 1..4, the
-    # batched spill's 2p runs of 2^18) and 16 runs of 2^21 (the spill
-    # merge), K3 at every distance above K2's segment, both relayouts
-    merge_shapes = []
-    tail_err = 0
-    for log_n in (22, 23, 24, 25):
-        xr = keys((P, 1 << log_n))
-        dr = 1 << (log_n - 1)
-        while 2 * dr > seg:
-            for flip in (True, False):
-                err = max(err, check(
-                    f"strided_compare_exchange[(8, 2^{log_n}), d={dr}, "
-                    f"flip={flip}]",
-                    MK.strided_compare_exchange(xr, dr, flip),
-                    MK.strided_compare_exchange_plain(xr, dr, flip)))
-            dr //= 2
-        tail_err = max(tail_err, check(
-            f"bitonic_merge_smem[tail,(8, 2^{log_n})]",
-            BK.bitonic_merge_smem(xr, seg, False),
-            BK.bitonic_merge_plain(xr, seg, False)))
-        merge_shapes.append([P, 1 << log_n])
-        del xr
-    tail_row = next(r for r in rows if r["site"] == 8)
-    tail_row["max_abs_err"] = max(tail_row["max_abs_err"], tail_err)
-    tail_row["shapes_checked"] = [[P, ROW]] + merge_shapes
     row(7, "strided_compare_exchange", "K3", "strided_compare_exchange",
         "sort", f"{PALLAS}/merge/kernel.py:49", err,
         lambda: MK.strided_compare_exchange(x, d, True),
         lambda: MK.strided_compare_exchange_plain(x, d, True),
-        None, 2 * 4 * n, n, timed_shape=[P, ROW], timed_distance=d,
-        shapes_checked=[[P, ROW]] + merge_shapes,
-        distances_checked="every distance above 16,384 at the merge shapes")
+        None, 2 * 4 * n, n, timed_shape=[P, ROW], timed_distance=d)
 
     # #5 K4s: one HSS round's histogram, 8 x 2,000,000 sorted keys x 256,
     # against its plain version and the counting K4
@@ -851,28 +885,14 @@ def kernel_phase(torch, card, floor_ms, k4_ops):
                 BK.bitonic_merge_smem(pb, seg, False),
                 BK.bitonic_merge_plain(pb, seg, False))
 
-    # #7 K3 at the batched path's largest distances, both relayouts: the
-    # local sort of (64, 2^18) rows, then the post-exchange merges of 64
-    # rows of 2^20 keys (dense) and 2^21 keys (allgather); the tail is
-    # checked on the dense merge rows too
+    # #7 K3 at the batched path's largest distance, both relayouts: the
+    # local sort of (64, 2^18) rows
     k3_err = 0
     for flip in (True, False):
         k3_err = max(k3_err, check(
             f"strided_compare_exchange[(64, 2^18), flip={flip}]",
             MK.strided_compare_exchange(xb, B_ROW // 2, flip),
             MK.strided_compare_exchange_plain(xb, B_ROW // 2, flip)))
-    del xb
-    for log_n in (21, 20):    # the dense rows are kept for the timing
-        xm = keys((B_ROWS, 1 << log_n))
-        for flip in (True, False):
-            k3_err = max(k3_err, check(
-                f"strided_compare_exchange[(64, 2^{log_n}), flip={flip}]",
-                MK.strided_compare_exchange(xm, 1 << (log_n - 1), flip),
-                MK.strided_compare_exchange_plain(xm, 1 << (log_n - 1),
-                                                  flip)))
-    err = max(err, check("bitonic_merge_smem[tail,(64, 2^20)]",
-                         BK.bitonic_merge_smem(xm, seg, False),
-                         BK.bitonic_merge_plain(xm, seg, False)))
     row(8, "bitonic_merge_smem[tail,batched]", "K2",
         "bitonic_merge_smem.tail", "sort_batched",
         f"{PALLAS}/merge/kernel.py:71", err,
@@ -880,18 +900,22 @@ def kernel_phase(torch, card, floor_ms, k4_ops):
         lambda: BK.bitonic_merge_plain(pb, seg, False),
         lambda: torch.sort(pb.view(-1, seg), dim=-1),
         2 * 4 * nb, 2 * (nb // 2) * (seg.bit_length() - 1),
-        shapes_checked=[[B_ROWS, B_ROW], [B_ROWS, 1 << 20]])
-    nm = xm.numel()
+        shapes_checked=[[B_ROWS, B_ROW]])
     row(7, "strided_compare_exchange[batched]", "K3",
         "strided_compare_exchange", "sort_batched",
         f"{PALLAS}/merge/kernel.py:49", k3_err,
-        lambda: MK.strided_compare_exchange(xm, 1 << 19, True),
-        lambda: MK.strided_compare_exchange_plain(xm, 1 << 19, True),
-        None, 2 * 4 * nm, nm, timed_shape=[B_ROWS, 1 << 20],
-        timed_distance=1 << 19,
-        shapes_checked=[[B_ROWS, B_ROW], [B_ROWS, 1 << 20],
-                        [B_ROWS, 1 << 21]])
-    del pb, xm
+        lambda: MK.strided_compare_exchange(xb, B_ROW // 2, True),
+        lambda: MK.strided_compare_exchange_plain(xb, B_ROW // 2, True),
+        None, 2 * 4 * nb, nb, timed_shape=[B_ROWS, B_ROW],
+        timed_distance=B_ROW // 2)
+    del pb, xb
+
+    # K5: the benchmark cell's post-exchange merge (hssbench's
+    # hss_p8_2p28: 2^28 keys, p = 8, pair_factor 3.0), 8 rows of 8 runs
+    # of 12,582,912 slots, each run's count near 2^22; three levels, the
+    # last writing the out_cap row. Against its plain version and against
+    # torch.sort of the rows, then timed beside both
+    merge_path_row(torch, row, check, gen)
 
     # #6 K4s and K4: keys (64, 250,000), a distinct sorted probe row of
     # 256 each; and 70,000 rows, past gridDim.y's 65,535
@@ -1485,8 +1509,10 @@ def with_comm_log(fn):
 def kernel_shapes(seen: set):
     """While the block runs, add each call of the four kernel wrappers to
     `seen` as (counter, rows, n, parameters): the block (K1), the segment
-    (K2, counted by role), the distance and flip (K3) or the probe count
-    (K4s). The wrappers still launch; nothing is synchronised."""
+    (K2, counted by role), the distance and flip (K3), the probe count
+    (K4s) or, for K5, (counter, rows, k, stride, out_len or 0, whether
+    counts were given, whether it fills). The wrappers still launch; nothing is
+    synchronised."""
     from repro_torch.kernels.bitonic_sort import kernel as BK
     from repro_torch.kernels.histogram import kernel as HK
     from repro_torch.kernels.histogram import ops as hops
@@ -1495,7 +1521,8 @@ def kernel_shapes(seen: set):
     real = {"sort_blocks": BK.sort_blocks,
             "bitonic_merge_smem": BK.bitonic_merge_smem,
             "strided_compare_exchange": MK.strided_compare_exchange,
-            "probe_rank_search": HK.probe_rank_search}
+            "probe_rank_search": HK.probe_rank_search,
+            "merge_path_pairs": MK.merge_path_pairs}
 
     def sort_blocks(x, block):
         seen.add(("bitonic_sort_blocks", *x.shape, block))
@@ -1514,10 +1541,16 @@ def kernel_shapes(seen: set):
         seen.add(("probe_rank_search", *keys.shape, probes.shape[1]))
         return real["probe_rank_search"](keys, probes)
 
+    def merge_path_pairs(x, counts=None, out_len=None, *, _fill=True):
+        seen.add(("merge_path_pairs", *x.shape, out_len or 0,
+                  counts is not None, _fill))
+        return real["merge_path_pairs"](x, counts, out_len, _fill=_fill)
+
     wrappers = {"sort_blocks": sort_blocks,
                 "bitonic_merge_smem": bitonic_merge_smem,
                 "strided_compare_exchange": strided_compare_exchange,
-                "probe_rank_search": probe_rank_search}
+                "probe_rank_search": probe_rank_search,
+                "merge_path_pairs": merge_path_pairs}
     # every module that holds a wrapper by name, the callers' imports too
     patched = [(mod, name) for mod in (BK, MK, HK, hops) for name in real
                if getattr(mod, name, None) is real[name]]
@@ -1530,6 +1563,34 @@ def kernel_shapes(seen: set):
             setattr(mod, name, real[name])
 
 
+def merge_path_inputs(torch, keys, gen, sig, device):
+    """K5 and its plain version at one recorded signature -> (got, want),
+    each output with its merged counts. An inner level of
+    merge_sorted_runs (no fill) leaves the slots past a merged count
+    unwritten, so they are compared as the hi sentinel."""
+    from repro_torch.kernels.merge import kernel as MK
+
+    _, rows, k, stride, length, with_counts, fill = sig
+    hi = 2 ** 31 - 1
+    counts = (torch.randint(0, stride + 1, (rows, k), generator=gen,
+                            device=device, dtype=torch.int32)
+              if with_counts else None)
+    x = keys(rows, k, stride)
+    if with_counts:
+        x = torch.where(torch.arange(stride, device=device)
+                        < counts[..., None], x, hi)
+    x = torch.sort(x, dim=-1).values
+    out_len = length or None
+    got, got_n = MK.merge_path_pairs(x, counts, out_len, _fill=fill)
+    want, want_n = MK.merge_path_pairs_plain(x, counts, out_len)
+    if not fill:
+        past = (torch.arange(got.shape[-1], device=device)
+                >= got_n[..., None])
+        got = torch.where(past, hi, got)
+    return (torch.cat([got.flatten(), got_n.flatten()]),
+            torch.cat([want.flatten(), want_n.flatten()]))
+
+
 def path_shapes_phase(torch, seen: set, card, device="cuda"):
     """Phase 12: each kernel against its plain version, exactly, at every
     (rows, n, parameters) that the main paths called it with (`seen`, from
@@ -1537,8 +1598,10 @@ def path_shapes_phase(torch, seen: set, card, device="cuda"):
     role on sorted runs of half a segment, K4s on sorted rows whose tails
     hold 0 to 3/8 of the row in hi sentinels (the padded rows of
     multistage's stage 2 and the exchanges) against probes drawn half from
-    the row, some hi sentinels among them. Returns the (rows, n) checked
-    for each counter."""
+    the row, some hi sentinels among them, K5 on sorted runs holding a
+    random count of keys each (the hi sentinel past it; without counts,
+    whole runs). Returns the (rows, n) checked for each counter ((rows,
+    k, stride) for K5)."""
     from repro_torch.kernels.bitonic_sort import kernel as BK
     from repro_torch.kernels.histogram import kernel as HK
     from repro_torch.kernels.merge import kernel as MK
@@ -1587,12 +1650,16 @@ def path_shapes_phase(torch, seen: set, card, device="cuda"):
             k, q = search_inputs(rows, n, sig[3])
             got = HK.probe_rank_search(k, q)
             want = HK.probe_ranks_search_plain(k, q)
+        elif counter == "merge_path_pairs":
+            got, want = merge_path_inputs(torch, keys, gen, sig, device)
         else:
             fail(f"path_shapes_phase: no inputs for {counter}")
         if not torch.equal(got, want):
             fail(f"{counter}{list(sig[1:])} disagrees with its plain "
                  "version at a main path's shape")
-        shapes.setdefault(counter, set()).add((rows, n))
+        shapes.setdefault(counter, set()).add(tuple(sig[1:4]) if
+                                              counter == "merge_path_pairs"
+                                              else (rows, n))
         del got, want
     emit({"measure": "path_shapes", "checked": len(seen),
           "seconds": time.perf_counter() - t0,
@@ -1682,7 +1749,7 @@ def baselines_phase(torch, np, card):
              "shard's run outgrows the slot, so the full sort must run once")
     paths["sort[ragged,presorted]"] = launches
     check_path_launches("sort[ragged,presorted]", launches,
-                        PATH_KERNELS["ragged"])
+                        PATH_KERNELS["ragged_presorted"])
     counts = out.counts.cpu().numpy()
     if (int(out.overflow) or counts.max() > limit
             or not np.array_equal(out.gather(), np.sort(y))):
@@ -2166,16 +2233,16 @@ def grouping_timing_phase(torch, np, card):
 
 #: Phases 19-22: the service at the batched cell's width. Each kind's
 #: kernels, from the code: sort, sort_kv (4 key + 21 tag bits: int32
-#: packing) and semisort run the HSS path's five; top_k sorts and merges,
+#: packing) and semisort run the HSS path's six; top_k sorts and merges,
 #: ranking nothing; argsort of UNIF keys (30 + 21 bits) packs int64 and
 #: takes the torch route (no kernel); the mixed window is their union.
 #: bucket_lengths' 11 key bits (lengths 16..2,048) and 20 tag bits
 #: (1,048,576 documents) are over int32's 30, so it packs int64: none.
 #: The corrupt drill's degraded path sorts each request alone, under its
-#: own spec (HSS on int32 keys, audited): the HSS path's five.
+#: own spec (HSS on int32 keys, audited): the HSS path's six.
 SERVE_KINDS = ("sort", "sort_kv", "semisort", "top_k", "argsort")
 PATH_KERNELS.update({"serve[sort]": RANKING, "serve[sort_kv]": RANKING,
-                     "serve[semisort]": RANKING, "serve[top_k]": SORTING,
+                     "serve[semisort]": RANKING, "serve[top_k]": MERGING,
                      "serve[argsort]": (), "serve[mixed]": RANKING,
                      "serve[http]": RANKING, "serve[degraded]": RANKING,
                      "bucket_lengths": ()})
@@ -2858,10 +2925,9 @@ MAMBA_PROMPT = 256
 BUCKET_REQUESTS, BUCKETS = 64, 8
 #: serve_bucketed's sort of 64 prompt lengths over 8 shards (7 key bits, 6
 #: tag bits: int32 packing, the kernels): K1 sorts each 8-key shard row
-#: and the 64-key sample, K2 in its reverse role merges the received runs
-#: (64-key rows), K4s ranks; no row is long enough for K2's tail or K3.
-PATH_KERNELS["serve_bucketed"] = ("bitonic_sort_blocks",
-                                  "bitonic_merge_smem.reverse",
+#: and the 64-key sample, K5 merges the received runs (64-key rows), K4s
+#: ranks; no row is long enough for K2 or K3.
+PATH_KERNELS["serve_bucketed"] = ("bitonic_sort_blocks", "merge_path_pairs",
                                   "probe_rank_search")
 
 

@@ -23,6 +23,11 @@ K2  bitonic_merge_smem_kernel<S>  dynamic S ints (64 KB at S = 16,384), S/32
 K3  strided_ce(_vec4)_kernel      none
 K4  probe_rank_count_kernel       static kProbeTile ints (16 KB), 256 threads
 K4s probe_rank_search_kernel      none
+K5  merge_path_pairs_kernel       static kPathThreads * kPathItems + 4 ints
+                                  (15,376 B: a tile, a read-past slot, the
+                                  tile's two cuts, a pad to 16 bytes), 256
+                                  threads, launch bounds (256, 4): 64
+                                  registers
 
 `check_kernel_budgets()` raises `BudgetError` with the arithmetic on the
 first configuration that does not fit. `check_ptxas(footprints, log)`
@@ -46,6 +51,7 @@ __all__ = [
     "sort_block_footprint",
     "merge_footprint",
     "probe_count_footprint",
+    "merge_path_footprint",
     "default_footprints",
     "check_kernel_budgets",
     "ptxas_report",
@@ -79,7 +85,7 @@ def kernel_constants(source: Path = SOURCE) -> Dict[str, int]:
 
 @dataclasses.dataclass(frozen=True)
 class KernelFootprint:
-    kernel: str            # "K1", "K2", "K3", "K4", "K4s"
+    kernel: str            # "K1", "K2", "K3", "K4", "K4s", "K5"
     entry: str             # the __global__ function (ptxas's entry name)
     config: str            # the template argument, or "-"
     threads: int           # threads a block
@@ -170,9 +176,21 @@ def probe_count_footprint(tile: int | None = None, c=None) -> KernelFootprint:
                            f"kProbeTile={tile} * {WORD}")
 
 
+def merge_path_footprint(c=None) -> KernelFootprint:
+    """K5: one tile of kPathThreads * kPathItems keys in static shared
+    memory, with a slot a merge step may read past it, the tile's two
+    cuts on the merge path and a word of padding to 16 bytes."""
+    c = c or kernel_constants()
+    threads = c["kPathThreads"]
+    words = threads * c["kPathItems"] + 4
+    return KernelFootprint("K5", "merge_path_pairs_kernel", "-", threads,
+                           words * WORD, 0, 0, _reg_cap(threads, 4),
+                           f"({threads}*{c['kPathItems']}+4)*{WORD}")
+
+
 def default_footprints(c=None) -> Tuple[KernelFootprint, ...]:
     """Every shipped configuration: K1 at each block size 2..1,024, K2 at
-    each segment 2..kMaxSmemKeys, K3's two forms, K4 and K4s."""
+    each segment 2..kMaxSmemKeys, K3's two forms, K4, K4s and K5."""
     c = c or kernel_constants()
     out = [sort_block_footprint(1 << j, c) for j in range(1, 11)]
     seg = 2
@@ -186,6 +204,7 @@ def default_footprints(c=None) -> Tuple[KernelFootprint, ...]:
     threads = c["kSearchThreads"]
     out.append(KernelFootprint("K4s", "probe_rank_search_kernel", "-",
                                threads, 0, 0, 0, _reg_cap(threads), "0"))
+    out.append(merge_path_footprint(c))
     return tuple(out)
 
 
@@ -201,7 +220,8 @@ _ENTRY = re.compile(r"(?:entry function|Function properties for) "
 ENTRIES = ("bitonic_sort_warp_kernel", "bitonic_merge_warp_kernel",
            "bitonic_merge_smem_kernel", "strided_ce_vec4_kernel",
            "strided_ce_kernel", "probe_rank_count_kernel",
-           "probe_rank_search_kernel", "empty_kernel")
+           "probe_rank_search_kernel", "merge_path_pairs_kernel",
+           "empty_kernel")
 
 
 def _entry(mangled: str):

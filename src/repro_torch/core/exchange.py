@@ -51,9 +51,9 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.common import hi_sentinel, pow2_ceil, round_up
+from repro_torch.core.common import hi_sentinel, round_up
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.merge.ops import cap_to, gather_runs
+from repro_torch.kernels.merge.ops import gather_runs
 from repro_torch.parallel.comm import Comm
 from repro_torch.runtime import chaos
 from repro_torch.runtime.syncs import to_device
@@ -216,10 +216,11 @@ def exchange_dense_batched(local_sorted: torch.Tensor,
                                                     dtype=torch.int32))
     recv, recv_counts = _dense_send(local_sorted, starts, sent_counts, cap,
                                     comm)   # (p_dst, p_src, B, cap)
-    # p sorted sentinel-tailed runs of cap keys per (destination, request)
-    merged = dispatch.merge_runs(recv.transpose(1, 2),
-                                 policy=cfg.kernel_policy)
-    out = cap_to(merged, out_cap)
+    # p sorted sentinel-tailed runs of cap keys per (destination, request),
+    # each holding its received count's keys
+    out = dispatch.merge_runs(recv.transpose(1, 2), policy=cfg.kernel_policy,
+                              counts=recv_counts.transpose(1, 2),
+                              out_len=out_cap)
     n_recv = recv_counts.sum(dim=1, dtype=torch.int32)   # (p_dst, B)
     # Receive-side truncation (only possible when the splitting violated
     # its eps guarantee) is overflow too.
@@ -272,10 +273,8 @@ def exchange_dense_spill(local_sorted: torch.Tensor,
     spill = dispatch.local_sort(torch.where(spilled, local_sorted, sent_hi),
                                 policy=cfg.kernel_policy)
     del spilled
-    # slot = n bounds every window; it is rounded up to the merge's power
-    # of two, which only adds sentinels past every run (they sort to the
-    # tail and cap_to cuts them), so the cascade neither pads nor slices
-    slot = pow2_ceil(n)
+    # slot = n bounds every window (the merge reads each run's count)
+    slot = n
     windows, s_counts = _gather_windows(
         comm.all_gather(spill[:, None]), comm.all_gather(n_spill[:, None]),
         splitter_keys[None], comm, slot)          # (p_dst, 1, p_src, slot)
@@ -287,8 +286,9 @@ def exchange_dense_spill(local_sorted: torch.Tensor,
     runs[:, :, :p, :cap] = recv.transpose(1, 2)
     runs[:, :, p:] = windows
     del recv, windows
-    out = cap_to(dispatch.merge_runs(runs, policy=cfg.kernel_policy),
-                 out_cap)
+    out = dispatch.merge_runs(
+        runs, policy=cfg.kernel_policy, out_len=out_cap,
+        counts=torch.cat([recv_counts.transpose(1, 2), s_counts], dim=-1))
     del runs
     n_recv = (recv_counts.sum(dim=1, dtype=torch.int32)
               + s_counts.sum(dim=-1, dtype=torch.int32))      # (p_dst, 1)
@@ -328,16 +328,13 @@ def exchange_allgather_batched(local_sorted: torch.Tensor,
 
     everything = comm.all_gather(local_sorted)                # (p, B, n)
     nv = comm.all_gather(_rows_valid(n_valid, p, batch, n, dev))  # (p_src, B)
-    # slot = n bounds every window; it is rounded up to the merge's power
-    # of two, which only adds sentinels past every window (they sort to
-    # the tail and cap_to cuts them), so the cascade does not pad a
-    # second copy.
+    # slot = n bounds every window (the merge reads each window's count)
     runs, counts = _gather_windows(everything, nv, splitter_keys, comm,
-                                   pow2_ceil(n))  # (p_dst, B, p_src, slot)
+                                   n)             # (p_dst, B, p_src, n)
     n_out = counts.sum(dim=-1, dtype=torch.int32)             # (p_dst, B)
-    merged = dispatch.merge_runs(runs, policy=cfg.kernel_policy)
+    out = dispatch.merge_runs(runs, policy=cfg.kernel_policy, counts=counts,
+                              out_len=out_cap)
     del runs
-    out = cap_to(merged, out_cap)
     trunc = torch.clamp(n_out - out_cap, min=0)
     return out, n_out - trunc, comm.psum(trunc)
 

@@ -4,7 +4,9 @@ bitonic_sort  K1 block sort and K2 bitonic merge, both register-and-
               shuffle; the local sort of every row (shards, sample
               buffers, gathered probes).
 merge         K3 strided compare-exchange: the HBM pass of the merge
-              cascade, for pairs longer than K2 holds on chip.
+              cascade, for pairs longer than K2 holds on chip; K5 merge
+              path: the post-exchange merge of sorted runs' valid
+              prefixes, one launch a level.
 histogram     the per-round histogram: K4s probe-rank search over sorted
               rows (the main paths), K4 probe-rank count in any order.
 

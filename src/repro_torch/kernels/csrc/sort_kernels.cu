@@ -2,7 +2,7 @@
 //
 // Five kernels replace the eight Pallas call sites of the sort and the
 // batched sort (a batched Pallas kernel is its unbatched one per row, and
-// every kernel here already takes rows):
+// every kernel here already takes rows), and a sixth replaces none:
 //
 //   K1  bitonic_sort_blocks      repro/kernels/bitonic_sort/kernel.py:83, :98
 //                                (a warp kernel, one instantiation per size)
@@ -14,6 +14,8 @@
 //   K4s probe_rank_search        repro/kernels/histogram/kernel.py:35, :64
 //                                over sorted rows (every main-path caller)
 //   K4  probe_rank_count         the same sites, keys in any order
+//   K5  merge_path_pairs         the post-exchange merge of sorted runs,
+//                                which the reference runs as K3's network
 //
 // empty_launch starts a kernel that does nothing: the floor a timed launch
 // cannot go below, measured through the same ctypes route.
@@ -551,6 +553,157 @@ __global__ void probe_rank_search_kernel(const int* __restrict__ keys,
   if (lane == 0) out[pair] = static_cast<int>(lo + c);
 }
 
+// K5 merges run 2j with run 2j+1 of every row: in (rows, k, stride), each
+// run's keys its first counts[row, run] slots (stride when counts is null),
+// -> out (rows, ceil(k/2), out_len), each output run the merge of its two
+// runs cut at out_len; an odd last run pairs with an empty one. It replaces
+// no Pallas kernel. The reference merges the exchange's runs with K3's
+// comparator network because a TPU grid runs in order; Hopper's blocks run
+// in any order, and a merge path cuts a merge into independent tiles.
+// merge.ops.merge_sorted_runs runs ceil(log2 k) levels of it.
+//
+// What bounds it: bytes. A level reads and writes each valid key once, 8
+// bytes a key: 0.641 ms for 2^28 keys at 3.35 TB/s. The network it replaces
+// on the main path made 36 passes over 4 GiB of mostly sentinel slots (the
+// runs' capacity, padded to powers of two), 107 ms a call. The merge itself
+// needs one read and one write of each key; its ceil(log2 k) levels move
+// each key that many times.
+//
+// Design. One block owns kPathTile consecutive outputs of one output run
+// (the grid is static: tiles of out_len a run). A block past the run's
+// valid total exits, unless `fill` asks it to write the sentinel tail
+// (every call but merge_sorted_runs' inner levels, so the last level's
+// result equals cap_to(sort(row), out_len) bit for bit). The tile's two
+// ends are cut on the merge-path diagonal: the count of A's keys among the
+// first d outputs is the first i with A[i] > B[d-1-i], found by a 32-ary
+// search, one warp an end (5 rounds of 32 loads in flight for 2^24-key
+// runs, as K4s searches). The tile's A and
+// B ranges (kPathTile keys together) come into shared memory with
+// coalesced loads; each thread cuts its own kPathItems outputs on the
+// diagonal again, in shared memory, merges them in registers, and puts
+// them back in shared memory for coalesced stores. kPathItems is odd, so
+// the thread-major writes (thread t, key t*kPathItems + i) hit 32 distinct
+// banks. Ties take A's key first at every cut, so the cuts agree; equal
+// int32 keys are the same bits, so any exact merge gives the same output.
+// The counts stay on the device: the merged counts go to counts_out.
+constexpr int kPathThreads = 256;       // K5: threads a block
+constexpr int kPathItems = 15;          // K5: outputs a thread (odd)
+constexpr int kPathTile = kPathThreads * kPathItems;
+
+// The count of A's keys among the first d of merge(A[0, na), B[0, nb)),
+// ties to A: one warp searches 32-ary; every lane returns it.
+__device__ __forceinline__ int64_t merge_path_warp(const int* __restrict__ a,
+                                                   int64_t na,
+                                                   const int* __restrict__ b,
+                                                   int64_t nb, int64_t d,
+                                                   int lane) {
+  int64_t lo = d > nb ? d - nb : 0;
+  int64_t w = (d < na ? d : na) - lo;   // the answer lies in [lo, lo + w]
+  while (w > 32) {
+    const int64_t s = (w + 31) >> 5;
+    const int64_t off = (lane + 1) * s;
+    const int64_t i = lo + off - 1;
+    const bool take = off <= w && a[i] <= b[d - 1 - i];
+    const int64_t end = lo + w;
+    lo += __popc(__ballot_sync(0xffffffffu, take)) * s;
+    w = s < end - lo ? s : end - lo;
+  }
+  const int64_t i = lo + lane;
+  const bool take = lane < w && a[i] <= b[d - 1 - i];
+  return lo + __popc(__ballot_sync(0xffffffffu, take));
+}
+
+__global__ void __launch_bounds__(kPathThreads, 4)
+    merge_path_pairs_kernel(const int* __restrict__ in,
+                            const int* __restrict__ counts,
+                            int* __restrict__ out,
+                            int* __restrict__ counts_out, int k, int k_out,
+                            int64_t stride, int64_t out_len, int64_t tiles,
+                            int fill) {
+  // the tile's keys, one slot that a merge step may read past them, the
+  // two ends' A offsets, and a word that rounds it to 16 bytes
+  __shared__ int s[kPathTile + 4];
+  const int tid = threadIdx.x;
+  const int64_t pair = blockIdx.x / tiles;          // (row, output run)
+  const int64_t t0 = (blockIdx.x - pair * tiles) * kPathTile;
+  const int64_t row = pair / k_out;
+  const int j = static_cast<int>(pair - row * k_out);
+  const int64_t ia = row * k + 2 * j;
+  const bool has_b = 2 * j + 1 < k;
+  const int* a = in + ia * stride;
+  const int* b = a + stride;
+  int64_t na = counts ? counts[ia] : stride;
+  int64_t nb = !has_b ? 0 : counts ? counts[ia + 1] : stride;
+  na = na < 0 ? 0 : (na > stride ? stride : na);
+  nb = nb < 0 ? 0 : (nb > stride ? stride : nb);
+  const int64_t valid = na + nb < out_len ? na + nb : out_len;
+  if (counts_out && t0 == 0 && tid == 0)
+    counts_out[pair] = static_cast<int>(valid);
+  int* o = out + pair * out_len + t0;
+  const int64_t room = out_len - t0 < kPathTile ? out_len - t0 : kPathTile;
+  if (t0 >= valid) {                    // past the merged keys
+    if (fill)
+      for (int i = tid; i < room; i += kPathThreads) o[i] = INT_MAX;
+    return;
+  }
+  const int64_t t1 = t0 + room < valid ? t0 + room : valid;
+  const int warp = tid >> 5;
+  if (warp < 2) {
+    const int64_t a_end =
+        merge_path_warp(a, na, b, nb, warp ? t1 : t0, tid & 31);
+    if ((tid & 31) == 0) s[kPathTile + 1 + warp] = static_cast<int>(a_end);
+  }
+  __syncthreads();
+  const int64_t a0 = s[kPathTile + 1], a1 = s[kPathTile + 2];
+  const int n = static_cast<int>(t1 - t0);           // keys of the tile
+  const int m = static_cast<int>(a1 - a0);           // of them from A
+  const int* ga = a + a0;
+  const int* gb = b + (t0 - a0);
+  int v[kPathItems];
+#pragma unroll
+  for (int r = 0; r < kPathItems; ++r) {
+    const int i = r * kPathThreads + tid;
+    v[r] = i < m ? ga[i] : (i < n ? gb[i - m] : 0);
+  }
+#pragma unroll
+  for (int r = 0; r < kPathItems; ++r) {
+    const int i = r * kPathThreads + tid;
+    if (i < n) s[i] = v[r];
+  }
+  __syncthreads();
+  // this thread's outputs [d, d + kPathItems) of the tile: A is s[0, m),
+  // B is s[m, n)
+  const int d = tid * kPathItems < n ? tid * kPathItems : n;
+  int lo = d > n - m ? d - (n - m) : 0;
+  int hi = d < m ? d : m;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s[mid] <= s[m + d - 1 - mid]) lo = mid + 1; else hi = mid;
+  }
+  // a read past a run is clamped to s[n], which is never taken
+  int ai = lo, bi = m + d - lo;
+  int x = s[ai], y = s[bi];
+#pragma unroll
+  for (int r = 0; r < kPathItems; ++r) {
+    const bool from_a = bi >= n || (ai < m && x <= y);
+    v[r] = from_a ? x : y;
+    if (from_a) {
+      ++ai;
+      x = s[ai < n ? ai : n];
+    } else {
+      ++bi;
+      y = s[bi < n ? bi : n];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kPathItems; ++r)
+    if (d + r < n) s[d + r] = v[r];
+  __syncthreads();
+  const int last = fill ? static_cast<int>(room) : n;
+  for (int i = tid; i < last; i += kPathThreads) o[i] = i < n ? s[i] : INT_MAX;
+}
+
 __global__ void empty_kernel() {}
 
 bool is_pow2(int64_t v) { return v > 0 && (v & (v - 1)) == 0; }
@@ -706,6 +859,27 @@ int probe_rank_search(const void* keys, const void* probes, void* out,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(keys), static_cast<const int*>(probes),
       static_cast<int*>(out), n, m, pairs);
+  return cudaGetLastError();
+}
+
+// K5 over (rows, k, stride) -> (rows, ceil(k/2), out_len); counts and
+// counts_out may be null. fill != 0 writes each output run's sentinel tail.
+int merge_path_pairs(const void* in, const void* counts, void* out,
+                     void* counts_out, long long rows, int k,
+                     long long stride, long long out_len, int fill,
+                     void* stream) {
+  if (rows < 1 || k < 1 || stride < 1 || stride > INT_MAX || out_len < 1 ||
+      out_len > INT_MAX)
+    return cudaErrorInvalidValue;
+  const int k_out = (k + 1) / 2;
+  const int64_t tiles = (out_len + kPathTile - 1) / kPathTile;
+  if (tiles > INT_MAX / k_out / rows) return cudaErrorInvalidValue;
+  merge_path_pairs_kernel<<<static_cast<unsigned>(rows * k_out * tiles),
+                            kPathThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(in), static_cast<const int*>(counts),
+      static_cast<int*>(out), static_cast<int*>(counts_out), k, k_out,
+      stride, out_len, tiles, fill);
   return cudaGetLastError();
 }
 

@@ -17,6 +17,7 @@ the kernels. K2 serves two Pallas sites, so it is counted apart by role:
 `bitonic_merge_smem.tail` (an HBM pass's tail, merge_bitonic_blocks).
 K4 has two forms with a counter each: `probe_rank_search` over sorted rows
 (the main paths) and `probe_rank_count` over keys in any order.
+`merge_path_pairs` counts K5, one launch a level of a post-exchange merge.
 `empty_launch`, a kernel that does nothing, is there to time the floor of
 a launch and counts under no kernel.
 Wrappers validate device, dtype, shape and contiguity before they call it;
@@ -48,6 +49,7 @@ SIGNATURES = {
     "strided_compare_exchange": (_P, _P, _L, _L, _I, _P),
     "probe_rank_count": (_P, _P, _P, _L, _L, _I, _P),
     "probe_rank_search": (_P, _P, _P, _L, _L, _I, _P),
+    "merge_path_pairs": (_P, _P, _P, _P, _L, _I, _L, _L, _I, _P),
     "empty_launch": (_P,),
 }
 
@@ -58,7 +60,7 @@ QUERIES = {"merge_smem_attributes": (_I, _IP, _IP, _IP)}
 #: Launch counters: one per kernel, K2's split by role.
 COUNTERS = ("bitonic_sort_blocks", "bitonic_merge_smem.reverse",
             "bitonic_merge_smem.tail", "strided_compare_exchange",
-            "probe_rank_count", "probe_rank_search")
+            "probe_rank_count", "probe_rank_search", "merge_path_pairs")
 #: Counters of kernels that no sort path launches: the counting K4 serves
 #: only `assume_sorted=False`, whose path is `histogram.ops.probe_counts`.
 OFF_MAIN_PATH = ("probe_rank_count",)

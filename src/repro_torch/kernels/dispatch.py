@@ -98,16 +98,23 @@ def probe_ranks(keys: torch.Tensor, probes: torch.Tensor, *,
     return hops.probe_ranks(keys, probes, assume_sorted=assume_sorted)
 
 
-def merge_runs(runs: torch.Tensor, *, policy: str = "auto") -> torch.Tensor:
-    """Merge the k sorted runs of each row of (..., k, r) -> (..., k*r).
+def merge_runs(runs: torch.Tensor, *, policy: str = "auto",
+               counts: torch.Tensor | None = None,
+               out_len: int | None = None) -> torch.Tensor:
+    """Merge the k sorted runs of each row of (..., k, r) -> (..., out_len)
+    (default k*r). `counts` (..., k), where given, says that each run's
+    slots past its count hold the hi sentinel.
 
-    Bit-identical to `torch.sort` of each row; the kernel path merges in
-    log(k) passes instead of re-sorting."""
+    Bit-identical to `cap_to(torch.sort(row), out_len)` of each row; the
+    kernel path merges only the runs' valid prefixes, in ceil(log2 k) K5
+    levels, instead of re-sorting (kernels.merge.ops.merge_sorted_runs)."""
     with trace.span("merge"):
         if resolve_policy(policy, runs.device, runs.dtype) == "torch":
-            return torch.sort(runs.reshape(runs.shape[:-2] + (-1,)),
-                              dim=-1).values
-        return mops.merge_sorted_runs(runs)
+            merged = torch.sort(runs.reshape(runs.shape[:-2] + (-1,)),
+                                dim=-1).values
+            return merged if out_len is None else mops.cap_to(merged,
+                                                              out_len)
+        return mops.merge_sorted_runs(runs, counts=counts, out_len=out_len)
 
 
 def merge_ragged(buf: torch.Tensor, starts: torch.Tensor,

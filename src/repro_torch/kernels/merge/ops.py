@@ -2,11 +2,12 @@
 
 merge_cascade      sorted runs of length `run` in each row -> each row one
                    sorted run, by a pairwise bitonic-merge tree.
-merge_sorted_runs  (..., k, r) sorted runs -> (..., k*r) sorted rows;
-                   the merge after the exchange. Leading axes (the batched
-                   engine's (p, B)) flatten to rows: one cascade pass per
-                   level for every request and shard (the reference's
-                   merge_sorted_runs_batched, merge/ops.py:105).
+merge_sorted_runs  (..., k, r) sorted runs -> (..., out_len) sorted rows;
+                   the merge after the exchange: K5 levels over each run's
+                   valid prefix. Leading axes (the batched engine's (p, B))
+                   flatten to rows: one launch a level for every request
+                   and shard (the reference's merge_sorted_runs_batched,
+                   merge/ops.py:105).
 gather_runs        runs at traced offsets of each row -> a sentinel-padded
                    (..., k, slot) buffer; the allgather exchange's windows.
 merge_ragged_runs  each row holds k sorted runs at traced offsets ->
@@ -46,30 +47,31 @@ def merge_cascade(x: torch.Tensor, run: int, *,
 
 
 def merge_sorted_runs(runs: torch.Tensor, *,
-                      smem_block: int = BK.SMEM_MAX_SEG) -> torch.Tensor:
+                      counts: torch.Tensor | None = None,
+                      out_len: int | None = None) -> torch.Tensor:
     """Merge the k sorted runs of each row of (..., k, r) into one sorted
-    (..., k*r) row. k and r need not be powers of two: runs and rows are
-    sentinel padded internally and the pad is sliced back off (sentinels
-    sort to the tail, so the slice is exact)."""
+    row cut or sentinel-padded to out_len (default k*r): `cap_to(sort(row),
+    out_len)` bit for bit. `counts` (..., k) says run i's keys are its
+    first counts[..., i] slots and the rest hold the hi sentinel, so only
+    those prefixes need merging (None: whole runs).
+
+    ceil(log2 k) K5 levels merge the valid prefixes pairwise, the last
+    writing the out_len row with its sentinel tail; the levels before it
+    leave the slots past each merged count unwritten, since the next level
+    reads only the counts' prefixes. A single run is already its row."""
     *lead, k, r = runs.shape
-    if k * r == 0:
-        return torch.zeros((*lead, 0), dtype=runs.dtype, device=runs.device)
-    runs = runs.reshape(-1, k, r)
-    rows = runs.shape[0]
-    sent = hi_sentinel(runs.dtype)
-    k2, r2 = pow2_ceil(k), pow2_ceil(r)
-    if r2 != r:
-        runs = torch.cat([runs, torch.full((rows, k, r2 - r), sent,
-                                           dtype=runs.dtype,
-                                           device=runs.device)], dim=2)
-    if k2 != k:
-        runs = torch.cat([runs, torch.full((rows, k2 - k, r2), sent,
-                                           dtype=runs.dtype,
-                                           device=runs.device)], dim=1)
-    flat = runs.reshape(rows, k2 * r2)
-    if k2 > 1:
-        flat = merge_cascade(flat, r2, smem_block=smem_block)
-    return flat[:, :k * r].reshape(*lead, k * r)
+    length = k * r if out_len is None else out_len
+    if k * r == 0 or length == 0:
+        return torch.full((*lead, length), hi_sentinel(runs.dtype),
+                          dtype=runs.dtype, device=runs.device)
+    if k == 1:
+        return cap_to(runs[..., 0, :], length).contiguous()
+    x = runs.reshape(-1, k, r).contiguous()
+    c = (None if counts is None
+         else counts.reshape(-1, k).to(torch.int32).contiguous())
+    while x.shape[1] > 2:
+        x, c = MK.merge_path_pairs(x, c, _fill=False)
+    return MK.merge_path_pairs(x, c, out_len=length)[0].reshape(*lead, length)
 
 
 #: The reference's batched name; `merge_sorted_runs` already takes rows.
@@ -79,7 +81,7 @@ merge_sorted_runs_batched = merge_sorted_runs
 def merge_flat_runs(x: torch.Tensor, run: int) -> torch.Tensor:
     """Merge back-to-back sorted runs of equal length `run` in each row of
     (..., n) (counterpart of merge/ops.py:134): `merge_sorted_runs`, so
-    K2 and K3 on the card."""
+    K5 on the card."""
     n = x.shape[-1]
     if run < 1 or n % run:
         raise ValueError(f"row length {n} is not a multiple of run={run}")
@@ -149,8 +151,8 @@ def merge_ragged_runs(buf: torch.Tensor, starts: torch.Tensor,
             ragged_branches["full_sort"] += 1
             return bops.local_sort(buf)
     ragged_branches["merge_tree"] += 1
-    return cap_to(merge_sorted_runs(gather_runs(buf, starts, counts, slot)),
-                  cap)
+    return merge_sorted_runs(gather_runs(buf, starts, counts, slot),
+                             counts=counts, out_len=cap)
 
 
 #: The reference's batched name; `merge_ragged_runs` already takes rows.

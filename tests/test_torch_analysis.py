@@ -314,11 +314,14 @@ def test_budget_fires_on_dynamic_smem_without_opt_in():
 
 def test_shipped_kernel_configs_fit_the_budget():
     checked = budgets.check_kernel_budgets()
-    assert len(checked) == 10 + 14 + 2 + 1 + 1
-    assert {fp.kernel for fp in checked} == {"K1", "K2", "K3", "K4", "K4s"}
+    assert len(checked) == 10 + 14 + 2 + 1 + 1 + 1
+    assert {fp.kernel for fp in checked} == {"K1", "K2", "K3", "K4", "K4s",
+                                             "K5"}
     k1 = budgets.sort_block_footprint(1024)
     assert (k1.static_smem, k1.threads, k1.max_registers) == (16384, 128, 64)
     assert budgets.probe_count_footprint().static_smem == 16384
+    k5 = budgets.merge_path_footprint()
+    assert (k5.static_smem, k5.threads, k5.max_registers) == (15376, 256, 64)
     smem = [fp for fp in checked if fp.entry == "bitonic_merge_smem_kernel"]
     assert [fp.dynamic_smem for fp in smem] == [8192, 16384, 32768, 65536]
 

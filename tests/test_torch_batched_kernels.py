@@ -197,8 +197,7 @@ def test_merge_sorted_runs_batched_matches_pallas(rng):
     runs = np.sort(_keys(rng, (3, 5, 50), "dups"), axis=-1)
     want = rmops.merge_sorted_runs_batched(jnp.asarray(runs), vmem_block=32,
                                            interpret=True)
-    got = tmops.merge_sorted_runs_batched(torch.from_numpy(runs),
-                                          smem_block=32)
+    got = tmops.merge_sorted_runs_batched(torch.from_numpy(runs))
     _eq(got, want)
 
 

@@ -23,12 +23,18 @@ def card():
     return torch.device("cuda")
 
 
-def _assert_main_path_launches():
-    """Every kernel of the main paths launched; the counting K4, which
-    only `assume_sorted=False` reaches, did not."""
+#: The merge cascade's HBM passes (K3 and K2's tail): only a local sort of
+#: rows longer than one K2 segment (16,384 keys) launches them.
+HBM_PASSES = ("strided_compare_exchange", "bitonic_merge_smem.tail")
+
+
+def _assert_main_path_launches(rows_on_chip=False):
+    """Every kernel of the main paths launched, but the HBM passes where
+    each local sort's rows fit one K2 segment (`rows_on_chip`); the
+    counting K4, which only `assume_sorted=False` reaches, did not."""
     got = dict(cuda.launches)
-    assert all(got[k] > 0 for k in cuda.COUNTERS
-               if k not in cuda.OFF_MAIN_PATH), got
+    skip = cuda.OFF_MAIN_PATH + (HBM_PASSES if rows_on_chip else ())
+    assert all(got[k] > 0 for k in cuda.COUNTERS if k not in skip), got
     assert all(got[k] == 0 for k in cuda.OFF_MAIN_PATH), got
 
 
@@ -116,6 +122,103 @@ def test_cuda_strided_compare_exchange(card, d, flip):
     x = _card_keys((4, 1 << 16))
     got = tmk.strided_compare_exchange(x, d, flip)
     assert torch.equal(got, tmk.strided_compare_exchange_plain(x, d, flip))
+
+
+def _counted_runs(rows, k, stride, counts, seed=0):
+    """(rows, k, stride) sorted runs from the edge rows (`_edge_rows`, one
+    a run), the hi sentinel past each run's count."""
+    x = _edge_rows(rows * k, stride, seed).view(rows, k, stride)
+    x = torch.where(torch.arange(stride, device="cuda") < counts[..., None],
+                    x, torch.iinfo(torch.int32).max)
+    return torch.sort(x, dim=-1).values
+
+
+def _check_merge_path(x, counts, out_len, fill):
+    before = cuda.launches["merge_path_pairs"]
+    got, got_n = tmk.merge_path_pairs(x, counts, out_len, _fill=fill)
+    torch.cuda.synchronize()
+    assert cuda.launches["merge_path_pairs"] == before + 1
+    want, want_n = tmk.merge_path_pairs_plain(x, counts, out_len)
+    assert torch.equal(got_n, want_n)
+    if not fill:    # slots past a merged count are left unwritten
+        past = torch.arange(got.shape[-1], device="cuda") >= got_n[..., None]
+        got = torch.where(past, torch.iinfo(torch.int32).max, got)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [True, False])
+@pytest.mark.parametrize("out_len", [None, 7_000, 18_335])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8])
+def test_cuda_merge_path_pairs_matches_plain(card, k, out_len, fill):
+    """K5, one level, at a small ragged shape: 6 rows of k runs of 9,001
+    slots with counts 0..9,001 (row 0's runs empty), the edge rows' keys,
+    with and without counts; out_len cuts, or pads past 2 x 9,001. The
+    public call fills each run's tail with the hi sentinel, as the plain
+    version does; merge_sorted_runs' inner levels (`_fill=False`) match it
+    on each merged count's prefix."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(k)
+    counts = torch.randint(0, 9_002, (6, k), generator=g, device="cuda",
+                           dtype=torch.int32)
+    counts[0] = 0
+    _check_merge_path(_counted_runs(6, k, 9_001, counts, seed=k), counts,
+                      out_len, fill)
+    _check_merge_path(_card_keys((6, k, 9_001), seed=k).sort(dim=-1).values,
+                      None, out_len, fill)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,r", [(2, 37), (3, 1_000), (8, 2_047),
+                                 (16, 1_000)])
+def test_cuda_merge_sorted_runs_of_short_rows(card, k, r):
+    """Rows of 74 to 16,376 keys (the service's small requests): ceil(log2
+    k) K5 launches, equal to torch.sort of each row cut or padded to
+    out_len, with counts and without."""
+    from repro_torch.kernels.merge import ops as mops
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(k)
+    counts = torch.randint(0, r + 1, (5, k), generator=g, device="cuda",
+                           dtype=torch.int32)
+    x = _counted_runs(5, k, r, counts, seed=k)
+    for c in (counts, None):
+        for out_len in (None, k * r // 2, k * r + 9):
+            before = cuda.launches["merge_path_pairs"]
+            got = mops.merge_sorted_runs(x, counts=c, out_len=out_len)
+            assert cuda.launches["merge_path_pairs"] == before + (
+                (k - 1).bit_length())
+            want = torch.sort(x.view(5, -1), dim=-1).values
+            assert torch.equal(got, want if out_len is None
+                               else mops.cap_to(want, out_len))
+
+
+@pytest.mark.cuda
+def test_cuda_merge_sorted_runs_at_the_benchmark_shape(card):
+    """The benchmark's post-exchange merge (2^28 keys, p = 8): 8 rows of
+    8 runs of 12,582,912 slots, each run 2^22 +- 4,096 keys. Three K5
+    launches, equal to torch.sort of each row cut to out_cap and to the
+    plain version's three levels."""
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.kernels.merge import ops as mops
+
+    cfg = ExchangeConfig()
+    cap, out_cap = cfg.pair_cap(1 << 25, 8), cfg.out_cap(1 << 25, 8, 0.05)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    counts = (1 << 22) + torch.randint(-4096, 4097, (8, 8), generator=g,
+                                       device="cuda", dtype=torch.int32)
+    x = _counted_runs(8, 8, cap, counts, seed=5)
+    before = cuda.launches["merge_path_pairs"]
+    got = mops.merge_sorted_runs(x, counts=counts, out_len=out_cap)
+    torch.cuda.synchronize()
+    assert cuda.launches["merge_path_pairs"] == before + 3
+    assert torch.equal(got, torch.sort(x.view(8, -1), dim=-1
+                                       ).values[:, :out_cap])
+    y, c = x, counts
+    while y.shape[1] > 2:
+        y, c = tmk.merge_path_pairs_plain(y, c)
+    assert torch.equal(got, tmk.merge_path_pairs_plain(y, c, out_cap)[0][:, 0])
 
 
 @pytest.mark.cuda
@@ -247,6 +350,7 @@ def test_cuda_sort_matches_numpy_and_torch_policy(card, dtype):
     cuda.reset_launches()
     out = sort(x, SortSpec(shards=8))
     _assert_main_path_launches()
+    assert cuda.launches["merge_path_pairs"] == 3     # ceil(log2 8) levels
     assert int(out.overflow) == 0
     np.testing.assert_array_equal(out.gather(), np.sort(x))
     ref = sort(x, SortSpec(shards=8, kernel_policy="torch"))
@@ -293,7 +397,7 @@ def test_cuda_sort_batched_recovers_presorted_rows(card, policy):
                    for b in range(4)])
     cuda.reset_launches()
     out = sort_batched(xs, SortSpec(shards=8, on_overflow=policy))
-    _assert_main_path_launches()
+    _assert_main_path_launches(rows_on_chip=True)
     assert int(out.overflow.max()) == 0
     for b in range(4):
         np.testing.assert_array_equal(out.gather(b), np.sort(xs[b]))
@@ -585,9 +689,9 @@ def test_cuda_service_batch_launches_the_kernels(card, kind):
         assert launched["bitonic_sort_blocks"] > 0, launched
         assert launched["probe_rank_search"] == 0, launched
         assert launched["probe_rank_count"] == 0, launched
-    else:
+    else:   # 16,384-key shard rows: local sorts on chip, merges by K5
         assert all(launched[k] > 0 for k in cuda.COUNTERS
-                   if k not in cuda.OFF_MAIN_PATH), launched
+                   if k not in cuda.OFF_MAIN_PATH + HBM_PASSES), launched
         assert all(launched[k] == 0 for k in cuda.OFF_MAIN_PATH), launched
 
 

@@ -153,8 +153,7 @@ def test_merge_sorted_runs_matches_pallas(rng, k, r):
     runs = np.sort(_keys(rng, (k, r), "dups"), axis=-1)
     want = rmops.merge_sorted_runs(jnp.asarray(runs), vmem_block=32,
                                    interpret=True)
-    got = tmops.merge_sorted_runs(torch.from_numpy(runs)[None],
-                                  smem_block=32)
+    got = tmops.merge_sorted_runs(torch.from_numpy(runs)[None])
     _eq(got, np.asarray(want)[None])
     _eq(got, tmref.merge_sorted_runs_ref(torch.from_numpy(runs)[None]))
 
