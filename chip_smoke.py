@@ -9,8 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: compiles src/repro_torch/kernels/csrc/sort_kernels.cu with nvcc
      (the kernels are built from the checkout's sources, nothing else) and
      prints ptxas's registers, stack and spills for each instantiation of
-     K1 (one per block size) and of K2 (one per segment size), failing on
-     a missing size, a spill or more than 64 registers;
+     K1 (one per block size) and of K2 (one per segment size), and its
+     registers, shared memory and spills for K4s's and K5's int32 and
+     int64 instantiations, failing on a missing size or instantiation, a
+     spill or more than 64 registers;
   3. kernels: K1 at every power-of-two block 2..1,024 on 5 rows (random,
      all INT_MAX, duplicates, INT_MIN among INT_MAX and small keys,
      random) and on a row read at a one-key offset, and K2 at every
@@ -24,7 +26,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      each, and 70,000 rows past gridDim.y's 65,535, K4s also against K4;
      K5: the benchmark's post-exchange merge, 8 rows of 8 runs of
      12,582,912 slots holding about 2^22 keys each, its three levels
-     also against torch.sort of the rows) — then
+     also against torch.sort of the rows; K5's and K4s's int64
+     instantiations at the tagged cell's shapes, the same merge on 35-bit
+     packs and one splitter round's search of 8 sorted rows of 2^25
+     packs x 256 probes, also against torch.sort and searchsorted) — then
      timed by CUDA events beside its plain version, its bound, the floor
      of an empty launch and, where one PyTorch call computes the same
      function, that call (`library_ms`, a yardstick only); one row per
@@ -76,11 +81,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      bits + 24 tag bits: int32 packing, the kernels), held to the stable
      NumPy order, launch-gated as the main paths; (b) `argsort` of
      WEAK_SCALING's UNIF keys (30 + 24 bits: int64 packing) and (c) `sort`
-     of 16,000,000 standard-normal float64 keys, both on the torch route:
-     equal to NumPy, zero kernel launches, every output tensor on the
+     of 16,000,000 standard-normal float64 keys, both on the 64-bit route
+     (torch.sort local sorts, the int64 K4s and K5): equal to NumPy, no
+     kernel launched but the int64 K4s and K5, every output tensor on the
      card; (d) `argsort` of the PRESORTED keys raising RuntimeError from
      gather_perm_checked under "raise" and equal to np.arange under
-     "retry";
+     "retry"; (e) the benchmark's tagged cell (hssbench's
+     `hss_p8_2p28_skew2_tag`): `sort` of 2^28 SKEW2 keys made on the card
+     with tag=True (7 + 28 bits: an int64 pack), equal to torch.sort of
+     the input, every shard within (1 + eps) N / p, only the int64 K4s
+     and K5 launched (K5 three times), its warm median of 3 and its
+     peak memory, and the same packs cut to int32, whose sort reads keys
+     back wrong;
   9. times: the warm medians (host clock around torch.cuda.synchronize())
      of retry and spill on the PRESORTED keys and of the MoE sort_kv, and
      a torch.profiler breakdown of one warm call of each.
@@ -149,7 +161,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      size only (two full batches; sort of
      UNIF rows, sort_kv of Phi-3.5-MoE's expert ids with the slot index
      as the value, semisort of ZIPF_HH rows, top_k with k = 1,024,
-     argsort of UNIF keys on the torch route), each result checked
+     argsort of UNIF keys on the 64-bit route), each result checked
      against NumPy and each window's kernels gated; over the steady
      windows no degraded request, no verify fallback, a cache hit rate
      above 0.9 and health "ok"; then a mixed window of 64 requests (the
@@ -169,7 +181,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      steps apart (np.stack, the copy, the sort, the gathers); a profile
      of one served batch;
   22. `data.partition.bucket_lengths` of 1,048,576 synthetic document
-     lengths over 8 shards (int64 packing: no kernel): every doc once,
+     lengths over 8 shards (int64 packing: the int64 K4s and K5): every
+     doc once,
      shards contiguous and non-decreasing, the packing's padding;
   23. the analysis lint on the card (`repro_torch.analysis.lint --device
      cuda`, to a temporary path): 0 failures, its checks, collective
@@ -334,6 +347,9 @@ SORTING = ("bitonic_sort_blocks", "bitonic_merge_smem.reverse",
            "bitonic_merge_smem.tail", "strided_compare_exchange")
 MERGING = SORTING + ("merge_path_pairs",)
 RANKING = MERGING + ("probe_rank_search",)
+#: The 64-bit route's (int64 tag packing, float64 keys): torch.sort local
+#: sorts, the int64 K4s and K5 (`repro_torch.kernels.cuda.WIDE`).
+WIDE = ("probe_rank_search.i64", "merge_path_pairs.i64")
 PATH_KERNELS = {"sample_random": MERGING, "sample_regular": MERGING,
                 "ams": RANKING, "multistage": RANKING, "ragged": RANKING,
                 # PRESORTED shards outgrow the ragged slot: a full local
@@ -429,11 +445,11 @@ def empty_launch_line(torch, card) -> float:
     return ms
 
 
-def search_bound(rows: int, n: int, m: int):
-    """K4s's bound: each probe read once, each rank written once, and the
-    ceil(log2(n + 1)) keys a comparison search reads per probe."""
+def search_bound(rows: int, n: int, m: int, key_bytes: int = 4):
+    """K4s's bound: each probe read once, each int32 rank written once,
+    and the ceil(log2(n + 1)) keys a comparison search reads per probe."""
     depth = n.bit_length()
-    return 4 * rows * m * (2 + depth), rows * m * depth
+    return rows * m * (key_bytes * (1 + depth) + 4), rows * m * depth
 
 
 def bound(bytes_moved: float, int_ops: float, fma_ops: float = 0.0):
@@ -580,6 +596,30 @@ def ptxas_line(card):
                  f"at sizes {heavy}")
 
 
+def ptxas_wide_line(card):
+    """ptxas's registers, shared memory and spill bytes of K4s's and K5's
+    int32 and int64 instantiations (`analysis.budgets.ptxas_report`), one
+    line; fails on a missing instantiation, a spill or more than 64
+    registers (K5's __launch_bounds__ of 4 blocks of 256 threads)."""
+    from repro_torch.analysis import budgets
+    from repro_torch.kernels import cuda
+
+    report = budgets.ptxas_report(cuda.ptxas_log())
+    found = {f"{entry}[{config}]": got
+             for (entry, config), got in sorted(report.items())
+             if entry in ("probe_rank_search_kernel",
+                          "merge_path_pairs_kernel")}
+    emit({"measure": "ptxas_k4s_k5", "instantiations": found, "card": card})
+    if len(found) != 4:
+        fail(f"ptxas report lacks K4s/K5 instantiations: found "
+             f"{sorted(found)}")
+    bad = [k for k, e in found.items()
+           if e["spill_bytes"] or e["registers"] > MAX_REGISTERS]
+    if bad:
+        fail(f"K4s/K5 instantiations spill or exceed {MAX_REGISTERS} "
+             f"registers: {bad}")
+
+
 def edge_rows(torch, keys, rows, n):
     """Random keys with the edge rows: row 1 all INT_MAX (the hi
     sentinel), row 2 duplicates, row 3 INT_MIN among INT_MAX and small
@@ -643,14 +683,16 @@ MERGE_N_LOCAL = 1 << 25
 MERGE_LEVELS = 3
 
 
-def merge_path_row(torch, row, check, gen):
+def merge_path_row(torch, row, check, gen, wide=False):
     """K5's row (9; it replaces no Pallas site) at the benchmark's merge:
     runs of pair_cap slots holding 2^22 +- 4,096 sorted keys and the hi
     sentinel past them; the three levels against the plain version's and
     against torch.sort of each row cut to out_cap. Bound: the function's
     bytes, one read of each valid key and one write of each out_cap row;
-    `levels_bound_ms` is the three pairwise levels' own, 8 bytes a valid
-    key a level."""
+    `levels_bound_ms` is the three pairwise levels' own, 2 x the key's
+    bytes a valid key a level. `wide`: the int64 instantiation at the
+    tagged cell's merge (hss_p8_2p28_skew2_tag: the same shapes, 35-bit
+    packs of SKEW2 keys over 28 tag bits)."""
     from repro_torch.core.exchange import ExchangeConfig
     from repro_torch.kernels.merge import kernel as MK
     from repro_torch.kernels.merge import ops as mops
@@ -660,10 +702,20 @@ def merge_path_row(torch, row, check, gen):
     out_cap = cfg.out_cap(MERGE_N_LOCAL, P, EPS)
     counts = (1 << 22) + torch.randint(-4096, 4097, (P, P), generator=gen,
                                        device="cuda", dtype=torch.int32)
-    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (P, P, cap), generator=gen,
-                      device="cuda", dtype=torch.int32)
+    if wide:
+        dtype = torch.int64
+        x = (torch.randint(0, 101, (P, P, cap), generator=gen,
+                           device="cuda", dtype=dtype) << 28) | \
+            torch.randint(0, 1 << 28, (P, P, cap), generator=gen,
+                          device="cuda", dtype=dtype)
+    else:
+        dtype = torch.int32
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, (P, P, cap), generator=gen,
+                          device="cuda", dtype=dtype)
+    hi = torch.iinfo(dtype).max
+    key_bytes = x.element_size()
     x = torch.where(torch.arange(cap, device="cuda") < counts[..., None], x,
-                    2 ** 31 - 1)
+                    hi)
     x = torch.sort(x, dim=-1).values
 
     def kernel():
@@ -678,19 +730,22 @@ def merge_path_row(torch, row, check, gen):
     def library():
         return torch.sort(x.view(P, -1), dim=-1).values
 
+    name = "merge_path_pairs" + ("[int64]" if wide else "")
     got = kernel()
-    err = max(check("merge_path_pairs", got, plain()),
-              check("merge_path_pairs[vs torch.sort]", got,
-                    library()[:, :out_cap]))
+    err = max(check(name, got, plain()),
+              check(f"{name}[vs torch.sort]", got, library()[:, :out_cap]))
     del got
     valid = int(counts.sum())
-    row(9, "merge_path_pairs", "K5", "merge_path_pairs", "sort",
+    row(9, name, "K5", "merge_path_pairs" + (".i64" if wide else ""),
+        "sort[skew2_tag]" if wide else "sort",
         "none (the post-exchange merge, which the reference runs as #7 "
         "and #8)", err, kernel, plain, library,
-        4 * valid + 4 * P * out_cap, MERGE_LEVELS * valid,
+        key_bytes * (valid + P * out_cap), MERGE_LEVELS * valid,
         timed_shape=[P, P, cap], levels=MERGE_LEVELS, valid_keys=valid,
-        out_len=out_cap,
-        levels_bound_ms=MERGE_LEVELS * 8 * valid / HBM_BYTES_PER_S * 1e3)
+        out_len=out_cap, key_bytes=key_bytes,
+        levels_bound_ms=(MERGE_LEVELS * 2 * key_bytes * valid
+                         / HBM_BYTES_PER_S * 1e3))
+    del x
 
 
 def kernel_phase(torch, card, floor_ms, k4_ops):
@@ -914,8 +969,33 @@ def kernel_phase(torch, card, floor_ms, k4_ops):
     # hss_p8_2p28: 2^28 keys, p = 8, pair_factor 3.0), 8 rows of 8 runs
     # of 12,582,912 slots, each run's count near 2^22; three levels, the
     # last writing the out_cap row. Against its plain version and against
-    # torch.sort of the rows, then timed beside both
+    # torch.sort of the rows, then timed beside both; then the int64
+    # instantiation at the tagged cell's (the same shapes, int64 packs)
     merge_path_row(torch, row, check, gen)
+    merge_path_row(torch, row, check, gen, wide=True)
+
+    # #5 K4s's int64 instantiation: one round's search of the tagged
+    # cell's splitters, 8 sorted rows of 2^25 int64 packs x 256 probes
+    kw = torch.sort((keys((P, MERGE_N_LOCAL)).long() << 28)
+                    | (keys((P, MERGE_N_LOCAL)).long() & (2 ** 28 - 1)),
+                    dim=-1).values
+    qw = torch.sort(kw[:, torch.randint(0, MERGE_N_LOCAL, (PROBES,),
+                                        generator=gen, device="cuda")]
+                    + 1, dim=-1).values
+    qw[:, ::8] = torch.iinfo(torch.int64).max
+    got = HK.probe_rank_search(kw, qw)
+    err = max(check("probe_rank_search[int64]", got,
+                    HK.probe_ranks_search_plain(kw, qw)),
+              check("probe_rank_search[int64, vs searchsorted]", got,
+                    torch.searchsorted(kw, qw).to(torch.int32)))
+    row(5, "probe_rank_search[int64]", "K4s", "probe_rank_search.i64",
+        "sort[skew2_tag]", f"{PALLAS}/histogram/kernel.py:35", err,
+        lambda: HK.probe_rank_search(kw, qw),
+        lambda: HK.probe_ranks_search_plain(kw, qw),
+        lambda: torch.searchsorted(kw, qw, side="left"),
+        *search_bound(P, MERGE_N_LOCAL, PROBES, key_bytes=8),
+        reps=SHORT_REPS, floor_ms=floor_ms, timed_shape=[P, MERGE_N_LOCAL])
+    del kw, qw, got
 
     # #6 K4s and K4: keys (64, 250,000), a distinct sorted probe row of
     # 256 each; and 70,000 rows, past gridDim.y's 65,535
@@ -982,12 +1062,13 @@ def cascade_line(torch, card):
 
 def check_path_launches(name: str, launches: dict, expected=None):
     """Every kernel the path launches by the code (`expected`; default
-    the HSS paths' set, every kernel but the counting K4) launched, and
-    no other."""
+    the int32 HSS paths' set, every kernel but the counting K4 and the
+    int64 instantiations) launched, and no other."""
     from repro_torch.kernels import cuda
 
     if expected is None:
-        expected = [k for k in cuda.COUNTERS if k not in cuda.OFF_MAIN_PATH]
+        expected = [k for k in cuda.COUNTERS
+                    if k not in cuda.OFF_MAIN_PATH + cuda.WIDE]
     missing = [k for k in expected if not launches.get(k)]
     if missing:
         fail(f"{name}: kernels never launched: {missing}")
@@ -1372,6 +1453,63 @@ def recovery_phase(torch, np, card):
     return paths
 
 
+#: Phase 29: the tagged cell's path (hssbench's hss_p8_2p28_skew2_tag).
+TAGGED_N = 1 << 28
+
+
+def tagged_phase(torch, np, card):
+    """The benchmark's tagged cell on its own path: `sort` of 2^28 SKEW2
+    keys (uniform in [0, 100]) made on the card, tag=True (7 key + 28 tag
+    bits: an int64 pack), HSS at p = 8, eps 0.05, dense, "auto". Exact
+    against torch.sort of the input, every shard within (1 + eps) N / p,
+    the int64 K4s and K5 launched and nothing else of the port's, K5's
+    three levels a call; the warm median of 3 calls and the peak of
+    allocated memory. Then the narrower precision's reading: the same
+    packs cut to int32 and sorted, whose keys read back wrong (the cell's
+    `wrong_keys` check tells them apart). Returns the path's launches."""
+    from repro_torch.sort import SortSpec, sort
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    x = torch.randint(0, 101, (TAGGED_N,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    spec = SortSpec(shards=P, eps=EPS, tag=True)
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = launched(torch, lambda: sort(x, spec))
+    peak = torch.cuda.max_memory_allocated()
+    check_path_launches("sort[skew2_tag]", launches, WIDE)
+    if launches["merge_path_pairs.i64"] != 3:
+        fail(f"sort[skew2_tag]: {launches['merge_path_pairs.i64']} K5 "
+             "launches, not ceil(log2 8) = 3")
+    want = torch.sort(x).values
+    got = torch.cat([out.shards[i, :c]
+                     for i, c in enumerate(out.counts.tolist())])
+    if out.indices.dtype != torch.int64 or not torch.equal(got, want):
+        fail("sort[skew2_tag]: not the sorted input, or not an int64 pack")
+    max_count = int(out.counts.max())
+    limit = (1 + EPS) * TAGGED_N / P
+    if int(out.overflow) or max_count > limit:
+        fail(f"sort[skew2_tag]: overflow {int(out.overflow)}, max count "
+             f"{max_count} over {limit}")
+    del out, got
+    med, runs = median_ms(torch, lambda: sort(x, spec), reps=3)
+    pack32 = ((x.long() << 28) | torch.arange(TAGGED_N, device="cuda")
+              ).to(torch.int32)
+    wrong32 = int((torch.sort(pack32).values >> 28 != want).sum())
+    del pack32, want
+    emit({"measure": "tagged_cell", "n": TAGGED_N, "shards": P,
+          "distribution": "SKEW2", "pack_bits": 35, "packing": "int64",
+          "launches": launches, "max_count": max_count, "limit": limit,
+          "median_ms": med, "runs_ms": runs,
+          "keys_per_s": TAGGED_N / (med / 1e3),
+          "max_allocated_bytes": peak,
+          "int32_pack_wrong_keys": wrong32, "equal": True, "card": card})
+    if not wrong32:
+        fail("the 35-bit packs cut to int32 still sort right: the check "
+             "cannot tell the widths apart")
+    return {"sort[skew2_tag]": launches}
+
+
 def moe_inputs(np):
     """Phi-3.5-MoE routing: 8,000,000 tokens, top-2 of 16 experts, so
     16,000,000 (expert id, token) slots."""
@@ -1380,10 +1518,13 @@ def moe_inputs(np):
     return ids, tokens
 
 
-def check_torch_route(name, launches, tensors):
-    """The inverse gate: no kernel launched, every tensor on the card."""
-    if any(launches.values()):
-        fail(f"{name}: kernels launched on the torch route: {launches}")
+def check_wide_route(name, launches, tensors):
+    """The 64-bit route's gate: its searches and merges launched the int64
+    K4s and K5 and nothing else of the port's (its local sorts are
+    torch.sort), every tensor on the card."""
+    from repro_torch.kernels import cuda
+
+    check_path_launches(name, launches, cuda.WIDE)
     off = [i for i, t in enumerate(tensors) if t.device.type != "cuda"]
     if off:
         fail(f"{name}: output tensors {off} are not on the card")
@@ -1391,8 +1532,9 @@ def check_torch_route(name, launches, tensors):
 
 def permutation_phase(torch, np, card):
     """sort_kv of the MoE dispatch on the kernels; argsort of wide keys and
-    sort of float64 keys on the torch route; argsort of presorted keys
-    under raise and retry. Returns the sort_kv path's launch counts."""
+    sort of float64 keys on the 64-bit route (torch.sort local sorts, the
+    int64 K4s and K5); argsort of presorted keys under raise and retry.
+    Returns the sort_kv and argsort paths' launch counts."""
     from repro_torch.data.distributions import (make_adversarial,
                                                 make_distribution)
     from repro_torch.kernels import dispatch
@@ -1416,26 +1558,32 @@ def permutation_phase(torch, np, card):
     order, launches = launched(torch, lambda: argsort(x, spec))
     out, more = launched(torch, lambda: sort(
         x, dataclasses.replace(spec, stable=True)))
-    check_torch_route("argsort", {k: launches[k] + more[k]
-                                  for k in launches},
-                      [out.shards, out.counts, out.indices])
+    check_wide_route("argsort", {k: launches[k] + more[k]
+                                 for k in launches},
+                     [out.shards, out.counts, out.indices])
     if not np.array_equal(order, np.argsort(x, kind="stable")):
         fail("argsort of the UNIF keys differs from np.argsort")
+    argsort_launches = launches
     emit({"measure": "permutation", "case": "argsort_unif_int64_packing",
           "n": N_WEAK, "packing": str(out.indices.dtype),
-          "route": dispatch.resolve_policy("auto", "cuda", out.indices.dtype),
+          "route": {"local_sort": dispatch.resolve_policy(
+              "auto", "cuda", out.indices.dtype), "search_merge":
+              dispatch.resolve_policy("auto", "cuda", out.indices.dtype,
+                                      wide=True)},
           "launches": launches, "equal": True, "card": card})
     del order, out
 
     f = np.random.default_rng(6).standard_normal(N_WEAK)
     out, launches = launched(torch, lambda: sort(f, spec))
-    check_torch_route("sort[float64]", launches, [out.shards, out.counts])
+    check_wide_route("sort[float64]", launches, [out.shards, out.counts])
     if not np.array_equal(out.gather().view(np.int64),
                           np.sort(f).view(np.int64)):
         fail("sort of float64 keys is not bit-equal to np.sort")
     emit({"measure": "permutation", "case": "sort_normal_float64",
-          "n": N_WEAK, "route": dispatch.resolve_policy(
-              "auto", "cuda", out.shards.dtype),
+          "n": N_WEAK, "route": {"local_sort": dispatch.resolve_policy(
+              "auto", "cuda", out.shards.dtype), "search_merge":
+              dispatch.resolve_policy("auto", "cuda", out.shards.dtype,
+                                      wide=True)},
           "overflow": int(out.overflow), "launches": launches,
           "equal": True, "card": card})
     del out, f
@@ -1455,7 +1603,7 @@ def permutation_phase(torch, np, card):
     emit({"measure": "permutation", "case": "argsort_presorted",
           "n": N_WEAK, "raise": raised[:120], "retry_equal": True,
           "card": card})
-    return {"sort_kv": kv_launches}
+    return {"sort_kv": kv_launches, "argsort": argsort_launches}
 
 
 def recovery_timing_phase(torch, np, card):
@@ -1511,8 +1659,9 @@ def kernel_shapes(seen: set):
     `seen` as (counter, rows, n, parameters): the block (K1), the segment
     (K2, counted by role), the distance and flip (K3), the probe count
     (K4s) or, for K5, (counter, rows, k, stride, out_len or 0, whether
-    counts were given, whether it fills). The wrappers still launch; nothing is
-    synchronised."""
+    counts were given, whether it fills). K4s and K5 on int64 keys are
+    recorded under their `.i64` counters. The wrappers still launch;
+    nothing is synchronised."""
     from repro_torch.kernels.bitonic_sort import kernel as BK
     from repro_torch.kernels.histogram import kernel as HK
     from repro_torch.kernels.histogram import ops as hops
@@ -1537,12 +1686,16 @@ def kernel_shapes(seen: set):
         seen.add(("strided_compare_exchange", *x.shape, d, bool(flip)))
         return real["strided_compare_exchange"](x, d, flip)
 
+    def wide(x):
+        return ".i64" if x.element_size() == 8 else ""
+
     def probe_rank_search(keys, probes):
-        seen.add(("probe_rank_search", *keys.shape, probes.shape[1]))
+        seen.add(("probe_rank_search" + wide(keys), *keys.shape,
+                  probes.shape[1]))
         return real["probe_rank_search"](keys, probes)
 
     def merge_path_pairs(x, counts=None, out_len=None, *, _fill=True):
-        seen.add(("merge_path_pairs", *x.shape, out_len or 0,
+        seen.add(("merge_path_pairs" + wide(x), *x.shape, out_len or 0,
                   counts is not None, _fill))
         return real["merge_path_pairs"](x, counts, out_len, _fill=_fill)
 
@@ -1565,13 +1718,14 @@ def kernel_shapes(seen: set):
 
 def merge_path_inputs(torch, keys, gen, sig, device):
     """K5 and its plain version at one recorded signature -> (got, want),
-    each output with its merged counts. An inner level of
-    merge_sorted_runs (no fill) leaves the slots past a merged count
-    unwritten, so they are compared as the hi sentinel."""
+    each output with its merged counts; `keys(*shape)` makes random keys
+    of the signature's width. An inner level of merge_sorted_runs (no
+    fill) leaves the slots past a merged count unwritten, so they are
+    compared as the hi sentinel."""
     from repro_torch.kernels.merge import kernel as MK
 
     _, rows, k, stride, length, with_counts, fill = sig
-    hi = 2 ** 31 - 1
+    hi = torch.iinfo(keys(1).dtype).max
     counts = (torch.randint(0, stride + 1, (rows, k), generator=gen,
                             device=device, dtype=torch.int32)
               if with_counts else None)
@@ -1587,8 +1741,8 @@ def merge_path_inputs(torch, keys, gen, sig, device):
         past = (torch.arange(got.shape[-1], device=device)
                 >= got_n[..., None])
         got = torch.where(past, hi, got)
-    return (torch.cat([got.flatten(), got_n.flatten()]),
-            torch.cat([want.flatten(), want_n.flatten()]))
+    return (torch.cat([got.flatten(), got_n.flatten().to(got.dtype)]),
+            torch.cat([want.flatten(), want_n.flatten().to(want.dtype)]))
 
 
 def path_shapes_phase(torch, seen: set, card, device="cuda"):
@@ -1600,21 +1754,26 @@ def path_shapes_phase(torch, seen: set, card, device="cuda"):
     multistage's stage 2 and the exchanges) against probes drawn half from
     the row, some hi sentinels among them, K5 on sorted runs holding a
     random count of keys each (the hi sentinel past it; without counts,
-    whole runs). Returns the (rows, n) checked for each counter ((rows,
-    k, stride) for K5)."""
+    whole runs); K4s and K5 at an `.i64` counter's signatures on int64
+    keys, INT64_MAX the sentinel. Returns the (rows, n) checked for each
+    counter ((rows, k, stride) for K5)."""
     from repro_torch.kernels.bitonic_sort import kernel as BK
     from repro_torch.kernels.histogram import kernel as HK
     from repro_torch.kernels.merge import kernel as MK
 
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    hi = 2 ** 31 - 1
 
     def keys(*shape):
-        return torch.randint(-2 ** 31, hi, shape, generator=gen,
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
                              device=device, dtype=torch.int32)
 
-    def search_inputs(rows, n, m):
+    def wide_keys(*shape):
+        return torch.randint(-2 ** 63, 2 ** 63 - 1, shape, generator=gen,
+                             device=device, dtype=torch.int64)
+
+    def search_inputs(keys, rows, n, m):
+        hi = torch.iinfo(keys(1).dtype).max
         k = torch.sort(keys(rows, n), dim=-1).values
         for r in range(rows):
             tail = (r % 4) * n // 8
@@ -1630,6 +1789,8 @@ def path_shapes_phase(torch, seen: set, card, device="cuda"):
     shapes = {}
     for sig in sorted(seen):
         counter, rows, n = sig[:3]
+        kind = counter.removesuffix(".i64")
+        of_width = wide_keys if kind != counter else keys
         if counter == "bitonic_sort_blocks":
             x = keys(rows, n)
             got, want = BK.sort_blocks(x, sig[3]), BK.sort_blocks_plain(
@@ -1646,19 +1807,19 @@ def path_shapes_phase(torch, seen: set, card, device="cuda"):
             x = keys(rows, n)
             got = MK.strided_compare_exchange(x, *sig[3:])
             want = MK.strided_compare_exchange_plain(x, *sig[3:])
-        elif counter == "probe_rank_search":
-            k, q = search_inputs(rows, n, sig[3])
+        elif kind == "probe_rank_search":
+            k, q = search_inputs(of_width, rows, n, sig[3])
             got = HK.probe_rank_search(k, q)
             want = HK.probe_ranks_search_plain(k, q)
-        elif counter == "merge_path_pairs":
-            got, want = merge_path_inputs(torch, keys, gen, sig, device)
+        elif kind == "merge_path_pairs":
+            got, want = merge_path_inputs(torch, of_width, gen, sig, device)
         else:
             fail(f"path_shapes_phase: no inputs for {counter}")
         if not torch.equal(got, want):
             fail(f"{counter}{list(sig[1:])} disagrees with its plain "
                  "version at a main path's shape")
         shapes.setdefault(counter, set()).add(tuple(sig[1:4]) if
-                                              counter == "merge_path_pairs"
+                                              kind == "merge_path_pairs"
                                               else (rows, n))
         del got, want
     emit({"measure": "path_shapes", "checked": len(seen),
@@ -2020,7 +2181,10 @@ def slo_phase(torch, np, card):
         r = out.recovery
         path = f"sort[slo,{name}]"
         paths[path] = launches
-        check_path_launches(path, launches)
+        # a tag rung that packs int64 searches and merges on the int64
+        # K4s and K5 after the untagged attempts' int32 kernels
+        wide = out.indices is not None and out.indices.dtype == torch.int64
+        check_path_launches(path, launches, RANKING + WIDE if wide else None)
         if not (out.audit.ok and r.achieved_imbalance <= 1.2
                 and np.array_equal(out.gather(), np.sort(x))):
             fail(f"{path}: {r}")
@@ -2234,18 +2398,19 @@ def grouping_timing_phase(torch, np, card):
 #: Phases 19-22: the service at the batched cell's width. Each kind's
 #: kernels, from the code: sort, sort_kv (4 key + 21 tag bits: int32
 #: packing) and semisort run the HSS path's six; top_k sorts and merges,
-#: ranking nothing; argsort of UNIF keys (30 + 21 bits) packs int64 and
-#: takes the torch route (no kernel); the mixed window is their union.
-#: bucket_lengths' 11 key bits (lengths 16..2,048) and 20 tag bits
-#: (1,048,576 documents) are over int32's 30, so it packs int64: none.
+#: ranking nothing; argsort of UNIF keys (30 + 21 bits) packs int64: its
+#: local sorts are torch.sort, its searches and merges the int64 K4s and
+#: K5 (`cuda.WIDE`); the mixed window is their union. bucket_lengths' 11
+#: key bits (lengths 16..2,048) and 20 tag bits (1,048,576 documents) are
+#: over int32's 30, so it packs int64: the int64 K4s and K5.
 #: The corrupt drill's degraded path sorts each request alone, under its
 #: own spec (HSS on int32 keys, audited): the HSS path's six.
 SERVE_KINDS = ("sort", "sort_kv", "semisort", "top_k", "argsort")
 PATH_KERNELS.update({"serve[sort]": RANKING, "serve[sort_kv]": RANKING,
                      "serve[semisort]": RANKING, "serve[top_k]": MERGING,
-                     "serve[argsort]": (), "serve[mixed]": RANKING,
+                     "serve[argsort]": WIDE, "serve[mixed]": RANKING + WIDE,
                      "serve[http]": RANKING, "serve[degraded]": RANKING,
-                     "bucket_lengths": ()})
+                     "bucket_lengths": WIDE})
 SERVE_LOAD = 16              # two full batches of max_batch = B
 MIXED_LOAD = 64
 HTTP_N = 262_144             # JSON bodies of a few MB
@@ -3796,6 +3961,7 @@ def main() -> int:
     emit({"measure": "build", "seconds": time.perf_counter() - t0,
           "library": str(path), "card": card})
     ptxas_line(card)
+    ptxas_wide_line(card)
 
     rows = kernel_phase(torch, card, empty_launch_line(torch, card),
                         k4_sass_line(card))
@@ -3809,6 +3975,7 @@ def main() -> int:
     with kernel_shapes(seen):
         paths.update(recovery_phase(torch, np, card))
         paths.update(permutation_phase(torch, np, card))
+        paths.update(tagged_phase(torch, np, card))
         paths.update(baselines_phase(torch, np, card))
     recovery_timing_phase(torch, np, card)
     baselines_timing_phase(torch, np, card)

@@ -22,12 +22,12 @@ K2  bitonic_merge_smem_kernel<S>  dynamic S ints (64 KB at S = 16,384), S/32
                                   threads; the launcher opts in to S*4 bytes
 K3  strided_ce(_vec4)_kernel      none
 K4  probe_rank_count_kernel       static kProbeTile ints (16 KB), 256 threads
-K4s probe_rank_search_kernel      none
-K5  merge_path_pairs_kernel       static kPathThreads * kPathItems + 4 ints
-                                  (15,376 B: a tile, a read-past slot, the
-                                  tile's two cuts, a pad to 16 bytes), 256
-                                  threads, launch bounds (256, 4): 64
-                                  registers
+K4s probe_rank_search_kernel<T>   none; T int32 or int64
+K5  merge_path_pairs_kernel<T>    static kPathThreads * kPathItems + 4 keys
+                                  (15,376 B of int32: a tile, a read-past
+                                  slot, the tile's two cuts, a pad to 16
+                                  bytes; 30,752 B of int64), 256 threads,
+                                  launch bounds (256, 4): 64 registers
 
 `check_kernel_budgets()` raises `BudgetError` with the arithmetic on the
 first configuration that does not fit. `check_ptxas(footprints, log)`
@@ -69,7 +69,9 @@ HOPPER = {
     "regs_per_sm": 65_536,
     "threads_per_block_max": 1_024,
 }
-WORD = 4    # every kernel takes int32 keys
+WORD = 4    # an int32 key; K4s and K5 also take int64 keys (8 bytes)
+#: K4s's and K5's instantiations: ptxas's template argument -> the config.
+KEY_TYPES = {"i": "int32", "l": "int64"}
 
 
 class BudgetError(AssertionError):
@@ -176,21 +178,24 @@ def probe_count_footprint(tile: int | None = None, c=None) -> KernelFootprint:
                            f"kProbeTile={tile} * {WORD}")
 
 
-def merge_path_footprint(c=None) -> KernelFootprint:
-    """K5: one tile of kPathThreads * kPathItems keys in static shared
-    memory, with a slot a merge step may read past it, the tile's two
-    cuts on the merge path and a word of padding to 16 bytes."""
+def merge_path_footprint(c=None, config: str = "int32") -> KernelFootprint:
+    """K5 at one key type: one tile of kPathThreads * kPathItems keys in
+    static shared memory, with a slot a merge step may read past it, the
+    tile's two cuts on the merge path and a slot of padding."""
     c = c or kernel_constants()
     threads = c["kPathThreads"]
-    words = threads * c["kPathItems"] + 4
-    return KernelFootprint("K5", "merge_path_pairs_kernel", "-", threads,
-                           words * WORD, 0, 0, _reg_cap(threads, 4),
-                           f"({threads}*{c['kPathItems']}+4)*{WORD}")
+    items = c["kPathItems"]
+    key = 2 * WORD if config == "int64" else WORD
+    return KernelFootprint("K5", "merge_path_pairs_kernel", config, threads,
+                           (threads * items + 4) * key, 0, 0,
+                           _reg_cap(threads, 4),
+                           f"({threads}*{items}+4)*{key}")
 
 
 def default_footprints(c=None) -> Tuple[KernelFootprint, ...]:
     """Every shipped configuration: K1 at each block size 2..1,024, K2 at
-    each segment 2..kMaxSmemKeys, K3's two forms, K4, K4s and K5."""
+    each segment 2..kMaxSmemKeys, K3's two forms, K4, and K4s and K5 at
+    each key type."""
     c = c or kernel_constants()
     out = [sort_block_footprint(1 << j, c) for j in range(1, 11)]
     seg = 2
@@ -202,9 +207,10 @@ def default_footprints(c=None) -> Tuple[KernelFootprint, ...]:
                                    _reg_cap(256), "0"))
     out.append(probe_count_footprint(c=c))
     threads = c["kSearchThreads"]
-    out.append(KernelFootprint("K4s", "probe_rank_search_kernel", "-",
-                               threads, 0, 0, 0, _reg_cap(threads), "0"))
-    out.append(merge_path_footprint(c))
+    for config in KEY_TYPES.values():
+        out.append(KernelFootprint("K4s", "probe_rank_search_kernel", config,
+                                   threads, 0, 0, 0, _reg_cap(threads), "0"))
+        out.append(merge_path_footprint(c, config))
     return tuple(out)
 
 
@@ -227,20 +233,24 @@ ENTRIES = ("bitonic_sort_warp_kernel", "bitonic_merge_warp_kernel",
 def _entry(mangled: str):
     """(name, template argument or "-") of a mangled kernel name: the
     known name that follows its own length, as the Itanium ABI writes it
-    (whatever prefix the compiler gave the anonymous namespace)."""
+    (whatever prefix the compiler gave the anonymous namespace); a size
+    argument as its digits, a key type as "int32" or "int64"."""
     for name in ENTRIES:
         tag = f"{len(name)}{name}"
         at = mangled.find(tag)
         if at >= 0:
-            arg = re.match(r"ILi(\d+)E", mangled[at + len(tag):])
-            return name, arg.group(1) if arg else "-"
+            arg = re.match(r"I(?:Li(\d+)|([il]))E", mangled[at + len(tag):])
+            if arg is None:
+                return name, "-"
+            return name, arg.group(1) or KEY_TYPES[arg.group(2)]
     return None
 
 
 def ptxas_report(log: str) -> Dict[Tuple[str, str], dict]:
-    """ptxas's `-v` report as {(entry, config): {"registers", "smem"}}:
-    the entry is the kernel's name, the config its template argument (or
-    "-")."""
+    """ptxas's `-v` report as {(entry, config): {"registers", "smem",
+    "spill_bytes"}}: the entry is the kernel's name, the config its
+    template argument (or "-"); spill_bytes the stores and loads ptxas
+    reports as spilled."""
     out: Dict[Tuple[str, str], dict] = {}
     current = None
     for line in log.splitlines():
@@ -248,10 +258,14 @@ def ptxas_report(log: str) -> Dict[Tuple[str, str], dict]:
         if m:
             key = _entry(m.group(1))
             current = None if key is None else out.setdefault(
-                key, {"registers": None, "smem": 0})
+                key, {"registers": None, "smem": 0, "spill_bytes": 0})
             continue
         if current is None:
             continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            current["spill_bytes"] = sum(map(int, spill.groups()))
         used = re.search(r"Used (\d+) registers", line)
         if used:
             current["registers"] = int(used.group(1))
@@ -283,6 +297,7 @@ def check_ptxas(footprints, log: str) -> list:
         rows.append({"kernel": fp.kernel, "entry": fp.entry,
                      "config": fp.config, "smem": got["smem"],
                      "registers": got["registers"],
+                     "spill_bytes": got["spill_bytes"],
                      "model_smem": fp.static_smem,
                      "max_registers": fp.max_registers})
     return rows

@@ -18,8 +18,9 @@ cuda          builds csrc/sort_kernels.cu with nvcc at first use, loads it
               with ctypes, and counts each kernel's launches.
 
 Key contract (as in repro.kernels): keys are int32 and never equal the hi
-sentinel, except as padding. Every kernel wrapper runs its plain PyTorch
-version on a CPU tensor and the kernel on a CUDA tensor; within the
-contract the two, and the torch policy's `torch.sort` and
+sentinel, except as padding; K4s and K5 take int64 keys too (the core's
+64-bit keys), INT64_MAX their hi sentinel. Every kernel wrapper runs its
+plain PyTorch version on a CPU tensor and the kernel on a CUDA tensor;
+within the contract the two, and the torch policy's `torch.sort` and
 `torch.searchsorted`, give the same bits.
 """

@@ -211,7 +211,7 @@ def sort_blocks_tiled_plain(x: torch.Tensor, block: int) -> torch.Tensor:
 
 
 def _check_pow2_run(x: torch.Tensor, run: int, limit: int, what: str):
-    cuda.check_int32_rows(x, what)
+    cuda.check_rows(x, what)
     if run < 2 or run & (run - 1) or run > limit:
         raise ValueError(f"{what}: run {run} must be a power of two in "
                          f"[2, {limit}]")

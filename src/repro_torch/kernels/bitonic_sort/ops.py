@@ -24,6 +24,10 @@ def local_sort(x: torch.Tensor, block: int = DEFAULT_BLOCK) -> torch.Tensor:
     # deferred: merge.ops imports the bitonic kernels too
     from repro_torch.kernels.merge.ops import merge_cascade
 
+    if x.dtype != torch.int32:
+        raise TypeError(f"local_sort: the bitonic kernels K1-K3 sort int32 "
+                        f"keys only, got {x.dtype} (64-bit keys sort on "
+                        f"torch.sort under kernel_policy 'auto' or 'torch')")
     shape, n = x.shape, x.shape[-1]
     x = x.reshape(-1, n)
     np2 = pow2_ceil(max(n, 2))

@@ -20,9 +20,13 @@
 // empty_launch starts a kernel that does nothing: the floor a timed launch
 // cannot go below, measured through the same ctypes route.
 //
-// All keys are int32 (the core only ever sees encoded int32). Arrays are
-// flat: a (rows, n) tensor is rows*n keys, and every kernel keeps its work
-// inside a run or row because run lengths divide the row length.
+// Keys are int32, the core's encoded 32-bit keys. K4s and K5 are also
+// instantiated for int64 keys (the `_i64` launchers): the core's 64-bit
+// keys (int64 and float64 user keys, and implicit tags packed into int64)
+// are searched and merged on the card as well, while K1-K3 and K4 take
+// int32 only. Arrays are flat: a (rows, n) tensor is rows*n keys, and
+// every kernel keeps its work inside a run or row because run lengths
+// divide the row length.
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/cuda.py). Each
 // launcher enqueues on the caller's stream, never synchronises, allocates
@@ -43,6 +47,19 @@ constexpr int kProbeTile = 4096;        // K4 keys per block: 16 KB
 constexpr int kProbeThreads = 256;
 constexpr int kSearchThreads = 256;     // K4s: 8 warps, one probe each
 constexpr int kSearchWarps = kSearchThreads / 32;
+
+// The hi sentinel of each key type: the padding every kernel reads past a
+// row's or run's keys, below no probe and after every key.
+template <typename T>
+struct KeyLimits;
+template <>
+struct KeyLimits<int> {
+  static constexpr int hi = INT_MAX;
+};
+template <>
+struct KeyLimits<int64_t> {
+  static constexpr int64_t hi = INT64_MAX;
+};
 
 // K2 replaces the Pallas merge_adjacent (#3), merge_adjacent_batched (#4)
 // and merge_bitonic_blocks (#8): the half-cleaner cascade d = seg/2..1, all
@@ -528,16 +545,20 @@ __global__ void probe_rank_count_kernel(const int* __restrict__ keys,
 // No shared memory, no atomics: each warp writes its rank once, so the
 // output needs no zeroing. (row, probe) pairs are flattened into
 // blockIdx.x, as K4 flattens (row, tile), so no row limit applies.
-__global__ void probe_rank_search_kernel(const int* __restrict__ keys,
-                                         const int* __restrict__ probes,
+// T is the key type: int, or int64_t for the core's 64-bit keys (the same
+// search; each pivot load is 8 bytes, and INT64_MAX pads alike). Ranks
+// stay int32.
+template <typename T>
+__global__ void probe_rank_search_kernel(const T* __restrict__ keys,
+                                         const T* __restrict__ probes,
                                          int* __restrict__ out, int64_t n,
                                          int m, int64_t pairs) {
   const int lane = threadIdx.x & 31;
   const int64_t pair =
       static_cast<int64_t>(blockIdx.x) * kSearchWarps + (threadIdx.x >> 5);
   if (pair >= pairs) return;            // a whole warp, so ballots stay full
-  const int* krow = keys + (pair / m) * n;
-  const int pr = probes[pair];
+  const T* krow = keys + (pair / m) * n;
+  const T pr = probes[pair];
   int64_t lo = 0;
   int64_t w = n;
   while (w > 32) {
@@ -563,9 +584,10 @@ __global__ void probe_rank_search_kernel(const int* __restrict__ keys,
 // merge.ops.merge_sorted_runs runs ceil(log2 k) levels of it.
 //
 // What bounds it: bytes. A level reads and writes each valid key once, 8
-// bytes a key: 0.641 ms for 2^28 keys at 3.35 TB/s. The network it replaces
-// on the main path made 36 passes over 4 GiB of mostly sentinel slots (the
-// runs' capacity, padded to powers of two), 107 ms a call. The merge itself
+// bytes an int32 key (16 an int64 one): 0.641 ms for 2^28 int32 keys at
+// 3.35 TB/s. The network it replaces on the main path made 36 passes over
+// 4 GiB of mostly sentinel slots (the runs' capacity, padded to powers of
+// two), 107 ms a call. The merge itself
 // needs one read and one write of each key; its ceil(log2 k) levels move
 // each key that many times.
 //
@@ -583,18 +605,28 @@ __global__ void probe_rank_search_kernel(const int* __restrict__ keys,
 // diagonal again, in shared memory, merges them in registers, and puts
 // them back in shared memory for coalesced stores. kPathItems is odd, so
 // the thread-major writes (thread t, key t*kPathItems + i) hit 32 distinct
-// banks. Ties take A's key first at every cut, so the cuts agree; equal
-// int32 keys are the same bits, so any exact merge gives the same output.
+// banks (8-byte keys: 16 distinct bank pairs a half-warp). Ties take A's
+// key first at every cut, so the cuts agree; equal keys are the same
+// bits, so any exact merge gives the same output.
 // The counts stay on the device: the merged counts go to counts_out.
+//
+// T is the key type: int, or int64_t for the core's 64-bit keys (tags
+// packed into int64, int64 and float64 user keys), whose hi sentinel is
+// INT64_MAX. The per-run counts, out_len and the merged counts stay int32
+// and the design is the same: a 64-bit key moves 16 bytes a level, and
+// the tile takes 30,752 B of shared memory (61 registers, no spill, on an
+// H100; tiles of 11 and 7 keys a thread took 15 % and 39 % longer at the
+// tagged benchmark cell's merge).
 constexpr int kPathThreads = 256;       // K5: threads a block
 constexpr int kPathItems = 15;          // K5: outputs a thread (odd)
 constexpr int kPathTile = kPathThreads * kPathItems;
 
 // The count of A's keys among the first d of merge(A[0, na), B[0, nb)),
 // ties to A: one warp searches 32-ary; every lane returns it.
-__device__ __forceinline__ int64_t merge_path_warp(const int* __restrict__ a,
+template <typename T>
+__device__ __forceinline__ int64_t merge_path_warp(const T* __restrict__ a,
                                                    int64_t na,
-                                                   const int* __restrict__ b,
+                                                   const T* __restrict__ b,
                                                    int64_t nb, int64_t d,
                                                    int lane) {
   int64_t lo = d > nb ? d - nb : 0;
@@ -613,16 +645,18 @@ __device__ __forceinline__ int64_t merge_path_warp(const int* __restrict__ a,
   return lo + __popc(__ballot_sync(0xffffffffu, take));
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kPathThreads, 4)
-    merge_path_pairs_kernel(const int* __restrict__ in,
+    merge_path_pairs_kernel(const T* __restrict__ in,
                             const int* __restrict__ counts,
-                            int* __restrict__ out,
+                            T* __restrict__ out,
                             int* __restrict__ counts_out, int k, int k_out,
                             int64_t stride, int64_t out_len, int64_t tiles,
                             int fill) {
+  constexpr T kHi = KeyLimits<T>::hi;
   // the tile's keys, one slot that a merge step may read past them, the
   // two ends' A offsets, and a word that rounds it to 16 bytes
-  __shared__ int s[kPathTile + 4];
+  __shared__ T s[kPathTile + 4];
   const int tid = threadIdx.x;
   const int64_t pair = blockIdx.x / tiles;          // (row, output run)
   const int64_t t0 = (blockIdx.x - pair * tiles) * kPathTile;
@@ -630,8 +664,8 @@ __global__ void __launch_bounds__(kPathThreads, 4)
   const int j = static_cast<int>(pair - row * k_out);
   const int64_t ia = row * k + 2 * j;
   const bool has_b = 2 * j + 1 < k;
-  const int* a = in + ia * stride;
-  const int* b = a + stride;
+  const T* a = in + ia * stride;
+  const T* b = a + stride;
   int64_t na = counts ? counts[ia] : stride;
   int64_t nb = !has_b ? 0 : counts ? counts[ia + 1] : stride;
   na = na < 0 ? 0 : (na > stride ? stride : na);
@@ -639,11 +673,11 @@ __global__ void __launch_bounds__(kPathThreads, 4)
   const int64_t valid = na + nb < out_len ? na + nb : out_len;
   if (counts_out && t0 == 0 && tid == 0)
     counts_out[pair] = static_cast<int>(valid);
-  int* o = out + pair * out_len + t0;
+  T* o = out + pair * out_len + t0;
   const int64_t room = out_len - t0 < kPathTile ? out_len - t0 : kPathTile;
   if (t0 >= valid) {                    // past the merged keys
     if (fill)
-      for (int i = tid; i < room; i += kPathThreads) o[i] = INT_MAX;
+      for (int i = tid; i < room; i += kPathThreads) o[i] = kHi;
     return;
   }
   const int64_t t1 = t0 + room < valid ? t0 + room : valid;
@@ -651,19 +685,19 @@ __global__ void __launch_bounds__(kPathThreads, 4)
   if (warp < 2) {
     const int64_t a_end =
         merge_path_warp(a, na, b, nb, warp ? t1 : t0, tid & 31);
-    if ((tid & 31) == 0) s[kPathTile + 1 + warp] = static_cast<int>(a_end);
+    if ((tid & 31) == 0) s[kPathTile + 1 + warp] = static_cast<T>(a_end);
   }
   __syncthreads();
   const int64_t a0 = s[kPathTile + 1], a1 = s[kPathTile + 2];
   const int n = static_cast<int>(t1 - t0);           // keys of the tile
   const int m = static_cast<int>(a1 - a0);           // of them from A
-  const int* ga = a + a0;
-  const int* gb = b + (t0 - a0);
-  int v[kPathItems];
+  const T* ga = a + a0;
+  const T* gb = b + (t0 - a0);
+  T v[kPathItems];
 #pragma unroll
   for (int r = 0; r < kPathItems; ++r) {
     const int i = r * kPathThreads + tid;
-    v[r] = i < m ? ga[i] : (i < n ? gb[i - m] : 0);
+    v[r] = i < m ? ga[i] : (i < n ? gb[i - m] : T(0));
   }
 #pragma unroll
   for (int r = 0; r < kPathItems; ++r) {
@@ -671,8 +705,8 @@ __global__ void __launch_bounds__(kPathThreads, 4)
     if (i < n) s[i] = v[r];
   }
   __syncthreads();
-  // this thread's outputs [d, d + kPathItems) of the tile: A is s[0, m),
-  // B is s[m, n)
+  // this thread's outputs [d, d + kPathItems) of the tile: A is s[0, m), B is
+  // s[m, n)
   const int d = tid * kPathItems < n ? tid * kPathItems : n;
   int lo = d > n - m ? d - (n - m) : 0;
   int hi = d < m ? d : m;
@@ -682,7 +716,7 @@ __global__ void __launch_bounds__(kPathThreads, 4)
   }
   // a read past a run is clamped to s[n], which is never taken
   int ai = lo, bi = m + d - lo;
-  int x = s[ai], y = s[bi];
+  T x = s[ai], y = s[bi];
 #pragma unroll
   for (int r = 0; r < kPathItems; ++r) {
     const bool from_a = bi >= n || (ai < m && x <= y);
@@ -701,7 +735,7 @@ __global__ void __launch_bounds__(kPathThreads, 4)
     if (d + r < n) s[d + r] = v[r];
   __syncthreads();
   const int last = fill ? static_cast<int>(room) : n;
-  for (int i = tid; i < last; i += kPathThreads) o[i] = i < n ? s[i] : INT_MAX;
+  for (int i = tid; i < last; i += kPathThreads) o[i] = i < n ? s[i] : kHi;
 }
 
 __global__ void empty_kernel() {}
@@ -756,6 +790,41 @@ int launch_merge(const int* in, int* out, int64_t n_total, int reverse,
         <<<static_cast<unsigned>(segs), SEG / kMergeKeys, bytes, stream>>>(
             in, out, reverse);
   }
+  return cudaGetLastError();
+}
+
+// One K4s launch: a warp a (row, probe) pair.
+template <typename T>
+int launch_search(const void* keys, const void* probes, void* out,
+                  int64_t rows, int64_t n, int m, cudaStream_t stream) {
+  if (rows < 1 || n < 1 || n > INT_MAX || m < 1) return cudaErrorInvalidValue;
+  if (rows > static_cast<int64_t>(INT_MAX) * kSearchWarps / m)
+    return cudaErrorInvalidValue;        // more blocks than gridDim.x holds
+  const int64_t pairs = rows * m;
+  probe_rank_search_kernel<T><<<static_cast<unsigned>(
+                                    (pairs + kSearchWarps - 1) / kSearchWarps),
+                                kSearchThreads, 0, stream>>>(
+      static_cast<const T*>(keys), static_cast<const T*>(probes),
+      static_cast<int*>(out), n, m, pairs);
+  return cudaGetLastError();
+}
+
+// One K5 launch over (rows, k, stride) -> (rows, ceil(k/2), out_len).
+template <typename T>
+int launch_merge_path(const void* in, const void* counts, void* out,
+                      void* counts_out, int64_t rows, int k, int64_t stride,
+                      int64_t out_len, int fill, cudaStream_t stream) {
+  if (rows < 1 || k < 1 || stride < 1 || stride > INT_MAX || out_len < 1 ||
+      out_len > INT_MAX)
+    return cudaErrorInvalidValue;
+  const int k_out = (k + 1) / 2;
+  const int64_t tiles = (out_len + kPathTile - 1) / kPathTile;
+  if (tiles > INT_MAX / k_out / rows) return cudaErrorInvalidValue;
+  merge_path_pairs_kernel<T><<<static_cast<unsigned>(rows * k_out * tiles),
+                               kPathThreads, 0, stream>>>(
+      static_cast<const T*>(in), static_cast<const int*>(counts),
+      static_cast<T*>(out), static_cast<int*>(counts_out), k, k_out, stride,
+      out_len, tiles, fill);
   return cudaGetLastError();
 }
 
@@ -849,17 +918,15 @@ int probe_rank_count(const void* keys, const void* probes, void* out,
 
 int probe_rank_search(const void* keys, const void* probes, void* out,
                       long long rows, long long n, int m, void* stream) {
-  if (rows < 1 || n < 1 || n > INT_MAX || m < 1) return cudaErrorInvalidValue;
-  if (rows > static_cast<int64_t>(INT_MAX) * kSearchWarps / m)
-    return cudaErrorInvalidValue;        // more blocks than gridDim.x holds
-  const int64_t pairs = rows * m;
-  probe_rank_search_kernel<<<static_cast<unsigned>(
-                                 (pairs + kSearchWarps - 1) / kSearchWarps),
-                             kSearchThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(keys), static_cast<const int*>(probes),
-      static_cast<int*>(out), n, m, pairs);
-  return cudaGetLastError();
+  return launch_search<int>(keys, probes, out, rows, n, m,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// K4s over int64 keys and probes; the ranks are int32.
+int probe_rank_search_i64(const void* keys, const void* probes, void* out,
+                          long long rows, long long n, int m, void* stream) {
+  return launch_search<int64_t>(keys, probes, out, rows, n, m,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // K5 over (rows, k, stride) -> (rows, ceil(k/2), out_len); counts and
@@ -868,19 +935,19 @@ int merge_path_pairs(const void* in, const void* counts, void* out,
                      void* counts_out, long long rows, int k,
                      long long stride, long long out_len, int fill,
                      void* stream) {
-  if (rows < 1 || k < 1 || stride < 1 || stride > INT_MAX || out_len < 1 ||
-      out_len > INT_MAX)
-    return cudaErrorInvalidValue;
-  const int k_out = (k + 1) / 2;
-  const int64_t tiles = (out_len + kPathTile - 1) / kPathTile;
-  if (tiles > INT_MAX / k_out / rows) return cudaErrorInvalidValue;
-  merge_path_pairs_kernel<<<static_cast<unsigned>(rows * k_out * tiles),
-                            kPathThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(in), static_cast<const int*>(counts),
-      static_cast<int*>(out), static_cast<int*>(counts_out), k, k_out,
-      stride, out_len, tiles, fill);
-  return cudaGetLastError();
+  return launch_merge_path<int>(in, counts, out, counts_out, rows, k, stride,
+                                out_len, fill,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// K5 over int64 keys; counts and merged counts stay int32.
+int merge_path_pairs_i64(const void* in, const void* counts, void* out,
+                         void* counts_out, long long rows, int k,
+                         long long stride, long long out_len, int fill,
+                         void* stream) {
+  return launch_merge_path<int64_t>(in, counts, out, counts_out, rows, k,
+                                    stride, out_len, fill,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 int empty_launch(void* stream) {

@@ -18,6 +18,10 @@ the kernels. K2 serves two Pallas sites, so it is counted apart by role:
 K4 has two forms with a counter each: `probe_rank_search` over sorted rows
 (the main paths) and `probe_rank_count` over keys in any order.
 `merge_path_pairs` counts K5, one launch a level of a post-exchange merge.
+K4s and K5 also take int64 keys, through launchers of their own
+(`probe_rank_search_i64`, `merge_path_pairs_i64`) counted apart
+(`probe_rank_search.i64`, `merge_path_pairs.i64`: `WIDE`), so a run shows
+which key width its searches and merges ran at.
 `empty_launch`, a kernel that does nothing, is there to time the floor of
 a launch and counts under no kernel.
 Wrappers validate device, dtype, shape and contiguity before they call it;
@@ -49,7 +53,9 @@ SIGNATURES = {
     "strided_compare_exchange": (_P, _P, _L, _L, _I, _P),
     "probe_rank_count": (_P, _P, _P, _L, _L, _I, _P),
     "probe_rank_search": (_P, _P, _P, _L, _L, _I, _P),
+    "probe_rank_search_i64": (_P, _P, _P, _L, _L, _I, _P),
     "merge_path_pairs": (_P, _P, _P, _P, _L, _I, _L, _L, _I, _P),
+    "merge_path_pairs_i64": (_P, _P, _P, _P, _L, _I, _L, _L, _I, _P),
     "empty_launch": (_P,),
 }
 
@@ -57,10 +63,15 @@ SIGNATURES = {
 _IP = ctypes.POINTER(ctypes.c_int)
 QUERIES = {"merge_smem_attributes": (_I, _IP, _IP, _IP)}
 
-#: Launch counters: one per kernel, K2's split by role.
+#: The int64 instantiations' counters: the searches and merges of 64-bit
+#: keys (int64 tag packing, int64 and float64 user keys).
+WIDE = ("probe_rank_search.i64", "merge_path_pairs.i64")
+#: Launch counters: one per kernel, K2's split by role, K4s's and K5's by
+#: key width.
 COUNTERS = ("bitonic_sort_blocks", "bitonic_merge_smem.reverse",
             "bitonic_merge_smem.tail", "strided_compare_exchange",
-            "probe_rank_count", "probe_rank_search", "merge_path_pairs")
+            "probe_rank_count", "probe_rank_search", "merge_path_pairs",
+            *WIDE)
 #: Counters of kernels that no sort path launches: the counting K4 serves
 #: only `assume_sorted=False`, whose path is `histogram.ops.probe_counts`.
 OFF_MAIN_PATH = ("probe_rank_count",)
@@ -175,11 +186,18 @@ def merge_smem_attributes(seg: int) -> dict:
                     (v.value for v in vals)))
 
 
-def check_int32_rows(x: torch.Tensor, what: str):
-    """The wrappers' common argument check: a contiguous (rows, n) int32
-    tensor on the CPU (plain version) or on a CUDA device (the kernel)."""
-    if x.dtype != torch.int32:
-        raise TypeError(f"{what}: keys must be int32, got {x.dtype}")
+#: Key dtypes of the kernels that take 64-bit keys too (K4s, K5).
+KEYS_32_64 = (torch.int32, torch.int64)
+
+
+def check_rows(x: torch.Tensor, what: str, dtypes: tuple = (torch.int32,)):
+    """The wrappers' common argument check: a contiguous (rows, n) tensor
+    of one of `dtypes` (int32 unless the kernel also takes int64,
+    `KEYS_32_64`) on the CPU (plain version) or on a CUDA device (the
+    kernel)."""
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{what}: keys must be {names}, got {x.dtype}")
     if x.dim() != 2:
         raise ValueError(f"{what}: expected (rows, n), got {tuple(x.shape)}")
     if x.device.type not in ("cpu", "cuda"):

@@ -4,16 +4,19 @@ One selection layer over the sort hot spots — `local_sort`, `probe_ranks`
 and the post-exchange `merge_runs` and `merge_ragged` — so the CPU tests
 and the card share one code path. The policy decides what runs:
 
-  "auto"    (default) the CUDA kernels on a CUDA tensor of keys no wider
-            than 4 bytes, the torch primitives on a CPU tensor and on
-            64-bit keys (int64 packing, float64 and int64 keys), as the
-            reference sends those to XLA: no Pallas kernel sorts 64-bit
-            keys, so the kernels here take int32 only.
+  "auto"    (default) the CUDA kernels on a CUDA tensor, the torch
+            primitives on a CPU tensor. The core's 64-bit keys (int64 tag
+            packing, int64 and float64 user keys) are searched (K4s) and
+            merged (K5) by the kernels' int64 instantiations, and sorted
+            locally by `torch.sort`: the bitonic kernels K1-K3 (and the
+            counting K4) take int32 only, as no Pallas kernel of the
+            reference takes 64-bit keys.
   "kernel"  always the kernel wrappers: on a CUDA tensor they launch the
             hand-written kernels; on a CPU tensor they run the kernels'
             plain PyTorch versions (the counterpart of Pallas interpret
-            mode, repro/kernels/__init__.py:28). On 64-bit keys they raise
-            TypeError; nothing gives way to the torch route.
+            mode, repro/kernels/__init__.py:28). 64-bit probes and merges
+            run K4s and K5; a 64-bit local sort (or count) raises
+            TypeError: nothing gives way to the torch route.
   "torch"   always the torch primitives (`torch.sort`,
             `torch.searchsorted`), the counterpart of "xla".
 
@@ -42,15 +45,16 @@ POLICIES = ("auto", "kernel", "torch")
 AUTO_SORT_MAX_N = 1 << 22
 
 
-def resolve_policy(policy: str, device, dtype: torch.dtype | None = None
-                   ) -> str:
-    """-> "kernel" | "torch" for keys of `dtype` on `device`."""
+def resolve_policy(policy: str, device, dtype: torch.dtype | None = None,
+                   *, wide: bool = False) -> str:
+    """-> "kernel" | "torch" for keys of `dtype` on `device`; `wide` says
+    the kernels of the hot spot take 64-bit keys too (K4s, K5)."""
     if policy not in POLICIES:
         raise ValueError(
             f"unknown kernel_policy {policy!r}; available: {POLICIES}")
     if policy != "auto":
         return policy
-    if dtype is not None and dtype.itemsize > 4:
+    if dtype is not None and dtype.itemsize > 4 and not wide:
         return "torch"
     return "kernel" if torch.device(device).type == "cuda" else "torch"
 
@@ -90,7 +94,8 @@ def probe_ranks(keys: torch.Tensor, probes: torch.Tensor, *,
     if probes.shape[-1] == 0:
         return torch.zeros(probes.shape, dtype=torch.int32,
                            device=keys.device)
-    if resolve_policy(policy, keys.device, keys.dtype) == "torch":
+    if resolve_policy(policy, keys.device, keys.dtype,
+                      wide=assume_sorted) == "torch":
         if assume_sorted:
             return torch.searchsorted(keys.contiguous(), probes.contiguous(),
                                       side="left").to(torch.int32)
@@ -109,7 +114,8 @@ def merge_runs(runs: torch.Tensor, *, policy: str = "auto",
     kernel path merges only the runs' valid prefixes, in ceil(log2 k) K5
     levels, instead of re-sorting (kernels.merge.ops.merge_sorted_runs)."""
     with trace.span("merge"):
-        if resolve_policy(policy, runs.device, runs.dtype) == "torch":
+        if resolve_policy(policy, runs.device, runs.dtype,
+                          wide=True) == "torch":
             merged = torch.sort(runs.reshape(runs.shape[:-2] + (-1,)),
                                 dim=-1).values
             return merged if out_len is None else mops.cap_to(merged,
@@ -123,11 +129,20 @@ def merge_ragged(buf: torch.Tensor, starts: torch.Tensor,
     """Sort each row of (..., cap) holding sorted runs at traced offsets
     (starts, counts (..., k)), the hi sentinel elsewhere. Bit-identical to
     `torch.sort` of each row; see kernels.merge.ops.merge_ragged_runs for
-    the slot and its full-sort branch."""
+    the slot and its full-sort branch: the bitonic kernels, or
+    `torch.sort` where the policy sends the rows' dtype there (64-bit
+    rows under "auto")."""
+    def full_sort(rows):
+        if resolve_policy(policy, rows.device, rows.dtype) == "torch":
+            return torch.sort(rows, dim=-1).values
+        return bops.local_sort(rows)
+
     with trace.span("merge"):
-        if resolve_policy(policy, buf.device, buf.dtype) == "torch":
+        if resolve_policy(policy, buf.device, buf.dtype,
+                          wide=True) == "torch":
             return torch.sort(buf, dim=-1).values
-        return mops.merge_ragged_runs(buf, starts, counts, slot=slot)
+        return mops.merge_ragged_runs(buf, starts, counts, slot=slot,
+                                      full_sort=full_sort)
 
 
 # The reference's batched names (dispatch.py:67-179): the same functions.

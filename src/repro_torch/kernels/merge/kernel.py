@@ -31,8 +31,8 @@ K5 (`merge_path_pairs`) merges the post-exchange runs instead
 (kernels/merge/ops.merge_sorted_runs). It replaces no Pallas kernel: a
 merge path cuts each pair merge into tiles that Hopper's blocks
 run in any order, and reads and writes only each run's valid prefix, 8
-bytes a key a level, where the network passes over every padded slot once
-a distance. `merge_path_pairs_plain` places each key by the same
+bytes a key a level (16 for int64 keys, which K5 takes too), where the
+network passes over every padded slot once a distance. `merge_path_pairs_plain` places each key by the same
 arithmetic (its index plus its rank in the other run, ties to the first
 run) with searchsorted and a scatter.
 """
@@ -63,7 +63,7 @@ def strided_compare_exchange(x: torch.Tensor, d: int,
     (rows, n): (x[i], x[i+d]) <- (min, max) for floor(i/d) even. With
     `flip`, the partner of x[i] is x[i + 2d - 1 - 2(i mod d)], i.e. the
     step runs on the relayout whose second d-run is reversed."""
-    cuda.check_int32_rows(x, "strided_compare_exchange")
+    cuda.check_rows(x, "strided_compare_exchange")
     if d < 1 or d & (d - 1) or x.shape[1] % (2 * d):
         raise ValueError(f"strided_compare_exchange: distance {d} must be a "
                          f"power of two with 2d dividing {x.shape[1]}")
@@ -96,9 +96,9 @@ def merge_pass_hbm(x: torch.Tensor, run: int, *,
 
 
 def _merge_path_args(x: torch.Tensor, counts, out_len):
-    if x.dtype != torch.int32:
-        raise TypeError(f"merge_path_pairs: keys must be int32, got "
-                        f"{x.dtype}")
+    if x.dtype not in cuda.KEYS_32_64:
+        raise TypeError(f"merge_path_pairs: keys must be int32 or int64, "
+                        f"got {x.dtype}")
     if x.dim() != 3 or 0 in x.shape:
         raise ValueError(f"merge_path_pairs: expected non-empty (rows, k, "
                          f"stride), got {tuple(x.shape)}")
@@ -153,12 +153,13 @@ def merge_path_pairs_plain(x: torch.Tensor,
 def merge_path_pairs(x: torch.Tensor, counts: torch.Tensor | None = None,
                      out_len: int | None = None, *, _fill: bool = True):
     """K5: merge run 2j with run 2j+1 of each row of (rows, k, stride)
-    sorted runs -> (out (rows, ceil(k/2), L), merged (rows, ceil(k/2))
-    int32). Run i's keys are its first counts[:, i] slots (the whole
-    stride when counts is None); an odd last run merges with an empty
-    one; L is out_len (default 2 * stride), and each output run is its
-    first L merged keys, then the hi sentinel; merged counts them, min(count
-    sum, L). So at k <= 2, with every slot past a count holding the
+    sorted int32 or int64 runs -> (out (rows, ceil(k/2), L), merged
+    (rows, ceil(k/2)) int32); int64 keys launch the int64 instantiation,
+    counted as `merge_path_pairs.i64`. Run i's keys are its first
+    counts[:, i] slots (the whole stride when counts is None); an odd last
+    run merges with an empty one; L is out_len (default 2 * stride), and
+    each output run is its first L merged keys, then the hi sentinel;
+    merged counts them, min(count sum, L). So at k <= 2, with every slot past a count holding the
     sentinel, the output is `cap_to(sort(row), out_len)`.
 
     `_fill=False` is merge_sorted_runs' inner levels alone: the kernel
@@ -175,8 +176,10 @@ def merge_path_pairs(x: torch.Tensor, counts: torch.Tensor | None = None,
                       device=x.device)
     merged = torch.empty((rows, (k + 1) // 2), dtype=torch.int32,
                          device=x.device)
-    cuda.launch("merge_path_pairs", x.data_ptr(),
-                None if counts is None else counts.data_ptr(),
+    wide = x.dtype == torch.int64
+    cuda.launch("merge_path_pairs_i64" if wide else "merge_path_pairs",
+                x.data_ptr(), None if counts is None else counts.data_ptr(),
                 out.data_ptr(), merged.data_ptr(), rows, k, stride, length,
-                int(_fill))
+                int(_fill),
+                counter="merge_path_pairs.i64" if wide else None)
     return out, merged

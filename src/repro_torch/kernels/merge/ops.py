@@ -125,8 +125,8 @@ ragged_branches: Counter = Counter()
 
 
 def merge_ragged_runs(buf: torch.Tensor, starts: torch.Tensor,
-                      counts: torch.Tensor,
-                      slot: int | None = None) -> torch.Tensor:
+                      counts: torch.Tensor, slot: int | None = None,
+                      full_sort=bops.local_sort) -> torch.Tensor:
     """Sort each row of (..., cap) that holds k sorted runs at traced
     offsets (starts and counts (..., k); every other slot holds the hi
     sentinel): bit-identical to a full sort of the row (counterpart of
@@ -136,12 +136,14 @@ def merge_ragged_runs(buf: torch.Tensor, starts: torch.Tensor,
     `slot` is the merge tree's static per-run capacity, rounded up to a
     power of two (memory is k*slot a row); None is the whole row, which
     fits every run. A run past the slot (the splitting broke its eps
-    guarantee) sends the call to a full local sort of the buffers. The
+    guarantee) sends the call to a full local sort of the buffers
+    (`full_sort`: the bitonic kernels by default; the dispatch passes
+    torch.sort for 64-bit rows under "auto"). The
     reference picks the branch with a lax.cond on the device; here the
     branch is read on the host, once per call for all rows, as the
     splitter rounds' early exit is (core/splitters.py). Both branches
-    run the kernels; each call adds one to `ragged_branches` under the
-    branch it took."""
+    run the kernels on int32 rows; each call adds one to `ragged_branches`
+    under the branch it took."""
     cap = buf.shape[-1]
     slot = pow2_ceil(cap if slot is None else min(slot, cap))
     if slot < cap:
@@ -149,7 +151,7 @@ def merge_ragged_runs(buf: torch.Tensor, starts: torch.Tensor,
             spill = bool((counts > slot).any())
         if spill:
             ragged_branches["full_sort"] += 1
-            return bops.local_sort(buf)
+            return full_sort(buf)
     ragged_branches["merge_tree"] += 1
     return merge_sorted_runs(gather_runs(buf, starts, counts, slot),
                              counts=counts, out_len=cap)

@@ -8,6 +8,10 @@ its phases inside it:
 
   plan        the adapter plan: to_core, the key range, the duplicate
               check and the `plan.probe` copy (`sort/adapters.make_plan`)
+  pack        the implicit tags packed into the keys, (key << b) | index
+              (`AdapterPlan.encode`; tagged plans only)
+  unpack      the tags split off again: indices, pad trimming and the
+              rebase undone (`AdapterPlan.decode_batched`; tagged only)
   local_sort  the shard rows' local sort (`Partitioner.sharded_batched`;
               each stage's in `core/multistage`; top_k's shard sort)
   splitters   every splitter round and its early-exit reads (the same
@@ -21,8 +25,9 @@ A public call made inside another opens no span of its own: its phases
 sit under the outer root. Retry, verify and SLO re-launches run inside
 the one root, each with its own phases. A phase outside every root (a
 kernel dispatched with no public call around it) records nothing. What
-a call does between its phases (the upload of host keys, encode, pad,
-decode, semisort's heavy-hitter detection) is the root's own time.
+a call does between its phases (the upload of host keys, an untagged
+encode, pad, decode outside `unpack`, semisort's heavy-hitter detection)
+is the root's own time.
 
 The switch is the profiler itself: `span` asks
 `torch._C._autograd._profiler_enabled()`, which is True only on a thread
@@ -60,7 +65,8 @@ import time
 import torch
 
 #: Spans kept in memory; past this the oldest are dropped. A 2^28-key
-#: HSS call records 6, so the bound holds some ten thousand calls.
+#: HSS call records 6 (8 when tagged), so the bound holds some eight
+#: thousand calls.
 MAX_SPANS = 65_536
 
 _profiler_enabled = torch._C._autograd._profiler_enabled

@@ -21,8 +21,8 @@ so under `jax.enable_x64(True)`; with x64 off the reference raises there
 instead. Auto-detected duplicates are tagged only when the packing fits
 int32, and sort untagged otherwise, as the reference does with x64 off:
 untagged keys stay on the kernel route, where int64 packing would take
-the whole sort to the torch route (kernels.dispatch: the kernels take
-int32 only).
+the local sorts to torch.sort (kernels.dispatch: K1-K3 take int32 only;
+K4s and K5 search and merge int64 keys too).
 
 Inside the plan every key is in the encoded domain (int32 for 32-bit keys,
 for uint32 the flipped one; int64 for 64-bit keys), so `key_min`/`key_max`
@@ -208,15 +208,18 @@ class AdapterPlan:
         enc = self._enc if self._enc is not None else to_core(x)
         if not self.tagged:
             return enc       # pads (hi sentinel) are appended by the driver
-        if self.n_pad:       # pads = max real key; they sort to the tail
-            pad = torch.full(enc.shape[:-1] + (self.n_pad,), self.key_max,
-                             dtype=enc.dtype, device=enc.device)
-            enc = torch.cat([enc, pad], dim=-1)
-        # the rebased key fits the pack dtype (make_plan checked the bits)
-        e = (enc.to(torch.int64) - self.key_min).to(self.pack_dtype)
-        idx = torch.arange(e.shape[-1], dtype=self.pack_dtype,
-                           device=e.device)
-        return (e << self.tag_b) | idx
+        with trace.span("pack"):
+            if self.n_pad:   # pads = max real key; they sort to the tail
+                pad = torch.full(enc.shape[:-1] + (self.n_pad,),
+                                 self.key_max, dtype=enc.dtype,
+                                 device=enc.device)
+                enc = torch.cat([enc, pad], dim=-1)
+            # the rebased key fits the pack dtype (make_plan checked the
+            # bits)
+            e = (enc.to(torch.int64) - self.key_min).to(self.pack_dtype)
+            idx = torch.arange(e.shape[-1], dtype=self.pack_dtype,
+                               device=e.device)
+            return (e << self.tag_b) | idx
 
     @property
     def flipped_words(self) -> bool:
@@ -241,17 +244,18 @@ class AdapterPlan:
         valid = pos < counts[..., None]
         indices = None
         if self.tagged:
-            raw_idx = shards & ((1 << self.tag_b) - 1)
-            if self.n_pad:
-                # pads carry indices >= n; they may have been counted as
-                # valid by the exchange — exact even under key drops
-                pads = valid & (raw_idx >= self.n)
-                counts = counts - pads.sum(dim=-1, dtype=torch.int32)
-                valid = pos < counts[..., None]
-            indices = torch.where(valid, raw_idx, -1)
-            shards = self._unrebase(shards >> self.tag_b)
-            if skeys.numel():
-                skeys = self._unrebase(skeys >> self.tag_b)
+            with trace.span("unpack"):
+                raw_idx = shards & ((1 << self.tag_b) - 1)
+                if self.n_pad:
+                    # pads carry indices >= n; they may have been counted
+                    # as valid by the exchange — exact even under key drops
+                    pads = valid & (raw_idx >= self.n)
+                    counts = counts - pads.sum(dim=-1, dtype=torch.int32)
+                    valid = pos < counts[..., None]
+                indices = torch.where(valid, raw_idx, -1)
+                shards = self._unrebase(shards >> self.tag_b)
+                if skeys.numel():
+                    skeys = self._unrebase(skeys >> self.tag_b)
         # fill past the counts with the user dtype's +sentinel, written in
         # the encoded domain (torch's uint32 kernels are few)
         shards = torch.where(valid, shards, _encoded_hi(self.out_dtype))

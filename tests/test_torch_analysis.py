@@ -314,7 +314,8 @@ def test_budget_fires_on_dynamic_smem_without_opt_in():
 
 def test_shipped_kernel_configs_fit_the_budget():
     checked = budgets.check_kernel_budgets()
-    assert len(checked) == 10 + 14 + 2 + 1 + 1 + 1
+    # K4s and K5 at each key type, int32 and int64
+    assert len(checked) == 10 + 14 + 2 + 1 + 2 + 2
     assert {fp.kernel for fp in checked} == {"K1", "K2", "K3", "K4", "K4s",
                                              "K5"}
     k1 = budgets.sort_block_footprint(1024)
@@ -322,6 +323,8 @@ def test_shipped_kernel_configs_fit_the_budget():
     assert budgets.probe_count_footprint().static_smem == 16384
     k5 = budgets.merge_path_footprint()
     assert (k5.static_smem, k5.threads, k5.max_registers) == (15376, 256, 64)
+    k5 = budgets.merge_path_footprint(config="int64")
+    assert (k5.static_smem, k5.threads, k5.max_registers) == (30752, 256, 64)
     smem = [fp for fp in checked if fp.entry == "bitonic_merge_smem_kernel"]
     assert [fp.dynamic_smem for fp in smem] == [8192, 16384, 32768, 65536]
 
@@ -348,6 +351,32 @@ def test_ptxas_report_holds_the_model():
                             .replace("1024EE", "16EE"))
     with pytest.raises(budgets.BudgetError, match="no probe_rank_count"):
         budgets.check_ptxas([budgets.probe_count_footprint()], PTXAS)
+
+
+PTXAS_K5 = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123merge_path_pairs_kernelIiEEvPKT_PKiPS1_Piiilllli' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123merge_path_pairs_kernelIiEEvPKT_PKiPS1_Piiilllli
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 43 registers, used 1 barriers, 15376 bytes smem, 408 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123merge_path_pairs_kernelIlEEvPKT_PKiPS1_Piiilllli' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123merge_path_pairs_kernelIlEEvPKT_PKiPS1_Piiilllli
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 30752 bytes smem, 408 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_tells_the_key_types_apart():
+    """K5's int32 and int64 instantiations are two entries of the report,
+    each held to its own footprint, with its spills."""
+    report = budgets.ptxas_report(PTXAS_K5)
+    assert report[("merge_path_pairs_kernel", "int32")] == {
+        "registers": 43, "smem": 15376, "spill_bytes": 0}
+    assert report[("merge_path_pairs_kernel", "int64")] == {
+        "registers": 64, "smem": 30752, "spill_bytes": 16}
+    rows = budgets.check_ptxas(
+        [budgets.merge_path_footprint(config=c) for c in ("int32", "int64")],
+        PTXAS_K5)
+    assert [r["config"] for r in rows] == ["int32", "int64"]
 
 
 # ------------------------------------------------------------------ purity --

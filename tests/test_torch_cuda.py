@@ -29,13 +29,15 @@ HBM_PASSES = ("strided_compare_exchange", "bitonic_merge_smem.tail")
 
 
 def _assert_main_path_launches(rows_on_chip=False):
-    """Every kernel of the main paths launched, but the HBM passes where
-    each local sort's rows fit one K2 segment (`rows_on_chip`); the
-    counting K4, which only `assume_sorted=False` reaches, did not."""
+    """Every kernel of the int32 main paths launched, but the HBM passes
+    where each local sort's rows fit one K2 segment (`rows_on_chip`); the
+    counting K4, which only `assume_sorted=False` reaches, and the int64
+    instantiations (`cuda.WIDE`) did not."""
     got = dict(cuda.launches)
-    skip = cuda.OFF_MAIN_PATH + (HBM_PASSES if rows_on_chip else ())
+    skip = (cuda.OFF_MAIN_PATH + cuda.WIDE
+            + (HBM_PASSES if rows_on_chip else ()))
     assert all(got[k] > 0 for k in cuda.COUNTERS if k not in skip), got
-    assert all(got[k] == 0 for k in cuda.OFF_MAIN_PATH), got
+    assert all(got[k] == 0 for k in cuda.OFF_MAIN_PATH + cuda.WIDE), got
 
 
 def _card_keys(shape, seed=0):
@@ -134,16 +136,30 @@ def _counted_runs(rows, k, stride, counts, seed=0):
 
 
 def _check_merge_path(x, counts, out_len, fill):
-    before = cuda.launches["merge_path_pairs"]
+    counter = ("merge_path_pairs.i64" if x.dtype == torch.int64
+               else "merge_path_pairs")
+    before = cuda.launches[counter]
     got, got_n = tmk.merge_path_pairs(x, counts, out_len, _fill=fill)
     torch.cuda.synchronize()
-    assert cuda.launches["merge_path_pairs"] == before + 1
+    assert cuda.launches[counter] == before + 1
     want, want_n = tmk.merge_path_pairs_plain(x, counts, out_len)
     assert torch.equal(got_n, want_n)
     if not fill:    # slots past a merged count are left unwritten
         past = torch.arange(got.shape[-1], device="cuda") >= got_n[..., None]
-        got = torch.where(past, torch.iinfo(torch.int32).max, got)
+        got = torch.where(past, torch.iinfo(x.dtype).max, got)
     assert torch.equal(got, want)
+
+
+def _wide_runs(rows, k, stride, counts, seed=0):
+    """`_counted_runs` widened to int64 tag packs: each edge-row key
+    shifted into the top bits over a 28-bit index (a 60-bit pack, the
+    int32 sentinel's slots becoming INT64_MAX)."""
+    x = _counted_runs(rows, k, stride, counts, seed)
+    idx = torch.arange(x.numel(), device="cuda").view(x.shape) & (2 ** 28 - 1)
+    wide = (x.long() << 28) | idx
+    return torch.where(x == torch.iinfo(torch.int32).max,
+                       torch.iinfo(torch.int64).max,
+                       torch.sort(wide, dim=-1).values)
 
 
 @pytest.mark.cuda
@@ -166,6 +182,23 @@ def test_cuda_merge_path_pairs_matches_plain(card, k, out_len, fill):
                       out_len, fill)
     _check_merge_path(_card_keys((6, k, 9_001), seed=k).sort(dim=-1).values,
                       None, out_len, fill)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [True, False])
+@pytest.mark.parametrize("out_len", [None, 7_000, 18_335])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8])
+def test_cuda_merge_path_pairs_int64_matches_plain(card, k, out_len, fill):
+    """K5's int64 instantiation, one level, at the int32 test's shapes on
+    60-bit tag packs with INT64_MAX past each count (and among the keys,
+    from the edge rows' INT_MAX)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(k)
+    counts = torch.randint(0, 9_002, (6, k), generator=g, device="cuda",
+                           dtype=torch.int32)
+    counts[0] = 0
+    _check_merge_path(_wide_runs(6, k, 9_001, counts, seed=k), counts,
+                      out_len, fill)
 
 
 @pytest.mark.cuda
@@ -302,6 +335,57 @@ def test_cuda_probe_rank_search(card, rows, n, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,m", [(8, 100_003, 256), (70_000, 64, 8),
+                                      (4, 1, 256), (4, 33, 256)])
+def test_cuda_probe_rank_search_int64(card, rows, n, m):
+    """K4s's int64 instantiation over sorted 64-bit rows with an INT64_MAX
+    tail: equal to its plain version and torch.searchsorted, probes among
+    the keys, past both ends and at the sentinel."""
+    i64 = torch.iinfo(torch.int64)
+    keys = (_card_keys((rows, n)).long() << 31) | _card_keys((rows, n),
+                                                             seed=2).abs()
+    keys = torch.sort(keys, dim=-1).values
+    keys[:, n - n // 5:] = i64.max
+    probes = (_card_keys((rows, m), seed=1).long() << 31)
+    probes[:, ::7] = keys[:, :1]
+    probes[:, 1::7] = i64.max
+    probes[:, 2::7] = i64.min
+    before = cuda.launches["probe_rank_search.i64"]
+    got = thk.probe_rank_search(keys, probes)
+    torch.cuda.synchronize()
+    assert cuda.launches["probe_rank_search.i64"] == before + 1
+    assert torch.equal(got, thk.probe_ranks_search_plain(keys, probes))
+    assert torch.equal(got, torch.searchsorted(keys, probes).to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("door", ["sort", "argsort"])
+def test_cuda_tagged_int64_sort_runs_the_wide_kernels(card, door):
+    """tag=True on SKEW2 keys at 2^24 (7 + 24 tag bits: an int64 pack)
+    under "auto": the searches and merges launch the int64 K4s and K5 and
+    nothing else of the port's, the local sorts run torch.sort; the
+    answer equals NumPy's and the torch policy's."""
+    from repro_torch.sort import SortSpec, argsort, sort
+
+    x = np.random.default_rng(3).integers(0, 101, 1 << 24).astype(np.int32)
+    spec = SortSpec(shards=8, tag=True)
+    cuda.reset_launches()
+    if door == "sort":
+        out = sort(x, spec)
+        got = {k for k, v in cuda.launches.items() if v}
+        np.testing.assert_array_equal(out.gather(), np.sort(x))
+        ref = sort(x, SortSpec(shards=8, tag=True, kernel_policy="torch"))
+        assert torch.equal(out.shards, ref.shards)
+        assert out.indices.dtype == torch.int64
+    else:
+        order = argsort(x, spec)
+        got = {k for k, v in cuda.launches.items() if v}
+        np.testing.assert_array_equal(order, np.argsort(x, kind="stable"))
+    assert got == set(cuda.WIDE), got
+    assert cuda.launches["merge_path_pairs.i64"] == 3
+
+
+@pytest.mark.cuda
 def test_cuda_sort_batched_searches_not_counts(card):
     """Under "kernel" the splitters rank sorted shards with K4s: one
     sort_batched launches it and never the counting K4."""
@@ -425,8 +509,9 @@ def test_cuda_argsort_and_sort_kv_through_the_kernels(card):
 
 @pytest.mark.cuda
 def test_cuda_wide_keys_take_the_torch_route(card):
-    """int64 packing and float64 keys launch no kernel; every output
-    tensor stays on the card."""
+    """int64 packing and float64 keys take the torch route for their
+    local sorts and launch only the int64 K4s and K5 (`cuda.WIDE`); every
+    output tensor stays on the card."""
     from repro_torch.sort import SortSpec, argsort, sort
 
     rng = np.random.default_rng(4)
@@ -436,7 +521,8 @@ def test_cuda_wide_keys_take_the_torch_route(card):
     order = argsort(x, SortSpec(shards=8))
     out = sort(x, SortSpec(shards=8, stable=True))
     fout = sort(f, SortSpec(shards=8))
-    assert sum(cuda.launches.values()) == 0, dict(cuda.launches)
+    assert {k for k, v in cuda.launches.items() if v} == set(cuda.WIDE), \
+        dict(cuda.launches)
     np.testing.assert_array_equal(order, np.argsort(x, kind="stable"))
     assert out.indices.dtype == torch.int64
     for t in (out.shards, out.counts, out.indices, fout.shards,
@@ -447,13 +533,19 @@ def test_cuda_wide_keys_take_the_torch_route(card):
 
 @pytest.mark.cuda
 def test_cuda_explicit_kernel_policy_on_int64_raises(card):
+    """Under "kernel" an int64 local sort (K1-K3) and count (K4) raise;
+    an int64 merge runs K5's int64 instantiation."""
     from repro_torch.kernels import dispatch
 
     rows = torch.arange(64, dtype=torch.int64, device="cuda").reshape(2, 32)
-    with pytest.raises(TypeError, match="int32"):
+    with pytest.raises(TypeError, match="K1-K3"):
         dispatch.local_sort(rows, policy="kernel")
     with pytest.raises(TypeError, match="int32"):
-        dispatch.merge_runs(rows.reshape(2, 2, 16), policy="kernel")
+        dispatch.probe_ranks(rows, rows[:, :4], policy="kernel")
+    before = cuda.launches["merge_path_pairs.i64"]
+    got = dispatch.merge_runs(rows.reshape(2, 2, 16), policy="kernel")
+    assert cuda.launches["merge_path_pairs.i64"] == before + 1
+    assert torch.equal(got, rows)
 
 
 #: The kernels each algorithm launches (chip_smoke.PATH_KERNELS): the
@@ -636,7 +728,8 @@ def test_cuda_counting_dispatch_matches_argsort_and_cpu(card):
 def test_cuda_service_batch_launches_the_kernels(card, kind):
     """One full batch of each kind through ServiceRunner on the card:
     every result exact, and the kernels of its path launched (argsort of
-    full-range int32 keys packs int64: the torch route, no kernel)."""
+    full-range int32 keys packs int64: its searches and merges launch the
+    int64 K4s and K5, its local sorts run torch.sort)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.serve import ServiceConfig, ServiceRunner
@@ -684,14 +777,16 @@ def test_cuda_service_batch_launches_the_kernels(card, kind):
         else:
             np.testing.assert_array_equal(got, order)
     if kind == "argsort":
-        assert not any(launched.values()), launched
+        assert {k for k, v in launched.items() if v} == set(cuda.WIDE), \
+            launched
     elif kind == "top_k":
         assert launched["bitonic_sort_blocks"] > 0, launched
         assert launched["probe_rank_search"] == 0, launched
         assert launched["probe_rank_count"] == 0, launched
     else:   # 16,384-key shard rows: local sorts on chip, merges by K5
         assert all(launched[k] > 0 for k in cuda.COUNTERS
-                   if k not in cuda.OFF_MAIN_PATH + HBM_PASSES), launched
+                   if k not in cuda.OFF_MAIN_PATH + HBM_PASSES + cuda.WIDE
+                   ), launched
         assert all(launched[k] == 0 for k in cuda.OFF_MAIN_PATH), launched
 
 

@@ -128,7 +128,7 @@ def test_merge_path_pairs_clamps_counts_to_the_stride(rng):
 def test_merge_path_pairs_validates_arguments():
     x = torch.zeros((2, 3, 8), dtype=torch.int32)
     with pytest.raises(TypeError):
-        tmk.merge_path_pairs(x.long())
+        tmk.merge_path_pairs(x.to(torch.int16))   # int32 and int64 only
     with pytest.raises(ValueError):
         tmk.merge_path_pairs(x[0])
     with pytest.raises(ValueError):

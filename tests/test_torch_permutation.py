@@ -249,21 +249,41 @@ def test_float64_batched_matches_reference():
 
 # ------------------------------------------------------------- policy
 def test_auto_policy_sends_64_bit_keys_to_torch():
+    """Under "auto" on the card a 64-bit local sort (and count) takes the
+    torch route; 64-bit searches and merges (`wide`: K4s and K5) take
+    the kernels' int64 instantiations."""
     assert dispatch.resolve_policy("auto", "cuda", torch.int64) == "torch"
     assert dispatch.resolve_policy("auto", "cuda", torch.float64) == "torch"
     assert dispatch.resolve_policy("auto", "cuda", torch.int32) == "kernel"
     assert dispatch.resolve_policy("auto", "cuda") == "kernel"
     assert dispatch.resolve_policy("auto", "cpu", torch.int32) == "torch"
     assert dispatch.resolve_policy("kernel", "cuda", torch.int64) == "kernel"
+    assert dispatch.resolve_policy("auto", "cuda", torch.int64,
+                                   wide=True) == "kernel"
+    assert dispatch.resolve_policy("auto", "cpu", torch.int64,
+                                   wide=True) == "torch"
+    assert dispatch.resolve_policy("torch", "cuda", torch.int64,
+                                   wide=True) == "torch"
 
 
 def test_explicit_kernel_policy_on_int64_raises():
+    """Under "kernel" a 64-bit local sort (K1-K3) and a 64-bit count (K4)
+    raise; 64-bit searches (K4s) and merges (K5) run, here as their plain
+    versions, and give torch's bits."""
     rows = torch.arange(64, dtype=torch.int64).reshape(2, 32)
-    with pytest.raises(TypeError, match="int32"):
+    with pytest.raises(TypeError, match="K1-K3"):
         dispatch.local_sort(rows, policy="kernel")
     with pytest.raises(TypeError, match="int32"):
         dispatch.probe_ranks(rows, rows[:, :4], policy="kernel",
-                             assume_sorted=True)
+                             assume_sorted=False)
+    probes = rows[:, ::5] + 1
+    assert torch.equal(
+        dispatch.probe_ranks(rows, probes, policy="kernel",
+                             assume_sorted=True),
+        torch.searchsorted(rows, probes).to(torch.int32))
+    runs = rows.reshape(2, 4, 8)
+    assert torch.equal(dispatch.merge_runs(runs, policy="kernel"),
+                       torch.sort(rows, dim=-1).values)
     with pytest.raises(TypeError, match="int32"):
         tsort.sort(np.arange(64, dtype=np.float64),
                    tsort.SortSpec(device="cpu", shards=2,

@@ -22,6 +22,8 @@ CPU = torch.profiler.ProfilerActivity.CPU
 CUDA = torch.profiler.ProfilerActivity.CUDA
 N = 8 * 4096
 PHASES = ["plan", "local_sort", "splitters", "exchange"]
+#: A tagged plan's: the tags packed after the plan, split off at the end.
+TAGGED = ["plan", "pack", "local_sort", "splitters", "exchange", "unpack"]
 
 
 @pytest.fixture(autouse=True)
@@ -177,7 +179,9 @@ def test_every_attempt_of_a_public_call_is_under_one_root(kind):
     (root,) = _roots(spans)
     assert root["name"] == "sort"
     assert {s["call"] for s in spans} == {root["id"]}
-    assert _children(spans, root) == PHASES * launches
+    # the permutation doors always tag: pack and unpack a launch
+    phases = TAGGED if kind in ("argsort", "sort_kv") else PHASES
+    assert _children(spans, root) == phases * launches
     if kind == "retry":
         assert out.recovery.attempts == launches > 1
 
@@ -207,7 +211,7 @@ OTHER_DOORS = {
         {"sort": PHASES, "exchange": ["merge"]}),
     "groupby_sum": (lambda: tsort.groupby_aggregate(
         SMALL, np.arange(N), op="sum", spec=SortSpec(device="cpu")),
-        {"sort": PHASES, "exchange": ["merge"]}),
+        {"sort": TAGGED, "exchange": ["merge"]}),   # sort_kv: tagged
     "top_k": (lambda: tsort.top_k(_keys(), 10, SortSpec(device="cpu")),
               {"sort": ["local_sort", "exchange"], "exchange": ["merge"]}),
     "top_k_batched": (lambda: tsort.top_k_batched(
@@ -232,6 +236,31 @@ def test_the_other_front_doors_open_one_root(kind):
     assert _children(spans, root) == tree["sort"]
     for exchange in (s for s in spans if s["name"] == "exchange"):
         assert _children(spans, exchange) == tree["exchange"]
+
+
+TAG_PLANS = {
+    # UNIF keys (30 bits) with auto detection: no tag fits int32
+    "untagged": (_keys(), SortSpec(device="cpu", shards=8), False),
+    "tag_false": (_keys(seed=3), SortSpec(device="cpu", shards=8,
+                                          tag=False), False),
+    # duplicated keys, 6 + 12 bits: auto tags into int32
+    "auto_int32": (SMALL, SortSpec(device="cpu", shards=8), True),
+    # 30 + 12 bits: tag=True packs int64
+    "tag_int64": (_keys(), SortSpec(device="cpu", shards=8, tag=True), True),
+}
+
+
+@pytest.mark.parametrize("plan", sorted(TAG_PLANS))
+def test_pack_and_unpack_open_only_on_tagged_plans(plan):
+    """`pack` and `unpack` are children of the root, once a launch, the
+    pack before the local sort and the unpack after the exchange; an
+    untagged plan opens neither, and its tree is as before."""
+    x, spec, tagged = TAG_PLANS[plan]
+    out, spans = _traced(lambda: tsort.sort(x, spec))
+    (root,) = _roots(spans)
+    assert _children(spans, root) == (TAGGED if tagged else PHASES)
+    assert (out.indices is not None) == tagged
+    np.testing.assert_array_equal(out.gather(), np.sort(x))
 
 
 # -- spans on their own ----------------------------------------------------
