@@ -37,7 +37,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      have a row for each; #5 and #6 have a row for K4s, the main paths'
      search over sorted rows, and one for the counting K4, which only
      `assume_sorted=False` reaches and no main path launches; K5, which
-     replaces no Pallas site, is row 9);
+     replaces no Pallas site, is row 9); K6, which replaces the masked
+     rows' sort of each splitter round, is row 10 (int32 and int64): the
+     K6 calls of `sort` on the benchmark cells' 2^28 UNIF keys and tagged
+     SKEW2 keys recorded as they ran, round 1 (nothing satisfied) and
+     round 2, each against its plain version and the torch route (the
+     reference's masked sort, `library_ms`), and the splitter keys, ranks
+     and SplitterStats of those sorts equal to the "torch" policy's;
   4. slice 1: `repro_torch.sort.sort` with 8 shards, eps 0.05 and the
      default "auto" policy on WEAK_SCALING (16,000,000 UNIF int32 keys,
      repro/configs/paper_sort.py:18 at p = 8), 16,000,000 standard-normal
@@ -82,9 +88,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      NumPy order, launch-gated as the main paths; (b) `argsort` of
      WEAK_SCALING's UNIF keys (30 + 24 bits: int64 packing) and (c) `sort`
      of 16,000,000 standard-normal float64 keys, both on the 64-bit route
-     (torch.sort local sorts, the int64 K4s and K5): equal to NumPy, no
-     kernel launched but the int64 K4s and K5, every output tensor on the
-     card; (d) `argsort` of the PRESORTED keys raising RuntimeError from
+     (torch.sort local sorts, the int64 K4s, K5 and K6): equal to NumPy,
+     no kernel launched but the int64 K4s, K5 and K6, every output tensor
+     on the card; (d) `argsort` of the PRESORTED keys raising RuntimeError from
      gather_perm_checked under "raise" and equal to np.arange under
      "retry"; (e) the benchmark's tagged cell (hssbench's
      `hss_p8_2p28_skew2_tag`): `sort` of 2^28 SKEW2 keys made on the card
@@ -181,7 +187,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      steps apart (np.stack, the copy, the sort, the gathers); a profile
      of one served batch;
   22. `data.partition.bucket_lengths` of 1,048,576 synthetic document
-     lengths over 8 shards (int64 packing: the int64 K4s and K5): every
+     lengths over 8 shards (int64 packing: the int64 K4s, K5 and K6): every
      doc once,
      shards contiguous and non-decreasing, the packing's padding;
   23. the analysis lint on the card (`repro_torch.analysis.lint --device
@@ -347,37 +353,43 @@ SORTING = ("bitonic_sort_blocks", "bitonic_merge_smem.reverse",
            "bitonic_merge_smem.tail", "strided_compare_exchange")
 MERGING = SORTING + ("merge_path_pairs",)
 RANKING = MERGING + ("probe_rank_search",)
+#: HSS's splitter rounds also draw each round's sample with K6, where the
+#: reference sorts each masked row; ams ranks a sample of its own.
+HSS = RANKING + ("sample_compact",)
 #: The 64-bit route's (int64 tag packing, float64 keys): torch.sort local
-#: sorts, the int64 K4s and K5 (`repro_torch.kernels.cuda.WIDE`).
-WIDE = ("probe_rank_search.i64", "merge_path_pairs.i64")
+#: sorts, the int64 K4s, K5 and K6 (`repro_torch.kernels.cuda.WIDE`).
+WIDE = ("probe_rank_search.i64", "merge_path_pairs.i64",
+        "sample_compact.i64")
 PATH_KERNELS = {"sample_random": MERGING, "sample_regular": MERGING,
-                "ams": RANKING, "multistage": RANKING, "ragged": RANKING,
+                "ams": RANKING, "multistage": HSS, "ragged": HSS,
                 # PRESORTED shards outgrow the ragged slot: a full local
                 # sort of each buffer, no merge
-                "ragged_presorted": SORTING + ("probe_rank_search",),
+                "ragged_presorted": SORTING + ("probe_rank_search",
+                                               "sample_compact"),
                 # phase 17: semisort sorts the shards and the masked lights
                 # and ranks with HSS; the value aggregates ride sort_kv;
                 # top_k sorts and merges, ranking nothing; the counting
                 # dispatch is torch ops with no kernel (as the reference's
                 # is jnp with no Pallas)
-                "semisort": RANKING, "groupby_aggregate[count]": RANKING,
-                "groupby_aggregate[sum]": RANKING,
-                "groupby_aggregate[max]": RANKING, "top_k": MERGING,
+                "semisort": HSS, "groupby_aggregate[count]": HSS,
+                "groupby_aggregate[sum]": HSS,
+                "groupby_aggregate[max]": HSS, "top_k": MERGING,
                 "counting_dispatch": (),
                 # phase 25: the legacy entry points sort as their
                 # algorithm's front door does; probe_counts counts keys in
                 # any order (K4, its one path); merge_flat_runs of 2^21-key
                 # runs merges by K5 alone
-                "legacy:hss": RANKING, "legacy:sample_random": MERGING,
+                "legacy:hss": HSS, "legacy:sample_random": MERGING,
                 "legacy:sample_regular": MERGING, "legacy:ams": RANKING,
-                "legacy:multistage": RANKING,
+                "legacy:multistage": HSS,
                 "probe_counts": ("probe_rank_count",),
                 "merge_flat_runs": ("merge_path_pairs",)}
 # The CUDA functions of csrc/sort_kernels.cu, as the profiler names them.
 PORT_KERNELS = ("bitonic_sort_warp_kernel", "bitonic_merge_smem_kernel",
                 "bitonic_merge_warp_kernel", "strided_ce_kernel",
                 "strided_ce_vec4_kernel", "probe_rank_count_kernel",
-                "probe_rank_search_kernel", "merge_path_pairs_kernel")
+                "probe_rank_search_kernel", "merge_path_pairs_kernel",
+                "sample_count_kernel", "sample_emit_kernel")
 
 
 def fail(msg: str):
@@ -597,10 +609,11 @@ def ptxas_line(card):
 
 
 def ptxas_wide_line(card):
-    """ptxas's registers, shared memory and spill bytes of K4s's and K5's
-    int32 and int64 instantiations (`analysis.budgets.ptxas_report`), one
-    line; fails on a missing instantiation, a spill or more than 64
-    registers (K5's __launch_bounds__ of 4 blocks of 256 threads)."""
+    """ptxas's registers, shared memory and spill bytes of K4s's, K5's and
+    K6's (count and emit) int32 and int64 instantiations
+    (`analysis.budgets.ptxas_report`), one line; fails on a missing
+    instantiation, a spill or more than 64 registers (K5's and K6's
+    __launch_bounds__ of 4 blocks of 256 threads)."""
     from repro_torch.analysis import budgets
     from repro_torch.kernels import cuda
 
@@ -608,15 +621,17 @@ def ptxas_wide_line(card):
     found = {f"{entry}[{config}]": got
              for (entry, config), got in sorted(report.items())
              if entry in ("probe_rank_search_kernel",
-                          "merge_path_pairs_kernel")}
-    emit({"measure": "ptxas_k4s_k5", "instantiations": found, "card": card})
-    if len(found) != 4:
-        fail(f"ptxas report lacks K4s/K5 instantiations: found "
+                          "merge_path_pairs_kernel", "sample_count_kernel",
+                          "sample_emit_kernel")}
+    emit({"measure": "ptxas_k4s_k5_k6", "instantiations": found,
+          "card": card})
+    if len(found) != 8:
+        fail(f"ptxas report lacks K4s/K5/K6 instantiations: found "
              f"{sorted(found)}")
     bad = [k for k, e in found.items()
            if e["spill_bytes"] or e["registers"] > MAX_REGISTERS]
     if bad:
-        fail(f"K4s/K5 instantiations spill or exceed {MAX_REGISTERS} "
+        fail(f"K4s/K5/K6 instantiations spill or exceed {MAX_REGISTERS} "
              f"registers: {bad}")
 
 
@@ -746,6 +761,122 @@ def merge_path_row(torch, row, check, gen, wide=False):
         levels_bound_ms=(MERGE_LEVELS * 2 * key_bytes * valid
                          / HBM_BYTES_PER_S * 1e3))
     del x
+
+
+#: The benchmark cells' keys a call (hssbench's hss_p8_2p28 and
+#: hss_p8_2p28_skew2_tag): rows of 2^25 keys at p = 8.
+SAMPLE_N = 1 << 28
+
+
+@contextlib.contextmanager
+def sample_calls(calls: list):
+    """While the block runs, append each `dispatch.sample_compact` call's
+    inputs to `calls`: a splitter round's sorted rows, its state, draws,
+    probability and cap. The calls still run."""
+    from repro_torch.kernels import dispatch
+
+    real = dispatch.sample_compact
+
+    def record(keys, lo_key, hi_key, satisfied, u, prob, cap, *,
+               policy="auto"):
+        calls.append((keys, lo_key.clone(), hi_key.clone(),
+                      satisfied.clone(), u, prob.clone(), cap))
+        return real(keys, lo_key, hi_key, satisfied, u, prob, cap,
+                    policy=policy)
+
+    dispatch.sample_compact = record
+    try:
+        yield calls
+    finally:
+        dispatch.sample_compact = real
+
+
+def sample_compact_rows(torch, row, check, card):
+    """K6's rows (10; it replaces no Pallas site: the reference sorts each
+    masked row), int32 and int64: `sort` of 2^28 UNIF keys (the card
+    cell's) and of 2^28 SKEW2 keys with tag=True (the tagged cell's, int64
+    packs) records its K6 calls; their splitter keys, ranks and
+    SplitterStats must equal the "torch" policy's. Rounds 1 (nothing
+    satisfied) and 2 (the state round 1 left) are each held to the plain
+    version and to the torch route (membership of every key, the mask and
+    torch.sort of each row, `library_ms`), then timed. Bound: bytes, the
+    draws over the round's member positions, the kept keys read and the
+    (8, 1, cap) buffer written."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.sample import kernel as SK
+    from repro_torch.sort import SortSpec, sort
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    for wide in (False, True):
+        high = 101 if wide else 2 ** 30
+        x = torch.randint(0, high, (SAMPLE_N,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        spec = SortSpec(shards=P, eps=EPS, tag=wide)
+        calls = []
+        with sample_calls(calls):
+            out, launches = launched(torch, lambda: sort(x, spec))
+        ref = sort(x, dataclasses.replace(spec, kernel_policy="torch"))
+        pairs = [(out.splitter_keys, ref.splitter_keys),
+                 (out.splitter_ranks, ref.splitter_ranks),
+                 *zip(out.stats, ref.stats)]
+        name = "sample_compact" + ("[int64]" if wide else "")
+        if not all(torch.equal(a, b) for a, b in pairs):
+            fail(f"{name}: the splitters differ from the torch policy's")
+        counter = "sample_compact" + (".i64" if wide else "")
+        emit({"measure": "splitter_parity", "name": name, "n": SAMPLE_N,
+              "rounds_sampled": len(calls),
+              "rounds_used": int(out.stats.rounds_used),
+              "sample_count": out.stats.sample_count.tolist(),
+              "launches": launches, "equal": True, "card": card})
+        if launches[counter] != 2 * len(calls):
+            fail(f"{name}: {launches[counter]} K6 launches for "
+                 f"{len(calls)} sampled rounds, not 2 a round")
+        del out, ref, x
+        timed = []
+        for j, args in enumerate(calls[:2]):
+            keys, lo, hi, sat, u, prob, cap = args
+
+            def outputs(res):
+                vals, sampled, over = res
+                return torch.cat([vals.flatten(),
+                                  sampled.flatten().to(vals.dtype),
+                                  over.flatten().to(vals.dtype)])
+
+            got = outputs(SK.sample_compact(*args))
+            err = max(check(f"{name}[round {j + 1}]", got,
+                            outputs(SK.sample_compact_plain(*args))),
+                      check(f"{name}[round {j + 1}, vs the torch route]",
+                            got, outputs(dispatch.sample_compact(
+                                *args, policy="torch"))))
+            members = int(dispatch.gamma_mask(keys, lo, hi, sat).sum())
+            kept = int(got[-2 * P:-P].sum())
+            moved = (u.element_size() * members
+                     + keys.element_size() * (kept + P * min(cap,
+                                                             keys.shape[-1])))
+            timed.append(dict(
+                err=err, members=members, kept=kept, bytes=moved,
+                fn=lambda a=args: SK.sample_compact(*a),
+                plain=lambda a=args: SK.sample_compact_plain(*a),
+                library=lambda a=args: dispatch.sample_compact(
+                    *a, policy="torch")))
+        if len(timed) < 2:
+            fail(f"{name}: {len(calls)} sampled round(s); rows 10 time "
+                 "rounds 1 and 2")
+        first, second = timed
+        row(10, name, "K6", counter, "sort[skew2_tag]" if wide else "sort",
+            "none (a splitter round's sample: the reference sorts each "
+            "masked row through #1-#8)", max(first["err"], second["err"]),
+            first["fn"], first["plain"], first["library"], first["bytes"],
+            first["members"], timed_shape=list(calls[0][0].shape),
+            draws=str(calls[0][4].dtype), round=1,
+            members=first["members"], kept=first["kept"],
+            round2_ms=time_ms(torch, second["fn"], reps=20),
+            round2_bound_ms=bound(second["bytes"], second["members"])[0],
+            round2_library_ms=time_ms(torch, second["library"], reps=5),
+            round2_members=second["members"], round2_kept=second["kept"],
+            rounds_sampled=len(calls))
+        del calls, timed, first, second
 
 
 def kernel_phase(torch, card, floor_ms, k4_ops):
@@ -973,6 +1104,10 @@ def kernel_phase(torch, card, floor_ms, k4_ops):
     # instantiation at the tagged cell's (the same shapes, int64 packs)
     merge_path_row(torch, row, check, gen)
     merge_path_row(torch, row, check, gen, wide=True)
+
+    # K6: the splitter rounds of the benchmark cells' sorts, int32 and
+    # int64, rounds 1 and 2 as they ran
+    sample_compact_rows(torch, row, check, card)
 
     # #5 K4s's int64 instantiation: one round's search of the tagged
     # cell's splitters, 8 sorted rows of 2^25 int64 packs x 256 probes
@@ -1462,7 +1597,7 @@ def tagged_phase(torch, np, card):
     keys (uniform in [0, 100]) made on the card, tag=True (7 key + 28 tag
     bits: an int64 pack), HSS at p = 8, eps 0.05, dense, "auto". Exact
     against torch.sort of the input, every shard within (1 + eps) N / p,
-    the int64 K4s and K5 launched and nothing else of the port's, K5's
+    the int64 K4s, K5 and K6 launched and nothing else of the port's, K5's
     three levels a call; the warm median of 3 calls and the peak of
     allocated memory. Then the narrower precision's reading: the same
     packs cut to int32 and sorted, whose keys read back wrong (the cell's
@@ -1519,9 +1654,9 @@ def moe_inputs(np):
 
 
 def check_wide_route(name, launches, tensors):
-    """The 64-bit route's gate: its searches and merges launched the int64
-    K4s and K5 and nothing else of the port's (its local sorts are
-    torch.sort), every tensor on the card."""
+    """The 64-bit route's gate: its searches, samples and merges launched
+    the int64 K4s, K6 and K5 and nothing else of the port's (its local
+    sorts are torch.sort), every tensor on the card."""
     from repro_torch.kernels import cuda
 
     check_path_launches(name, launches, cuda.WIDE)
@@ -1533,7 +1668,7 @@ def check_wide_route(name, launches, tensors):
 def permutation_phase(torch, np, card):
     """sort_kv of the MoE dispatch on the kernels; argsort of wide keys and
     sort of float64 keys on the 64-bit route (torch.sort local sorts, the
-    int64 K4s and K5); argsort of presorted keys under raise and retry.
+    int64 K4s, K5 and K6); argsort of presorted keys under raise and retry.
     Returns the sort_kv and argsort paths' launch counts."""
     from repro_torch.data.distributions import (make_adversarial,
                                                 make_distribution)
@@ -1655,23 +1790,26 @@ def with_comm_log(fn):
 
 @contextlib.contextmanager
 def kernel_shapes(seen: set):
-    """While the block runs, add each call of the four kernel wrappers to
+    """While the block runs, add each call of the kernel wrappers to
     `seen` as (counter, rows, n, parameters): the block (K1), the segment
     (K2, counted by role), the distance and flip (K3), the probe count
     (K4s) or, for K5, (counter, rows, k, stride, out_len or 0, whether
-    counts were given, whether it fills). K4s and K5 on int64 keys are
-    recorded under their `.i64` counters. The wrappers still launch;
-    nothing is synchronised."""
+    counts were given, whether it fills), for K6 (counter, shards, batch,
+    n, splitters, cap, whether the draws are shared, their dtype). K4s,
+    K5 and K6 on int64 keys are recorded under their `.i64` counters. The
+    wrappers still launch; nothing is synchronised."""
     from repro_torch.kernels.bitonic_sort import kernel as BK
     from repro_torch.kernels.histogram import kernel as HK
     from repro_torch.kernels.histogram import ops as hops
     from repro_torch.kernels.merge import kernel as MK
+    from repro_torch.kernels.sample import kernel as SK
 
     real = {"sort_blocks": BK.sort_blocks,
             "bitonic_merge_smem": BK.bitonic_merge_smem,
             "strided_compare_exchange": MK.strided_compare_exchange,
             "probe_rank_search": HK.probe_rank_search,
-            "merge_path_pairs": MK.merge_path_pairs}
+            "merge_path_pairs": MK.merge_path_pairs,
+            "sample_compact": SK.sample_compact}
 
     def sort_blocks(x, block):
         seen.add(("bitonic_sort_blocks", *x.shape, block))
@@ -1699,13 +1837,21 @@ def kernel_shapes(seen: set):
                   counts is not None, _fill))
         return real["merge_path_pairs"](x, counts, out_len, _fill=_fill)
 
+    def sample_compact(keys, lo_key, hi_key, satisfied, u, prob, cap):
+        seen.add(("sample_compact" + wide(keys), *keys.shape,
+                  lo_key.shape[-1], cap, u.dim() == 2, str(u.dtype)))
+        return real["sample_compact"](keys, lo_key, hi_key, satisfied, u,
+                                      prob, cap)
+
     wrappers = {"sort_blocks": sort_blocks,
                 "bitonic_merge_smem": bitonic_merge_smem,
                 "strided_compare_exchange": strided_compare_exchange,
                 "probe_rank_search": probe_rank_search,
-                "merge_path_pairs": merge_path_pairs}
+                "merge_path_pairs": merge_path_pairs,
+                "sample_compact": sample_compact}
     # every module that holds a wrapper by name, the callers' imports too
-    patched = [(mod, name) for mod in (BK, MK, HK, hops) for name in real
+    # (dispatch calls K6 through its module, `skernel`)
+    patched = [(mod, name) for mod in (BK, MK, HK, hops, SK) for name in real
                if getattr(mod, name, None) is real[name]]
     for mod, name in patched:
         setattr(mod, name, wrappers[name])
@@ -1745,6 +1891,46 @@ def merge_path_inputs(torch, keys, gen, sig, device):
             torch.cat([want.flatten(), want_n.flatten().to(want.dtype)]))
 
 
+def sample_compact_inputs(torch, keys, gen, sig, device):
+    """K6 and its plain version at one recorded signature -> (got, want),
+    the buffer with the counts after it, under two states a signature:
+    the first round's (sentinels, nothing satisfied) and one whose
+    interval ends are keys drawn from each request's rows, about a third
+    of them satisfied. Rows sorted with 0 to 3/8 of each in hi sentinels;
+    draws of the signature's shape and dtype; probabilities in (0, 1],
+    one of them 1."""
+    from repro_torch.kernels.sample import kernel as SK
+
+    _, shards, batch, n, m, cap, shared, u_dtype = sig
+    hi = torch.iinfo(keys(1).dtype).max
+    lo = torch.iinfo(keys(1).dtype).min
+    x = keys(shards, batch, n)
+    tails = torch.randint(0, 3 * n // 8 + 1, (shards, batch, 1),
+                          generator=gen, device=device)
+    x = torch.where(torch.arange(n, device=device) >= n - tails, hi, x)
+    x = torch.sort(x, dim=-1).values
+    pick = torch.randint(0, n, (batch, 2 * m), generator=gen, device=device)
+    ends = torch.sort(torch.gather(x[0], 1, pick), dim=-1).values
+    draws = torch.rand((shards, n) if shared else (shards, batch, n),
+                       generator=gen, device=device,
+                       dtype=getattr(torch, u_dtype.removeprefix("torch.")))
+    prob = torch.rand((batch,), generator=gen, device=device)
+    prob[0] = 1.0
+    states = [(torch.full((batch, m), lo, dtype=x.dtype, device=device),
+               torch.full((batch, m), hi, dtype=x.dtype, device=device),
+               torch.zeros((batch, m), dtype=torch.bool, device=device)),
+              (ends[:, 0::2].contiguous(), ends[:, 1::2].contiguous(),
+               torch.rand((batch, m), generator=gen, device=device) < 1 / 3)]
+    got, want = [], []
+    for state in states:
+        for out, fn in ((got, SK.sample_compact),
+                        (want, SK.sample_compact_plain)):
+            vals, sampled, over = fn(x, *state, draws, prob, cap)
+            out += [vals.flatten(), sampled.flatten().to(x.dtype),
+                    over.flatten().to(x.dtype)]
+    return torch.cat(got), torch.cat(want)
+
+
 def path_shapes_phase(torch, seen: set, card, device="cuda"):
     """Phase 12: each kernel against its plain version, exactly, at every
     (rows, n, parameters) that the main paths called it with (`seen`, from
@@ -1754,9 +1940,11 @@ def path_shapes_phase(torch, seen: set, card, device="cuda"):
     multistage's stage 2 and the exchanges) against probes drawn half from
     the row, some hi sentinels among them, K5 on sorted runs holding a
     random count of keys each (the hi sentinel past it; without counts,
-    whole runs); K4s and K5 at an `.i64` counter's signatures on int64
-    keys, INT64_MAX the sentinel. Returns the (rows, n) checked for each
-    counter ((rows, k, stride) for K5)."""
+    whole runs), K6 on sorted rows with sentinel tails under two states
+    (`sample_compact_inputs`); K4s, K5 and K6 at an `.i64` counter's
+    signatures on int64 keys, INT64_MAX the sentinel. Returns the (rows,
+    n) checked for each counter ((rows, k, stride) for K5, (shards,
+    batch, n) for K6)."""
     from repro_torch.kernels.bitonic_sort import kernel as BK
     from repro_torch.kernels.histogram import kernel as HK
     from repro_torch.kernels.merge import kernel as MK
@@ -1813,14 +2001,17 @@ def path_shapes_phase(torch, seen: set, card, device="cuda"):
             want = HK.probe_ranks_search_plain(k, q)
         elif kind == "merge_path_pairs":
             got, want = merge_path_inputs(torch, of_width, gen, sig, device)
+        elif kind == "sample_compact":
+            got, want = sample_compact_inputs(torch, of_width, gen, sig,
+                                              device)
         else:
             fail(f"path_shapes_phase: no inputs for {counter}")
         if not torch.equal(got, want):
             fail(f"{counter}{list(sig[1:])} disagrees with its plain "
                  "version at a main path's shape")
-        shapes.setdefault(counter, set()).add(tuple(sig[1:4]) if
-                                              kind == "merge_path_pairs"
-                                              else (rows, n))
+        shapes.setdefault(counter, set()).add(
+            tuple(sig[1:4]) if kind in ("merge_path_pairs", "sample_compact")
+            else (rows, n))
         del got, want
     emit({"measure": "path_shapes", "checked": len(seen),
           "seconds": time.perf_counter() - t0,
@@ -2181,10 +2372,10 @@ def slo_phase(torch, np, card):
         r = out.recovery
         path = f"sort[slo,{name}]"
         paths[path] = launches
-        # a tag rung that packs int64 searches and merges on the int64
-        # K4s and K5 after the untagged attempts' int32 kernels
+        # a tag rung that packs int64 searches, samples and merges on the
+        # int64 K4s, K6 and K5 after the untagged attempts' int32 kernels
         wide = out.indices is not None and out.indices.dtype == torch.int64
-        check_path_launches(path, launches, RANKING + WIDE if wide else None)
+        check_path_launches(path, launches, HSS + WIDE if wide else None)
         if not (out.audit.ok and r.achieved_imbalance <= 1.2
                 and np.array_equal(out.gather(), np.sort(x))):
             fail(f"{path}: {r}")
@@ -2397,19 +2588,20 @@ def grouping_timing_phase(torch, np, card):
 
 #: Phases 19-22: the service at the batched cell's width. Each kind's
 #: kernels, from the code: sort, sort_kv (4 key + 21 tag bits: int32
-#: packing) and semisort run the HSS path's six; top_k sorts and merges,
+#: packing) and semisort run the HSS path's seven; top_k sorts and merges,
 #: ranking nothing; argsort of UNIF keys (30 + 21 bits) packs int64: its
-#: local sorts are torch.sort, its searches and merges the int64 K4s and
-#: K5 (`cuda.WIDE`); the mixed window is their union. bucket_lengths' 11
-#: key bits (lengths 16..2,048) and 20 tag bits (1,048,576 documents) are
-#: over int32's 30, so it packs int64: the int64 K4s and K5.
-#: The corrupt drill's degraded path sorts each request alone, under its
-#: own spec (HSS on int32 keys, audited): the HSS path's six.
+#: local sorts are torch.sort, its searches, samples and merges the int64
+#: K4s, K6 and K5 (`cuda.WIDE`); the mixed window is their union.
+#: bucket_lengths' 11 key bits (lengths 16..2,048) and 20 tag bits
+#: (1,048,576 documents) are over int32's 30, so it packs int64: the int64
+#: K4s, K6 and K5. The corrupt drill's degraded path sorts each request
+#: alone, under its own spec (HSS on int32 keys, audited): the HSS path's
+#: seven.
 SERVE_KINDS = ("sort", "sort_kv", "semisort", "top_k", "argsort")
-PATH_KERNELS.update({"serve[sort]": RANKING, "serve[sort_kv]": RANKING,
-                     "serve[semisort]": RANKING, "serve[top_k]": MERGING,
-                     "serve[argsort]": WIDE, "serve[mixed]": RANKING + WIDE,
-                     "serve[http]": RANKING, "serve[degraded]": RANKING,
+PATH_KERNELS.update({"serve[sort]": HSS, "serve[sort_kv]": HSS,
+                     "serve[semisort]": HSS, "serve[top_k]": MERGING,
+                     "serve[argsort]": WIDE, "serve[mixed]": HSS + WIDE,
+                     "serve[http]": HSS, "serve[degraded]": HSS,
                      "bucket_lengths": WIDE})
 SERVE_LOAD = 16              # two full batches of max_batch = B
 MIXED_LOAD = 64
@@ -3090,10 +3282,11 @@ MAMBA_PROMPT = 256
 BUCKET_REQUESTS, BUCKETS = 64, 8
 #: serve_bucketed's sort of 64 prompt lengths over 8 shards (7 key bits, 6
 #: tag bits: int32 packing, the kernels): K1 sorts each 8-key shard row
-#: and the 64-key sample, K5 merges the received runs (64-key rows), K4s
-#: ranks; no row is long enough for K2 or K3.
+#: and the gathered sample, K6 draws each round's sample, K5 merges the
+#: received runs (64-key rows), K4s ranks; no row is long enough for K2
+#: or K3.
 PATH_KERNELS["serve_bucketed"] = ("bitonic_sort_blocks", "merge_path_pairs",
-                                  "probe_rank_search")
+                                  "probe_rank_search", "sample_compact")
 
 
 @contextlib.contextmanager

@@ -28,6 +28,12 @@ K5  merge_path_pairs_kernel<T>    static kPathThreads * kPathItems + 4 keys
                                   slot, the tile's two cuts, a pad to 16
                                   bytes; 30,752 B of int64), 256 threads,
                                   launch bounds (256, 4): 64 registers
+K6  sample_count_kernel<T>,       static 3 * kSampleThreads + kSampleThreads
+    sample_emit_kernel<T>         / 32 words (3,104 B: a range's two ends
+                                  and a bitmap word a thread, a sum a
+                                  warp), whatever the key type; 256
+                                  threads, launch bounds (256, 4): 64
+                                  registers
 
 `check_kernel_budgets()` raises `BudgetError` with the arithmetic on the
 first configuration that does not fit. `check_ptxas(footprints, log)`
@@ -52,6 +58,7 @@ __all__ = [
     "merge_footprint",
     "probe_count_footprint",
     "merge_path_footprint",
+    "sample_compact_footprints",
     "default_footprints",
     "check_kernel_budgets",
     "ptxas_report",
@@ -69,8 +76,9 @@ HOPPER = {
     "regs_per_sm": 65_536,
     "threads_per_block_max": 1_024,
 }
-WORD = 4    # an int32 key; K4s and K5 also take int64 keys (8 bytes)
-#: K4s's and K5's instantiations: ptxas's template argument -> the config.
+WORD = 4    # an int32 key; K4s, K5 and K6 also take int64 keys (8 bytes)
+#: K4s's, K5's and K6's instantiations: ptxas's template argument -> the
+#: config.
 KEY_TYPES = {"i": "int32", "l": "int64"}
 
 
@@ -87,7 +95,7 @@ def kernel_constants(source: Path = SOURCE) -> Dict[str, int]:
 
 @dataclasses.dataclass(frozen=True)
 class KernelFootprint:
-    kernel: str            # "K1", "K2", "K3", "K4", "K4s", "K5"
+    kernel: str            # "K1", "K2", "K3", "K4", "K4s", "K5", "K6"
     entry: str             # the __global__ function (ptxas's entry name)
     config: str            # the template argument, or "-"
     threads: int           # threads a block
@@ -192,10 +200,24 @@ def merge_path_footprint(c=None, config: str = "int32") -> KernelFootprint:
                            f"({threads}*{items}+4)*{key}")
 
 
+def sample_compact_footprints(c=None, config: str = "int32"
+                              ) -> Tuple[KernelFootprint, ...]:
+    """K6's two launches at one key type: each block holds a range's two
+    ends and a membership word a thread, and a partial sum a warp, as
+    int32 words whatever the key type."""
+    c = c or kernel_constants()
+    threads = c["kSampleThreads"]
+    words = 3 * threads + threads // 32
+    return tuple(KernelFootprint("K6", entry, config, threads, words * WORD,
+                                 0, 0, _reg_cap(threads, 4),
+                                 f"(3*{threads}+{threads}/32)*{WORD}")
+                 for entry in ("sample_count_kernel", "sample_emit_kernel"))
+
+
 def default_footprints(c=None) -> Tuple[KernelFootprint, ...]:
     """Every shipped configuration: K1 at each block size 2..1,024, K2 at
-    each segment 2..kMaxSmemKeys, K3's two forms, K4, and K4s and K5 at
-    each key type."""
+    each segment 2..kMaxSmemKeys, K3's two forms, K4, and K4s, K5 and K6
+    at each key type."""
     c = c or kernel_constants()
     out = [sort_block_footprint(1 << j, c) for j in range(1, 11)]
     seg = 2
@@ -211,6 +233,7 @@ def default_footprints(c=None) -> Tuple[KernelFootprint, ...]:
         out.append(KernelFootprint("K4s", "probe_rank_search_kernel", config,
                                    threads, 0, 0, 0, _reg_cap(threads), "0"))
         out.append(merge_path_footprint(c, config))
+        out.extend(sample_compact_footprints(c, config))
     return tuple(out)
 
 
@@ -227,7 +250,7 @@ ENTRIES = ("bitonic_sort_warp_kernel", "bitonic_merge_warp_kernel",
            "bitonic_merge_smem_kernel", "strided_ce_vec4_kernel",
            "strided_ce_kernel", "probe_rank_count_kernel",
            "probe_rank_search_kernel", "merge_path_pairs_kernel",
-           "empty_kernel")
+           "sample_count_kernel", "sample_emit_kernel", "empty_kernel")
 
 
 def _entry(mangled: str):

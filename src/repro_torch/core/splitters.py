@@ -8,9 +8,9 @@ interval (Lemmas 4.4/4.5, Theorem 4.8).
 
 The port's layout: the p shards are the leading axis of one tensor, and
 the batched engine's B requests the next one, (p, B, n_local). Per-shard
-work (membership, sampling, the sample-buffer sort, ranking) runs over all
-p*B rows at once; the collectives go through `Comm`, one call per phase
-whatever B is; the replicated interval state is held once, (B, p-1).
+work (sampling, the probe sort, ranking) runs over all p*B rows at
+once; the collectives go through `Comm`, one call per phase whatever B
+is; the replicated interval state is held once, (B, p-1).
 `hss_splitters` is `hss_splitters_batched` at B = 1. `lax.scan` over the k
 rounds becomes a Python loop, and the reference's `lax.cond` early exit
 becomes a host `if` on every request's replicated `satisfied` vector — one
@@ -135,24 +135,12 @@ def active_union_size(state: SplitterState,
 
 def gamma_membership(x: torch.Tensor, state: SplitterState) -> torch.Tensor:
     """Boolean mask (x's shape): which keys lie in an active interval, i.e.
-    lo_key_i < x < hi_key_i for some unsatisfied i. The containing
-    intervals form a contiguous run [a, b) over i, so membership is two
-    searchsorteds plus a prefix-sum lookup. x (..., n); the state's
+    lo_key_i < x < hi_key_i for some unsatisfied i (`dispatch.gamma_mask`:
+    two searchsorteds plus a prefix-sum lookup). x (..., n); the state's
     leading axes broadcast against x's, right-aligned ((p-1,) against
     (p, n) shard rows, (B, p-1) against (p, B, n))."""
-    lead = x.shape[:-1]
-    m = state.hi_key.shape[-1]
-    unsat = (~state.satisfied).to(torch.int32)
-    csum = torch.cat([torch.zeros(unsat.shape[:-1] + (1,), dtype=torch.int32,
-                                  device=x.device),
-                      torch.cumsum(unsat, -1, dtype=torch.int32)], dim=-1)
-    csum = csum.expand(lead + (m + 1,))
-    hi_key = state.hi_key.expand(lead + (m,)).contiguous()
-    lo_key = state.lo_key.expand(lead + (m,)).contiguous()
-    a = torch.searchsorted(hi_key, x, side="right")
-    b = torch.searchsorted(lo_key, x, side="left")
-    b = torch.maximum(a, b)
-    return (torch.gather(csum, -1, b) - torch.gather(csum, -1, a)) > 0
+    return dispatch.gamma_mask(x, state.lo_key, state.hi_key,
+                               state.satisfied)
 
 
 def choose_splitters(state: SplitterState, targets: torch.Tensor):
@@ -170,18 +158,12 @@ def _sample_round(local_sorted: torch.Tensor, state: SplitterState,
     into a sorted, sentinel-padded (p, B, min(cap, n_local)) buffer; all B
     requests share the shard's draws u (p, n_local), or each row has its
     own, u (p, B, n_local). Returns (vals, sampled (p, B), overflow (p,
-    B))."""
-    in_g = gamma_membership(local_sorted, state)
-    if u.dim() == 2:
-        u = u[:, None, :]
-    mask = in_g & (u < prob[:, None])
-    n_hit = mask.sum(dim=-1, dtype=torch.int32)
-    vals = torch.where(mask, local_sorted, hi_sentinel(local_sorted.dtype))
-    # The full sort of the masked buffer keeps parity with the reference
-    # (splitters.py:168); a stable compaction would give the same bits.
-    vals = dispatch.local_sort(vals, policy=kernel_policy)[..., :cap]
-    overflow = torch.clamp(n_hit - cap, min=0)
-    return vals, n_hit - overflow, overflow
+    B)). The kernel route compacts the sorted rows (K6); the torch route
+    sorts each masked row, as the reference does (splitters.py:168): the
+    same bits (`dispatch.sample_compact`)."""
+    return dispatch.sample_compact(local_sorted, state.lo_key, state.hi_key,
+                                   state.satisfied, u, prob, cap,
+                                   policy=kernel_policy)
 
 
 def hss_splitters_batched(local_sorted: torch.Tensor, *, comm: Comm,

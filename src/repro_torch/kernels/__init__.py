@@ -9,6 +9,8 @@ merge         K3 strided compare-exchange: the HBM pass of the merge
               prefixes, one launch a level.
 histogram     the per-round histogram: K4s probe-rank search over sorted
               rows (the main paths), K4 probe-rank count in any order.
+sample        K6: each HSS splitter round's sample, compacted from the
+              sorted rows (the reference sorts each masked row).
 
 Every kernel takes rows, so the reference's batched Pallas kernels (#2, #4,
 #6) are the same kernels over the batched engine's B*p rows.
@@ -18,9 +20,9 @@ cuda          builds csrc/sort_kernels.cu with nvcc at first use, loads it
               with ctypes, and counts each kernel's launches.
 
 Key contract (as in repro.kernels): keys are int32 and never equal the hi
-sentinel, except as padding; K4s and K5 take int64 keys too (the core's
-64-bit keys), INT64_MAX their hi sentinel. Every kernel wrapper runs its
-plain PyTorch version on a CPU tensor and the kernel on a CUDA tensor;
-within the contract the two, and the torch policy's `torch.sort` and
-`torch.searchsorted`, give the same bits.
+sentinel, except as padding; K4s, K5 and K6 take int64 keys too (the
+core's 64-bit keys), INT64_MAX their hi sentinel. Every kernel wrapper
+runs its plain PyTorch version on a CPU tensor and the kernel on a CUDA
+tensor; within the contract the two, and the torch policy's `torch.sort`
+and `torch.searchsorted`, give the same bits.
 """

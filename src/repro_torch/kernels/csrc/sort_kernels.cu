@@ -2,7 +2,7 @@
 //
 // Five kernels replace the eight Pallas call sites of the sort and the
 // batched sort (a batched Pallas kernel is its unbatched one per row, and
-// every kernel here already takes rows), and a sixth replaces none:
+// every kernel here already takes rows), and two more replace none:
 //
 //   K1  bitonic_sort_blocks      repro/kernels/bitonic_sort/kernel.py:83, :98
 //                                (a warp kernel, one instantiation per size)
@@ -16,16 +16,19 @@
 //   K4  probe_rank_count         the same sites, keys in any order
 //   K5  merge_path_pairs         the post-exchange merge of sorted runs,
 //                                which the reference runs as K3's network
+//   K6  sample_compact           a splitter round's sample of sorted rows,
+//                                which the reference draws by sorting the
+//                                masked rows (K1-K3's sites)
 //
 // empty_launch starts a kernel that does nothing: the floor a timed launch
 // cannot go below, measured through the same ctypes route.
 //
-// Keys are int32, the core's encoded 32-bit keys. K4s and K5 are also
+// Keys are int32, the core's encoded 32-bit keys. K4s, K5 and K6 are also
 // instantiated for int64 keys (the `_i64` launchers): the core's 64-bit
 // keys (int64 and float64 user keys, and implicit tags packed into int64)
-// are searched and merged on the card as well, while K1-K3 and K4 take
-// int32 only. Arrays are flat: a (rows, n) tensor is rows*n keys, and
-// every kernel keeps its work inside a run or row because run lengths
+// are searched, merged and sampled on the card as well, while K1-K3 and
+// K4 take int32 only. Arrays are flat: a (rows, n) tensor is rows*n keys,
+// and every kernel keeps its work inside a run or row because run lengths
 // divide the row length.
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/cuda.py). Each
@@ -738,6 +741,285 @@ __global__ void __launch_bounds__(kPathThreads, 4)
   for (int i = tid; i < last; i += kPathThreads) o[i] = i < n ? s[i] : kHi;
 }
 
+// K6 draws one HSS splitter round's sample from sorted rows: row r =
+// (shard s, request b) of keys (S*B, n), sorted ascending with hi-sentinel
+// pads at its tail, keeps position i when its key lies in an active
+// interval (lo_key < key < hi_key for some unsatisfied splitter of request
+// b) and u[i] < prob[b], and writes the first min(cap, n) kept keys in
+// position order, then the hi sentinel, with the kept count cut at cap and
+// what the cut dropped. u is (S, n), shared by the B requests of a shard,
+// or (S*B, n), float32 or float64 (injected draws); the compare widens
+// prob to u's type, as torch's `u < prob` promotes. It replaces no Pallas
+// kernel. The reference tests every key's membership (two searches a key)
+// and sorts the whole masked row (its sort_blocks and merge_* sites) to
+// keep the first cap keys: on the benchmark's 8 x 2^25 rows that was 48.9
+// ms a call for 2 x 8 x 32 samples.
+//
+// What bounds it: bytes. A round reads u over the active positions only,
+// plus the keys that are sampled: round 1, nothing satisfied, reads all
+// of u, 1 GiB of float32 at (8, 2^25), 0.32 ms at 3.35 TB/s; a later round
+// reads u over |gamma| only.
+//
+// Design. Membership needs no key: in a sorted row the keys of interval i
+// are one index range, [first key > lo_key_i, first key >= hi_key_i). A
+// block owns kSampleThreads * 32 positions of a row, a bit each, a 32-bit
+// word a thread. From the tile's first and last keys each interval is
+// outside the tile, over all of it, or cut inside it; only a cut end is
+// searched, by binary search inside the tile (so one or two tiles an
+// interval end in a row). The ranges become the tile's membership bitmap
+// in shared memory; a tile outside every range exits before it reads u.
+// Two launches, no host read:
+//   count  reads u at the tile's member positions (16-byte vectors where
+//          the row is aligned, 8 in flight a thread) and writes the
+//          tile's number of hits;
+//   emit   tile 0 of each row sums the row's tile counts into the kept
+//          count and the overflow and fills the sentinel tail; a tile
+//          with hits sums the counts of the tiles before it (stopping once
+//          they reach cap), and, if its first hit lands below cap, reads
+//          its hits' u again, ranks them by a block scan and writes their
+//          keys. Only tiles whose hits are kept read a key.
+// T is the key type, int or int64_t; the counts are int32.
+constexpr int kSampleThreads = 256;     // K6: threads a block, a word each
+constexpr int kSampleWarps = kSampleThreads / 32;
+constexpr int kSampleTile = kSampleThreads * 32;
+constexpr int kSampleVec = kSampleTile / (4 * kSampleThreads);
+
+// The first index of k[0, len) whose key is above v (strict: above) or
+// not below v.
+template <typename T, bool kAbove>
+__device__ int tile_bound(const T* __restrict__ k, int len, T v) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (kAbove ? k[mid] <= v : k[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// The membership bitmap of positions [t0, t0 + len) of one sorted row:
+// bit j of s_bits[w] is position t0 + 32w + j. s_lo and s_hi hold a
+// range a thread while the words are built. Returns whether any bit is
+// set; the bitmap is visible to the whole block on return.
+template <typename T>
+__device__ bool tile_members(const T* __restrict__ krow, int64_t t0, int len,
+                             const T* __restrict__ lo_key,
+                             const T* __restrict__ hi_key,
+                             const uint8_t* __restrict__ sat, int m,
+                             int* s_lo, int* s_hi, unsigned* s_bits) {
+  const int tid = threadIdx.x;
+  const T* k = krow + t0;
+  const T first = k[0], last = k[len - 1];
+  const int w0 = tid * 32;
+  unsigned word = 0;
+  for (int base = 0; base < m; base += kSampleThreads) {
+    const int i = base + tid;
+    int s = 0, e = 0;
+    if (i < m && !sat[i]) {
+      const T lo = lo_key[i], hi = hi_key[i];
+      if (last > lo && first < hi) {
+        s = first > lo ? 0 : tile_bound<T, true>(k, len, lo);
+        e = last < hi ? len : tile_bound<T, false>(k, len, hi);
+      }
+    }
+    s_lo[tid] = s;
+    s_hi[tid] = e;
+    __syncthreads();
+    const int count = m - base < kSampleThreads ? m - base : kSampleThreads;
+    for (int r = 0; r < count; ++r) {
+      const int a = s_lo[r] > w0 ? s_lo[r] : w0;
+      const int b = s_hi[r] < w0 + 32 ? s_hi[r] : w0 + 32;
+      if (a < b)
+        word |= (b - a == 32 ? ~0u : ((1u << (b - a)) - 1u)) << (a - w0);
+    }
+    __syncthreads();
+  }
+  s_bits[tid] = word;
+  return __syncthreads_or(word != 0u);
+}
+
+// The sum of every thread's v, returned to all; scratch holds a word a
+// warp.
+__device__ int block_sum(int v, int* scratch) {
+  v = __reduce_add_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kSampleWarps; ++w) total += scratch[w];
+  __syncthreads();
+  return total;
+}
+
+// The sum of v over the threads before this one.
+__device__ int block_exclusive_scan(int v, int* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) scratch[warp] = x;
+  __syncthreads();
+  int before = 0;
+  for (int w = 0; w < warp; ++w) before += scratch[w];
+  __syncthreads();
+  return before + x - v;
+}
+
+// Four consecutive draws from a 16-byte aligned address.
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const double* p, double* v) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// This thread's hits among the tile's member positions, count's layout:
+// vector it covers positions it*4*kSampleThreads + 4*tid + (0..3). The
+// loads of kBatch vectors are in flight at once: 8 of float, 4 of double,
+// 32 registers of draws either way.
+template <typename U>
+__device__ int count_hits(const U* __restrict__ u, int len, float prob,
+                          const unsigned* s_bits) {
+  constexpr int kBatch = kSampleVec * 4 / static_cast<int>(sizeof(U));
+  const int tid = threadIdx.x;
+  const U p = static_cast<U>(prob);
+  const bool vec = reinterpret_cast<uintptr_t>(u) % 16 == 0 && len % 4 == 0;
+  int c = 0;
+#pragma unroll
+  for (int first = 0; first < kSampleVec; first += kBatch) {
+    unsigned nib[kBatch];
+    U v[kBatch][4];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int pos = (first + i) * 4 * kSampleThreads + 4 * tid;
+      nib[i] = (s_bits[pos >> 5] >> (pos & 31)) & 0xFu;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[i][j] = U(1);
+      if (!nib[i]) continue;
+      if (vec) {
+        load4(u + pos, v[i]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (nib[i] >> j & 1u) v[i][j] = u[pos + j];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c += (nib[i] >> j & 1u) && v[i][j] < p;
+  }
+  return c;
+}
+
+// This thread's hits among its own word's positions (emit's layout), as
+// a bitmask.
+template <typename U>
+__device__ unsigned word_hits(const U* __restrict__ u, unsigned word,
+                              float prob) {
+  const U p = static_cast<U>(prob);
+  unsigned hits = 0;
+  for (unsigned w = word; w; w &= w - 1) {
+    const int j = __ffs(w) - 1;
+    if (u[j] < p) hits |= 1u << j;
+  }
+  return hits;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSampleThreads, 4)
+    sample_count_kernel(const T* __restrict__ keys,
+                        const T* __restrict__ lo_key,
+                        const T* __restrict__ hi_key,
+                        const uint8_t* __restrict__ sat, const void* u,
+                        int u_f64, int u_shared,
+                        const float* __restrict__ prob,
+                        int* __restrict__ tile_counts, int64_t n,
+                        int64_t batch, int m, int64_t tiles) {
+  __shared__ int s_lo[kSampleThreads], s_hi[kSampleThreads];
+  __shared__ unsigned s_bits[kSampleThreads];
+  __shared__ int s_sum[kSampleWarps];
+  const int64_t row = blockIdx.x / tiles;
+  const int64_t t0 = (blockIdx.x - row * tiles) * kSampleTile;
+  const int len = static_cast<int>(n - t0 < kSampleTile ? n - t0
+                                                        : kSampleTile);
+  const int64_t b = row % batch;
+  int hits = 0;
+  if (tile_members(keys + row * n, t0, len, lo_key + b * m, hi_key + b * m,
+                   sat + b * m, m, s_lo, s_hi, s_bits)) {
+    const int64_t at = (u_shared ? row / batch : row) * n + t0;
+    hits = u_f64 ? count_hits(static_cast<const double*>(u) + at, len,
+                              prob[b], s_bits)
+                 : count_hits(static_cast<const float*>(u) + at, len,
+                              prob[b], s_bits);
+    hits = block_sum(hits, s_sum);
+  }
+  if (threadIdx.x == 0) tile_counts[blockIdx.x] = hits;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSampleThreads, 4)
+    sample_emit_kernel(const T* __restrict__ keys,
+                       const T* __restrict__ lo_key,
+                       const T* __restrict__ hi_key,
+                       const uint8_t* __restrict__ sat, const void* u,
+                       int u_f64, int u_shared,
+                       const float* __restrict__ prob,
+                       const int* __restrict__ tile_counts,
+                       T* __restrict__ vals, int* __restrict__ sampled,
+                       int* __restrict__ overflow, int64_t n, int64_t batch,
+                       int m, int64_t tiles, int out_len, int cap) {
+  constexpr T kHi = KeyLimits<T>::hi;
+  __shared__ int s_lo[kSampleThreads], s_hi[kSampleThreads];
+  __shared__ unsigned s_bits[kSampleThreads];
+  __shared__ int s_sum[kSampleWarps];
+  const int tid = threadIdx.x;
+  const int64_t row = blockIdx.x / tiles;
+  const int64_t tile = blockIdx.x - row * tiles;
+  const int* crow = tile_counts + row * tiles;
+  T* vrow = vals + row * out_len;
+  if (tile == 0) {                      // the row's totals and its tail
+    int64_t total = 0;
+    for (int64_t base = 0; base < tiles; base += kSampleThreads)
+      total += block_sum(base + tid < tiles ? crow[base + tid] : 0, s_sum);
+    if (tid == 0) {
+      sampled[row] = static_cast<int>(total < cap ? total : cap);
+      overflow[row] = static_cast<int>(total > cap ? total - cap : 0);
+    }
+    for (int64_t i = (total < out_len ? total : out_len) + tid; i < out_len;
+         i += kSampleThreads)
+      vrow[i] = kHi;
+  }
+  if (crow[tile] == 0) return;
+  int64_t prefix = 0;                   // hits of the row's earlier tiles
+  for (int64_t base = 0; base < tile && prefix < out_len;
+       base += kSampleThreads)
+    prefix += block_sum(base + tid < tile ? crow[base + tid] : 0, s_sum);
+  if (prefix >= out_len) return;
+  const int64_t t0 = tile * kSampleTile;
+  const int len = static_cast<int>(n - t0 < kSampleTile ? n - t0
+                                                        : kSampleTile);
+  const int64_t b = row % batch;
+  const T* krow = keys + row * n;
+  tile_members(krow, t0, len, lo_key + b * m, hi_key + b * m, sat + b * m,
+               m, s_lo, s_hi, s_bits);
+  const int64_t at = (u_shared ? row / batch : row) * n + t0 + tid * 32;
+  unsigned hits =
+      u_f64 ? word_hits(static_cast<const double*>(u) + at, s_bits[tid],
+                        prob[b])
+            : word_hits(static_cast<const float*>(u) + at, s_bits[tid],
+                        prob[b]);
+  int64_t o = prefix + block_exclusive_scan(__popc(hits), s_sum);
+  const T* k = krow + t0 + tid * 32;
+  for (; hits && o < out_len; hits &= hits - 1)
+    vrow[o++] = k[__ffs(hits) - 1];
+}
+
 __global__ void empty_kernel() {}
 
 bool is_pow2(int64_t v) { return v > 0 && (v & (v - 1)) == 0; }
@@ -825,6 +1107,51 @@ int launch_merge_path(const void* in, const void* counts, void* out,
       static_cast<const T*>(in), static_cast<const int*>(counts),
       static_cast<T*>(out), static_cast<int*>(counts_out), k, k_out, stride,
       out_len, tiles, fill);
+  return cudaGetLastError();
+}
+
+// One K6 count launch: a block a (row, tile).
+template <typename T>
+int launch_sample_count(const void* keys, const void* lo_key,
+                        const void* hi_key, const void* sat, const void* u,
+                        int u_f64, int u_shared, const void* prob,
+                        void* tile_counts, int64_t rows, int64_t batch,
+                        int64_t n, int m, cudaStream_t stream) {
+  if (rows < 1 || batch < 1 || rows % batch || n < 1 || n > INT_MAX ||
+      m < 0)
+    return cudaErrorInvalidValue;
+  const int64_t tiles = (n + kSampleTile - 1) / kSampleTile;
+  if (tiles > INT_MAX / rows) return cudaErrorInvalidValue;
+  sample_count_kernel<T><<<static_cast<unsigned>(rows * tiles),
+                           kSampleThreads, 0, stream>>>(
+      static_cast<const T*>(keys), static_cast<const T*>(lo_key),
+      static_cast<const T*>(hi_key), static_cast<const uint8_t*>(sat), u,
+      u_f64, u_shared, static_cast<const float*>(prob),
+      static_cast<int*>(tile_counts), n, batch, m, tiles);
+  return cudaGetLastError();
+}
+
+// One K6 emit launch over the count launch's tile counts.
+template <typename T>
+int launch_sample_emit(const void* keys, const void* lo_key,
+                       const void* hi_key, const void* sat, const void* u,
+                       int u_f64, int u_shared, const void* prob,
+                       const void* tile_counts, void* vals, void* sampled,
+                       void* overflow, int64_t rows, int64_t batch, int64_t n,
+                       int m, int out_len, int cap, cudaStream_t stream) {
+  if (rows < 1 || batch < 1 || rows % batch || n < 1 || n > INT_MAX ||
+      m < 0 || out_len < 1 || out_len > n || cap < out_len)
+    return cudaErrorInvalidValue;
+  const int64_t tiles = (n + kSampleTile - 1) / kSampleTile;
+  if (tiles > INT_MAX / rows) return cudaErrorInvalidValue;
+  sample_emit_kernel<T><<<static_cast<unsigned>(rows * tiles),
+                          kSampleThreads, 0, stream>>>(
+      static_cast<const T*>(keys), static_cast<const T*>(lo_key),
+      static_cast<const T*>(hi_key), static_cast<const uint8_t*>(sat), u,
+      u_f64, u_shared, static_cast<const float*>(prob),
+      static_cast<const int*>(tile_counts), static_cast<T*>(vals),
+      static_cast<int*>(sampled), static_cast<int*>(overflow), n, batch, m,
+      tiles, out_len, cap);
   return cudaGetLastError();
 }
 
@@ -948,6 +1275,61 @@ int merge_path_pairs_i64(const void* in, const void* counts, void* out,
   return launch_merge_path<int64_t>(in, counts, out, counts_out, rows, k,
                                     stride, out_len, fill,
                                     static_cast<cudaStream_t>(stream));
+}
+
+// K6, count: keys (rows, n) sorted, rows = shards * batch; lo_key, hi_key
+// and sat (batch, m), request b's state for every row r with r % batch ==
+// b; u (shards, n) if u_shared else (rows, n), double if u_f64 else float;
+// prob (batch,) float -> tile_counts (rows, ceil(n / 8,192)) int32.
+int sample_compact_count(const void* keys, const void* lo_key,
+                         const void* hi_key, const void* sat, const void* u,
+                         int u_f64, int u_shared, const void* prob,
+                         void* tile_counts, long long rows, long long batch,
+                         long long n, int m, void* stream) {
+  return launch_sample_count<int>(keys, lo_key, hi_key, sat, u, u_f64,
+                                  u_shared, prob, tile_counts, rows, batch, n,
+                                  m, static_cast<cudaStream_t>(stream));
+}
+
+int sample_compact_count_i64(const void* keys, const void* lo_key,
+                             const void* hi_key, const void* sat,
+                             const void* u, int u_f64, int u_shared,
+                             const void* prob, void* tile_counts,
+                             long long rows, long long batch, long long n,
+                             int m, void* stream) {
+  return launch_sample_count<int64_t>(keys, lo_key, hi_key, sat, u, u_f64,
+                                      u_shared, prob, tile_counts, rows,
+                                      batch, n, m,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// K6, emit: the same inputs and the count's tile counts -> vals (rows,
+// out_len) keys, sampled and overflow (rows,) int32; out_len = min(cap, n).
+int sample_compact_emit(const void* keys, const void* lo_key,
+                        const void* hi_key, const void* sat, const void* u,
+                        int u_f64, int u_shared, const void* prob,
+                        const void* tile_counts, void* vals, void* sampled,
+                        void* overflow, long long rows, long long batch,
+                        long long n, int m, int out_len, int cap,
+                        void* stream) {
+  return launch_sample_emit<int>(keys, lo_key, hi_key, sat, u, u_f64,
+                                 u_shared, prob, tile_counts, vals, sampled,
+                                 overflow, rows, batch, n, m, out_len, cap,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+int sample_compact_emit_i64(const void* keys, const void* lo_key,
+                            const void* hi_key, const void* sat,
+                            const void* u, int u_f64, int u_shared,
+                            const void* prob, const void* tile_counts,
+                            void* vals, void* sampled, void* overflow,
+                            long long rows, long long batch, long long n,
+                            int m, int out_len, int cap, void* stream) {
+  return launch_sample_emit<int64_t>(keys, lo_key, hi_key, sat, u, u_f64,
+                                     u_shared, prob, tile_counts, vals,
+                                     sampled, overflow, rows, batch, n, m,
+                                     out_len, cap,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 int empty_launch(void* stream) {

@@ -18,10 +18,12 @@ the kernels. K2 serves two Pallas sites, so it is counted apart by role:
 K4 has two forms with a counter each: `probe_rank_search` over sorted rows
 (the main paths) and `probe_rank_count` over keys in any order.
 `merge_path_pairs` counts K5, one launch a level of a post-exchange merge.
-K4s and K5 also take int64 keys, through launchers of their own
-(`probe_rank_search_i64`, `merge_path_pairs_i64`) counted apart
-(`probe_rank_search.i64`, `merge_path_pairs.i64`: `WIDE`), so a run shows
-which key width its searches and merges ran at.
+`sample_compact` counts K6, two launches (count, emit) a splitter round.
+K4s, K5 and K6 also take int64 keys, through launchers of their own
+(`probe_rank_search_i64`, `merge_path_pairs_i64`,
+`sample_compact_{count,emit}_i64`) counted apart (`probe_rank_search.i64`,
+`merge_path_pairs.i64`, `sample_compact.i64`: `WIDE`), so a run shows
+which key width its searches, merges and samples ran at.
 `empty_launch`, a kernel that does nothing, is there to time the floor of
 a launch and counts under no kernel.
 Wrappers validate device, dtype, shape and contiguity before they call it;
@@ -56,6 +58,14 @@ SIGNATURES = {
     "probe_rank_search_i64": (_P, _P, _P, _L, _L, _I, _P),
     "merge_path_pairs": (_P, _P, _P, _P, _L, _I, _L, _L, _I, _P),
     "merge_path_pairs_i64": (_P, _P, _P, _P, _L, _I, _L, _L, _I, _P),
+    "sample_compact_count": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _L, _L, _L,
+                             _I, _P),
+    "sample_compact_count_i64": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _L, _L,
+                                 _L, _I, _P),
+    "sample_compact_emit": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                            _L, _L, _L, _I, _I, _I, _P),
+    "sample_compact_emit_i64": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                                _P, _L, _L, _L, _I, _I, _I, _P),
     "empty_launch": (_P,),
 }
 
@@ -63,15 +73,16 @@ SIGNATURES = {
 _IP = ctypes.POINTER(ctypes.c_int)
 QUERIES = {"merge_smem_attributes": (_I, _IP, _IP, _IP)}
 
-#: The int64 instantiations' counters: the searches and merges of 64-bit
-#: keys (int64 tag packing, int64 and float64 user keys).
-WIDE = ("probe_rank_search.i64", "merge_path_pairs.i64")
-#: Launch counters: one per kernel, K2's split by role, K4s's and K5's by
-#: key width.
+#: The int64 instantiations' counters: the searches, merges and splitter
+#: samples of 64-bit keys (int64 tag packing, int64 and float64 user keys).
+WIDE = ("probe_rank_search.i64", "merge_path_pairs.i64",
+        "sample_compact.i64")
+#: Launch counters: one per kernel, K2's split by role, K4s's, K5's and
+#: K6's by key width.
 COUNTERS = ("bitonic_sort_blocks", "bitonic_merge_smem.reverse",
             "bitonic_merge_smem.tail", "strided_compare_exchange",
             "probe_rank_count", "probe_rank_search", "merge_path_pairs",
-            *WIDE)
+            "sample_compact", *WIDE)
 #: Counters of kernels that no sort path launches: the counting K4 serves
 #: only `assume_sorted=False`, whose path is `histogram.ops.probe_counts`.
 OFF_MAIN_PATH = ("probe_rank_count",)
@@ -186,7 +197,7 @@ def merge_smem_attributes(seg: int) -> dict:
                     (v.value for v in vals)))
 
 
-#: Key dtypes of the kernels that take 64-bit keys too (K4s, K5).
+#: Key dtypes of the kernels that take 64-bit keys too (K4s, K5, K6).
 KEYS_32_64 = (torch.int32, torch.int64)
 
 

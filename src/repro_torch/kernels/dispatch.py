@@ -1,22 +1,23 @@
 """Kernel-policy dispatch (counterpart of repro.kernels.dispatch).
 
-One selection layer over the sort hot spots — `local_sort`, `probe_ranks`
-and the post-exchange `merge_runs` and `merge_ragged` — so the CPU tests
-and the card share one code path. The policy decides what runs:
+One selection layer over the sort hot spots — `local_sort`, `probe_ranks`,
+the splitter rounds' `sample_compact` and the post-exchange `merge_runs`
+and `merge_ragged` — so the CPU tests and the card share one code path.
+The policy decides what runs:
 
   "auto"    (default) the CUDA kernels on a CUDA tensor, the torch
             primitives on a CPU tensor. The core's 64-bit keys (int64 tag
-            packing, int64 and float64 user keys) are searched (K4s) and
-            merged (K5) by the kernels' int64 instantiations, and sorted
-            locally by `torch.sort`: the bitonic kernels K1-K3 (and the
-            counting K4) take int32 only, as no Pallas kernel of the
-            reference takes 64-bit keys.
+            packing, int64 and float64 user keys) are searched (K4s),
+            sampled (K6) and merged (K5) by the kernels' int64
+            instantiations, and sorted locally by `torch.sort`: the
+            bitonic kernels K1-K3 (and the counting K4) take int32 only,
+            as no Pallas kernel of the reference takes 64-bit keys.
   "kernel"  always the kernel wrappers: on a CUDA tensor they launch the
             hand-written kernels; on a CPU tensor they run the kernels'
             plain PyTorch versions (the counterpart of Pallas interpret
-            mode, repro/kernels/__init__.py:28). 64-bit probes and merges
-            run K4s and K5; a 64-bit local sort (or count) raises
-            TypeError: nothing gives way to the torch route.
+            mode, repro/kernels/__init__.py:28). 64-bit probes, samples
+            and merges run K4s, K6 and K5; a 64-bit local sort (or count)
+            raises TypeError: nothing gives way to the torch route.
   "torch"   always the torch primitives (`torch.sort`,
             `torch.searchsorted`), the counterpart of "xla".
 
@@ -30,10 +31,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.common import hi_sentinel
 from repro_torch.kernels.bitonic_sort import ops as bops
 from repro_torch.kernels.histogram import ops as hops
 from repro_torch.kernels.histogram import ref as href
 from repro_torch.kernels.merge import ops as mops
+from repro_torch.kernels.sample import kernel as skernel
 from repro_torch.runtime import trace
 
 POLICIES = ("auto", "kernel", "torch")
@@ -101,6 +104,58 @@ def probe_ranks(keys: torch.Tensor, probes: torch.Tensor, *,
                                       side="left").to(torch.int32)
         return href.probe_ranks_ref(keys, probes)
     return hops.probe_ranks(keys, probes, assume_sorted=assume_sorted)
+
+
+def gamma_mask(x: torch.Tensor, lo_key: torch.Tensor, hi_key: torch.Tensor,
+               satisfied: torch.Tensor) -> torch.Tensor:
+    """Which keys of x (..., n) lie in an active splitter interval,
+    lo_key_i < x < hi_key_i for some unsatisfied i, as the reference tests
+    each key (splitters.py:134): the containing intervals form a run [a,
+    b) over i, so two searchsorteds and a prefix-sum lookup. The state
+    (..., m) broadcasts against x's leading axes, right-aligned."""
+    lead = x.shape[:-1]
+    m = hi_key.shape[-1]
+    unsat = (~satisfied).to(torch.int32)
+    csum = torch.cat([torch.zeros(unsat.shape[:-1] + (1,), dtype=torch.int32,
+                                  device=x.device),
+                      torch.cumsum(unsat, -1, dtype=torch.int32)], dim=-1)
+    csum = csum.expand(lead + (m + 1,))
+    hi_key = hi_key.expand(lead + (m,)).contiguous()
+    lo_key = lo_key.expand(lead + (m,)).contiguous()
+    a = torch.searchsorted(hi_key, x, side="right")
+    b = torch.searchsorted(lo_key, x, side="left")
+    b = torch.maximum(a, b)
+    return (torch.gather(csum, -1, b) - torch.gather(csum, -1, a)) > 0
+
+
+def sample_compact(keys: torch.Tensor, lo_key: torch.Tensor,
+                   hi_key: torch.Tensor, satisfied: torch.Tensor,
+                   u: torch.Tensor, prob: torch.Tensor, cap: int, *,
+                   policy: str = "auto"):
+    """One splitter round's Bernoulli sample of sorted rows: keys (S, B, n),
+    row (s, b) sorted ascending; the state (B, m), or anything that
+    broadcasts to it; draws u (S, n) shared by the B requests or (S, B, n);
+    prob (B,) -> (vals (S, B, min(cap, n)) the first kept keys in order,
+    then the hi sentinel; sampled (S, B); overflow (S, B)). The kernel
+    route compacts (K6, `kernels.sample.kernel`); the torch route is the
+    reference's: `gamma_mask`, the mask, and `torch.sort` of every masked
+    row. Both give the same bits for any state whose keys are
+    nondecreasing in i, as refine keeps them."""
+    if resolve_policy(policy, keys.device, keys.dtype, wide=True) == "torch":
+        if u.dim() == 2:
+            u = u[:, None, :]
+        mask = (gamma_mask(keys, lo_key, hi_key, satisfied)
+                & (u < prob[:, None]))
+        n_hit = mask.sum(dim=-1, dtype=torch.int32)
+        vals = torch.where(mask, keys, hi_sentinel(keys.dtype))
+        vals = torch.sort(vals, dim=-1).values[..., :cap]
+        overflow = torch.clamp(n_hit - cap, min=0)
+        return vals, n_hit - overflow, overflow
+    batch, m = keys.shape[1], lo_key.shape[-1]
+    state = (t.expand(batch, m).contiguous()
+             for t in (lo_key, hi_key, satisfied))
+    return skernel.sample_compact(keys.contiguous(), *state, u.contiguous(),
+                                  prob.expand(batch).contiguous(), cap)
 
 
 def merge_runs(runs: torch.Tensor, *, policy: str = "auto",

@@ -314,10 +314,13 @@ def test_budget_fires_on_dynamic_smem_without_opt_in():
 
 def test_shipped_kernel_configs_fit_the_budget():
     checked = budgets.check_kernel_budgets()
-    # K4s and K5 at each key type, int32 and int64
-    assert len(checked) == 10 + 14 + 2 + 1 + 2 + 2
+    # K4s, K5 and K6's two launches at each key type, int32 and int64
+    assert len(checked) == 10 + 14 + 2 + 1 + 2 + 2 + 4
     assert {fp.kernel for fp in checked} == {"K1", "K2", "K3", "K4", "K4s",
-                                             "K5"}
+                                             "K5", "K6"}
+    for k6 in budgets.sample_compact_footprints(config="int64"):
+        assert (k6.static_smem, k6.threads, k6.max_registers) == (3104, 256,
+                                                                  64)
     k1 = budgets.sort_block_footprint(1024)
     assert (k1.static_smem, k1.threads, k1.max_registers) == (16384, 128, 64)
     assert budgets.probe_count_footprint().static_smem == 16384

@@ -334,6 +334,68 @@ def test_cuda_probe_rank_search(card, rows, n, m):
     assert torch.equal(got, thk.probe_rank_count(keys, probes))
 
 
+def _sample_inputs(dtype, shards, batch, n, m, shared, u_dtype, seed=0):
+    """K6's inputs on the card: sorted (shards, batch, n) rows with
+    duplicates and a hi-sentinel tail a row; the first round's state and
+    one whose interval ends are keys of the rows (a third satisfied); the
+    draws; probabilities, request 0's at 1."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    info = torch.iinfo(dtype)
+    pool = torch.randint(info.min, info.max, (max(n // 4, 1),),
+                         generator=g, device="cuda", dtype=dtype)
+    x = pool[torch.randint(0, pool.numel(), (shards, batch, n), generator=g,
+                           device="cuda")]
+    tails = torch.randint(0, n // 4 + 1, (shards, batch, 1), generator=g,
+                          device="cuda")
+    x = torch.where(torch.arange(n, device="cuda") >= n - tails, info.max, x)
+    x = torch.sort(x, dim=-1).values
+    pick = torch.randint(0, n, (batch, 2 * m), generator=g, device="cuda")
+    ends = torch.sort(torch.gather(x[0], 1, pick), dim=-1).values
+    states = [(torch.full((batch, m), info.min, dtype=dtype, device="cuda"),
+               torch.full((batch, m), info.max, dtype=dtype, device="cuda"),
+               torch.zeros((batch, m), dtype=torch.bool, device="cuda")),
+              (ends[:, 0::2].contiguous(), ends[:, 1::2].contiguous(),
+               torch.rand((batch, m), generator=g, device="cuda") < 1 / 3)]
+    u = torch.rand((shards, n) if shared else (shards, batch, n),
+                   generator=g, device="cuda", dtype=u_dtype)
+    prob = torch.rand((batch,), generator=g, device="cuda")
+    prob[0] = 1.0
+    return x, states, u, prob
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_row"])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.float64],
+                         ids=["u32", "u64"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64],
+                         ids=["int32", "int64"])
+@pytest.mark.parametrize("batch,n", [(1, 999), (3, 3 * 8192 + 5),
+                                     (1, 100_000), (2, 1)])
+def test_cuda_sample_compact_matches_plain(card, batch, n, dtype, u_dtype,
+                                           shared):
+    """K6 (two launches, counted under its key width) against its plain
+    version and the torch route's masked sort, under the first round's
+    state and a drawn one, at caps that overflow and past the row."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.sample import kernel as tsk
+
+    x, states, u, prob = _sample_inputs(dtype, 8, batch, n, 7, shared,
+                                        u_dtype)
+    counter = "sample_compact" + (".i64" if dtype == torch.int64 else "")
+    for state in states:
+        for cap in (32, n + 3):
+            before = cuda.launches[counter]
+            got = tsk.sample_compact(x, *state, u, prob, cap)
+            torch.cuda.synchronize()
+            assert cuda.launches[counter] == before + 2
+            for want in (tsk.sample_compact_plain(x, *state, u, prob, cap),
+                         dispatch.sample_compact(x, *state, u, prob, cap,
+                                                 policy="torch")):
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,n,m", [(8, 100_003, 256), (70_000, 64, 8),
                                       (4, 1, 256), (4, 33, 256)])
