@@ -1701,10 +1701,9 @@ def permutation_phase(torch, np, card):
     argsort_launches = launches
     emit({"measure": "permutation", "case": "argsort_unif_int64_packing",
           "n": N_WEAK, "packing": str(out.indices.dtype),
-          "route": {"local_sort": dispatch.resolve_policy(
-              "auto", "cuda", out.indices.dtype), "search_merge":
-              dispatch.resolve_policy("auto", "cuda", out.indices.dtype,
-                                      wide=True)},
+          "route": {"local_sort": dispatch.route("local_sort", out.indices),
+                    "search_merge": dispatch.route("merge_runs",
+                                                   out.indices)},
           "launches": launches, "equal": True, "card": card})
     del order, out
 
@@ -1715,10 +1714,12 @@ def permutation_phase(torch, np, card):
                           np.sort(f).view(np.int64)):
         fail("sort of float64 keys is not bit-equal to np.sort")
     emit({"measure": "permutation", "case": "sort_normal_float64",
-          "n": N_WEAK, "route": {"local_sort": dispatch.resolve_policy(
-              "auto", "cuda", out.shards.dtype), "search_merge":
-              dispatch.resolve_policy("auto", "cuda", out.shards.dtype,
-                                      wide=True)},
+          # the core sorts float64 keys as their int64 encoding
+          "n": N_WEAK, "route": {
+              "local_sort": dispatch.route("local_sort",
+                                           out.shards.view(torch.int64)),
+              "search_merge": dispatch.route("merge_runs",
+                                             out.shards.view(torch.int64))},
           "overflow": int(out.overflow), "launches": launches,
           "equal": True, "card": card})
     del out, f

@@ -15,14 +15,14 @@ sample        K6: each HSS splitter round's sample, compacted from the
 Every kernel takes rows, so the reference's batched Pallas kernels (#2, #4,
 #6) are the same kernels over the batched engine's B*p rows.
 dispatch      the policy layer every core pipeline routes through:
-              `kernel_policy` = "auto" | "kernel" | "torch".
+              `kernel_policy` = "auto" | "kernel" | "torch"; `ROUTES`
+              says which kernel serves which key width and row length.
 cuda          builds csrc/sort_kernels.cu with nvcc at first use, loads it
               with ctypes, and counts each kernel's launches.
 
-Key contract (as in repro.kernels): keys are int32 and never equal the hi
-sentinel, except as padding; K4s, K5 and K6 take int64 keys too (the
-core's 64-bit keys), INT64_MAX their hi sentinel. Every kernel wrapper
-runs its plain PyTorch version on a CPU tensor and the kernel on a CUDA
-tensor; within the contract the two, and the torch policy's `torch.sort`
-and `torch.searchsorted`, give the same bits.
+Key contract (as in repro.kernels): keys never equal the hi sentinel of
+their dtype, except as padding. Every kernel wrapper runs its plain
+PyTorch version on a CPU tensor and the kernel on a CUDA tensor; within
+the contract the two, and the torch policy's `torch.sort` and
+`torch.searchsorted`, give the same bits.
 """

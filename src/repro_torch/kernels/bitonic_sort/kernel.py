@@ -210,8 +210,9 @@ def sort_blocks_tiled_plain(x: torch.Tensor, block: int) -> torch.Tensor:
     return a.transpose(-1, -2).reshape(rows, n)
 
 
-def _check_pow2_run(x: torch.Tensor, run: int, limit: int, what: str):
-    cuda.check_rows(x, what)
+def _check_pow2_run(x: torch.Tensor, run: int, limit: int, what: str,
+                    kernel: str | None = None):
+    cuda.check_rows(x, what, kernel)
     if run < 2 or run & (run - 1) or run > limit:
         raise ValueError(f"{what}: run {run} must be a power of two in "
                          f"[2, {limit}]")
@@ -222,13 +223,13 @@ def _check_pow2_run(x: torch.Tensor, run: int, limit: int, what: str):
 
 def sort_blocks(x: torch.Tensor, block: int) -> torch.Tensor:
     """K1: sort each contiguous `block`-key run of each row of (rows, n)."""
-    _check_pow2_run(x, block, MAX_BLOCK, "sort_blocks")
+    _check_pow2_run(x, block, MAX_BLOCK, "sort_blocks", "bitonic_sort_blocks")
     if x.device.type == "cpu":
         return sort_blocks_plain(x, block)
     out = torch.empty_like(x)
     if x.numel():
-        cuda.launch("bitonic_sort_blocks", x.data_ptr(), out.data_ptr(),
-                    x.numel(), block)
+        cuda.launch("bitonic_sort_blocks", x.dtype, x.data_ptr(),
+                    out.data_ptr(), x.numel(), block)
     return out
 
 
@@ -242,10 +243,9 @@ def bitonic_merge_smem(x: torch.Tensor, seg: int,
         return bitonic_merge_plain(x, seg, reverse_second_half)
     out = torch.empty_like(x)
     if x.numel():
-        role = "reverse" if reverse_second_half else "tail"
-        cuda.launch("bitonic_merge_smem", x.data_ptr(), out.data_ptr(),
-                    x.numel(), seg, int(reverse_second_half),
-                    counter=f"bitonic_merge_smem.{role}")
+        cuda.launch("bitonic_merge_smem", x.dtype, x.data_ptr(),
+                    out.data_ptr(), x.numel(), seg, int(reverse_second_half),
+                    role="reverse" if reverse_second_half else "tail")
     return out
 
 

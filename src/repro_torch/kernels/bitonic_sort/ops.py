@@ -12,8 +12,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.common import hi_sentinel, pow2_ceil
+from repro_torch.core.common import pow2_ceil
+from repro_torch.kernels import cuda
 from repro_torch.kernels.bitonic_sort import kernel as K
+from repro_torch.kernels.merge.ops import cap_to, merge_cascade
 
 DEFAULT_BLOCK = 1024
 
@@ -21,25 +23,16 @@ DEFAULT_BLOCK = 1024
 def local_sort(x: torch.Tensor, block: int = DEFAULT_BLOCK) -> torch.Tensor:
     """Full sort of each row of (..., n): kernel block sort + kernel merge
     cascade, one launch per pass for all rows."""
-    # deferred: merge.ops imports the bitonic kernels too
-    from repro_torch.kernels.merge.ops import merge_cascade
-
-    if x.dtype != torch.int32:
+    if x.dtype not in cuda.KERNELS["bitonic_sort_blocks"].dtypes:
         raise TypeError(f"local_sort: the bitonic kernels K1-K3 sort int32 "
                         f"keys only, got {x.dtype} (64-bit keys sort on "
                         f"torch.sort under kernel_policy 'auto' or 'torch')")
     shape, n = x.shape, x.shape[-1]
-    x = x.reshape(-1, n)
     np2 = pow2_ceil(max(n, 2))
     blk = min(block, np2)
-    if np2 != n:
-        x = torch.cat([x, torch.full((x.shape[0], np2 - n),
-                                     hi_sentinel(x.dtype), dtype=x.dtype,
-                                     device=x.device)], dim=1)
-    x = K.sort_blocks(x, blk)
+    x = K.sort_blocks(cap_to(x.reshape(-1, n), np2), blk)
     x = merge_cascade(x, blk)
-    x = x if np2 == n else x[:, :n].contiguous()
-    return x.reshape(shape)
+    return cap_to(x, n).contiguous().reshape(shape)
 
 
 #: The reference's batched name; `local_sort` already takes any rows.

@@ -9,23 +9,18 @@ builds anew; ptxas's report of each kernel's registers, stack and spills
 (`-Xptxas -v`) is kept beside it (`ptxas_log()`). Nothing here runs at
 import: the CPU tests import every module and have no nvcc.
 
-`launch(name, *args)` calls one C launcher on PyTorch's current stream,
-raises when it returns a CUDA error, and adds one to that kernel's count in
-`launches` — the count a run reads to show that its main path went through
-the kernels. K2 serves two Pallas sites, so it is counted apart by role:
-`bitonic_merge_smem.reverse` (a pair merge, merge_adjacent) and
-`bitonic_merge_smem.tail` (an HBM pass's tail, merge_bitonic_blocks).
-K4 has two forms with a counter each: `probe_rank_search` over sorted rows
-(the main paths) and `probe_rank_count` over keys in any order.
-`merge_path_pairs` counts K5, one launch a level of a post-exchange merge.
-`sample_compact` counts K6, two launches (count, emit) a splitter round.
-K4s, K5 and K6 also take int64 keys, through launchers of their own
-(`probe_rank_search_i64`, `merge_path_pairs_i64`,
-`sample_compact_{count,emit}_i64`) counted apart (`probe_rank_search.i64`,
-`merge_path_pairs.i64`, `sample_compact.i64`: `WIDE`), so a run shows
-which key width its searches, merges and samples ran at.
-`empty_launch`, a kernel that does nothing, is there to time the floor of
-a launch and counts under no kernel.
+`launch(name, dtype, *args)` calls one C launcher on PyTorch's current
+stream, raises when it returns a CUDA error, and adds one to its kernel's
+count in `launches` — the count a run reads to show that its main path
+went through the kernels. `KERNELS` records each kernel's key dtypes,
+counters and launchers. For int64 keys `launch` picks the launcher's
+`_i64` twin and counts under `<kernel>.i64` (`WIDE`), so a run shows which
+key width its searches, merges and samples ran at. K2 serves two
+Pallas sites, so it is counted apart by role: `bitonic_merge_smem.reverse`
+(a pair merge, merge_adjacent) and `bitonic_merge_smem.tail` (an HBM
+pass's tail, merge_bitonic_blocks). Which hot spot runs which kernel is
+`kernels.dispatch.ROUTES`. `empty_launch`, a kernel that does nothing, is
+there to time the floor of a launch and counts under no kernel.
 Wrappers validate device, dtype, shape and contiguity before they call it;
 a build, load or launch failure raises `KernelError`, it never falls back.
 """
@@ -40,6 +35,7 @@ import tempfile
 import threading
 from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -48,44 +44,63 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cuda"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: C signature of each launcher (the trailing c_void_p is the stream).
+#: C signature of each launcher (the trailing c_void_p is the stream). A
+#: kernel that takes int64 keys too has an `_i64` twin of each of its
+#: launchers with the same arguments, which `library()` binds.
 SIGNATURES = {
     "bitonic_sort_blocks": (_P, _P, _L, _I, _P),
     "bitonic_merge_smem": (_P, _P, _L, _I, _I, _P),
     "strided_compare_exchange": (_P, _P, _L, _L, _I, _P),
     "probe_rank_count": (_P, _P, _P, _L, _L, _I, _P),
     "probe_rank_search": (_P, _P, _P, _L, _L, _I, _P),
-    "probe_rank_search_i64": (_P, _P, _P, _L, _L, _I, _P),
     "merge_path_pairs": (_P, _P, _P, _P, _L, _I, _L, _L, _I, _P),
-    "merge_path_pairs_i64": (_P, _P, _P, _P, _L, _I, _L, _L, _I, _P),
     "sample_compact_count": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _L, _L, _L,
                              _I, _P),
-    "sample_compact_count_i64": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _L, _L,
-                                 _L, _I, _P),
     "sample_compact_emit": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                             _L, _L, _L, _I, _I, _I, _P),
-    "sample_compact_emit_i64": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
-                                _P, _L, _L, _L, _I, _I, _I, _P),
     "empty_launch": (_P,),
 }
+
+KEYS_32_64 = (torch.int32, torch.int64)
+
+
+class Kernel(NamedTuple):
+    """One kernel: the key dtypes it takes, the roles it counts apart
+    (`<kernel>.<role>`), its launchers (none: the one of its name) and
+    whether a sort path launches it."""
+    dtypes: tuple = (torch.int32,)
+    roles: tuple = ()
+    launchers: tuple = ()
+    main_path: bool = True
+
+
+KERNELS = {
+    "bitonic_sort_blocks": Kernel(),
+    "bitonic_merge_smem": Kernel(roles=("reverse", "tail")),
+    "strided_compare_exchange": Kernel(),
+    "probe_rank_count": Kernel(main_path=False),
+    "probe_rank_search": Kernel(KEYS_32_64),
+    "merge_path_pairs": Kernel(KEYS_32_64),
+    "sample_compact": Kernel(KEYS_32_64, launchers=("sample_compact_count",
+                                                    "sample_compact_emit")),
+}
+_KERNEL_OF = {fn: name for name, k in KERNELS.items()
+              for fn in k.launchers or (name,)}
 
 #: Host functions that launch nothing (`merge_smem_attributes`).
 _IP = ctypes.POINTER(ctypes.c_int)
 QUERIES = {"merge_smem_attributes": (_I, _IP, _IP, _IP)}
 
-#: The int64 instantiations' counters: the searches, merges and splitter
-#: samples of 64-bit keys (int64 tag packing, int64 and float64 user keys).
-WIDE = ("probe_rank_search.i64", "merge_path_pairs.i64",
-        "sample_compact.i64")
-#: Launch counters: one per kernel, K2's split by role, K4s's, K5's and
-#: K6's by key width.
-COUNTERS = ("bitonic_sort_blocks", "bitonic_merge_smem.reverse",
-            "bitonic_merge_smem.tail", "strided_compare_exchange",
-            "probe_rank_count", "probe_rank_search", "merge_path_pairs",
-            "sample_compact", *WIDE)
+#: The counters of the `_i64` twins' launches.
+WIDE = tuple(f"{name}.i64" for name, k in KERNELS.items()
+             if torch.int64 in k.dtypes)
+#: Launch counters: one per kernel, K2's split by role, then `WIDE`.
+COUNTERS = (*(f"{name}.{role}" if role else name
+              for name, k in KERNELS.items() for role in k.roles or ("",)),
+            *WIDE)
 #: Counters of kernels that no sort path launches: the counting K4 serves
 #: only `assume_sorted=False`, whose path is `histogram.ops.probe_counts`.
-OFF_MAIN_PATH = ("probe_rank_count",)
+OFF_MAIN_PATH = tuple(name for name, k in KERNELS.items() if not k.main_path)
 
 #: Launches per counter since the last `reset_launches()`.
 launches: Counter = Counter()
@@ -159,7 +174,11 @@ def library() -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(path))
             except OSError as e:
                 raise KernelError(f"cannot load {path}: {e}") from e
-            for name, argtypes in {**SIGNATURES, **QUERIES}.items():
+            twins = {f"{fn}_i64": SIGNATURES[fn]
+                     for fn, kernel in _KERNEL_OF.items()
+                     if torch.int64 in KERNELS[kernel].dtypes}
+            for name, argtypes in {**SIGNATURES, **twins,
+                                   **QUERIES}.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
@@ -169,16 +188,20 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args, counter: str | None = None):
-    """Run one C launcher on the current stream; raise on a CUDA error.
-    The launch counts under `counter` (default: the launcher's name)."""
+def launch(name: str, dtype: torch.dtype, *args, role: str | None = None):
+    """Run launcher `name` over keys of `dtype` (its `_i64` twin for int64
+    keys) on the current stream; raise on a CUDA error. The launch counts
+    under `<kernel>[.<role>][.i64]`."""
+    kernel = _KERNEL_OF[name]
+    wide = dtype == torch.int64
     lib = library()
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, name)(*args, stream)
+    err = getattr(lib, f"{name}_i64" if wide else name)(*args, stream)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise KernelError(f"CUDA kernel {name} failed: error {err} ({msg})")
-    launches[counter or name] += 1
+    counter = f"{kernel}.{role}" if role else kernel
+    launches[f"{counter}.i64" if wide else counter] += 1
 
 
 def merge_smem_attributes(seg: int) -> dict:
@@ -197,21 +220,22 @@ def merge_smem_attributes(seg: int) -> dict:
                     (v.value for v in vals)))
 
 
-#: Key dtypes of the kernels that take 64-bit keys too (K4s, K5, K6).
-KEYS_32_64 = (torch.int32, torch.int64)
-
-
-def check_rows(x: torch.Tensor, what: str, dtypes: tuple = (torch.int32,)):
-    """The wrappers' common argument check: a contiguous (rows, n) tensor
-    of one of `dtypes` (int32 unless the kernel also takes int64,
-    `KEYS_32_64`) on the CPU (plain version) or on a CUDA device (the
+def check_keys(x: torch.Tensor, what: str, kernel: str | None = None):
+    """The wrappers' key check: a tensor of a key dtype of `kernel`
+    (default: `what`) on the CPU (plain version) or on a CUDA device (the
     kernel)."""
+    dtypes = KERNELS[kernel or what].dtypes
     if x.dtype not in dtypes:
         names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
         raise TypeError(f"{what}: keys must be {names}, got {x.dtype}")
-    if x.dim() != 2:
-        raise ValueError(f"{what}: expected (rows, n), got {tuple(x.shape)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+def check_rows(x: torch.Tensor, what: str, kernel: str | None = None):
+    """`check_keys`, and x is (rows, n), contiguous on a CUDA device."""
+    check_keys(x, what, kernel)
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected (rows, n), got {tuple(x.shape)}")
     if x.device.type == "cuda" and not x.is_contiguous():
         raise ValueError(f"{what}: CUDA input must be contiguous")

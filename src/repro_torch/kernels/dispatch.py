@@ -3,21 +3,16 @@
 One selection layer over the sort hot spots — `local_sort`, `probe_ranks`,
 the splitter rounds' `sample_compact` and the post-exchange `merge_runs`
 and `merge_ragged` — so the CPU tests and the card share one code path.
-The policy decides what runs:
+`route(spot, x, policy)` decides what runs:
 
-  "auto"    (default) the CUDA kernels on a CUDA tensor, the torch
-            primitives on a CPU tensor. The core's 64-bit keys (int64 tag
-            packing, int64 and float64 user keys) are searched (K4s),
-            sampled (K6) and merged (K5) by the kernels' int64
-            instantiations, and sorted locally by `torch.sort`: the
-            bitonic kernels K1-K3 (and the counting K4) take int32 only,
-            as no Pallas kernel of the reference takes 64-bit keys.
+  "auto"    (default) the hand-written kernel where `ROUTES` lets it
+            serve the keys, on a CUDA tensor; the torch primitives
+            otherwise (every CPU tensor).
   "kernel"  always the kernel wrappers: on a CUDA tensor they launch the
             hand-written kernels; on a CPU tensor they run the kernels'
             plain PyTorch versions (the counterpart of Pallas interpret
-            mode, repro/kernels/__init__.py:28). 64-bit probes, samples
-            and merges run K4s, K6 and K5; a 64-bit local sort (or count)
-            raises TypeError: nothing gives way to the torch route.
+            mode, repro/kernels/__init__.py:28). Keys the kernel does not
+            take raise TypeError: nothing gives way to the torch route.
   "torch"   always the torch primitives (`torch.sort`,
             `torch.searchsorted`), the counterpart of "xla".
 
@@ -32,7 +27,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.common import hi_sentinel
+from repro_torch.kernels import cuda
 from repro_torch.kernels.bitonic_sort import ops as bops
+from repro_torch.kernels.histogram import kernel as hk
 from repro_torch.kernels.histogram import ops as hops
 from repro_torch.kernels.histogram import ref as href
 from repro_torch.kernels.merge import ops as mops
@@ -47,19 +44,43 @@ POLICIES = ("auto", "kernel", "torch")
 # Past this, "auto" keeps torch.sort. An explicit "kernel" is honored.
 AUTO_SORT_MAX_N = 1 << 22
 
+#: The routing table, the one statement of which kernel serves which key
+#: width and row length: hot spot -> (its hand-written kernel, whose key
+#: dtypes `cuda.KERNELS` records; the longest row "auto" gives it, or
+#: None). The local sorts (K1-K3) take int32 only, as no Pallas kernel of
+#: the reference takes 64-bit keys; K4s, K6 and K5 take int64 too.
+ROUTES = {
+    "local_sort": ("bitonic_sort_blocks", AUTO_SORT_MAX_N),     # K1-K3
+    "probe_ranks.sorted": ("probe_rank_search", None),          # K4s
+    "probe_ranks.unsorted": ("probe_rank_count", None),         # K4
+    "sample_compact": ("sample_compact", None),                 # K6
+    "merge_runs": ("merge_path_pairs", None),                   # K5
+    "merge_ragged": ("merge_path_pairs", None),                 # K5
+}
 
-def resolve_policy(policy: str, device, dtype: torch.dtype | None = None,
-                   *, wide: bool = False) -> str:
-    """-> "kernel" | "torch" for keys of `dtype` on `device`; `wide` says
-    the kernels of the hot spot take 64-bit keys too (K4s, K5)."""
+
+def resolve_policy(policy: str, device) -> str:
+    """-> "kernel" | "torch" for tensors on `device` (the reference's
+    rule: "auto" is the kernels on the accelerator)."""
     if policy not in POLICIES:
         raise ValueError(
             f"unknown kernel_policy {policy!r}; available: {POLICIES}")
     if policy != "auto":
         return policy
-    if dtype is not None and dtype.itemsize > 4 and not wide:
-        return "torch"
     return "kernel" if torch.device(device).type == "cuda" else "torch"
+
+
+def route(spot: str, x: torch.Tensor, policy: str = "auto") -> str:
+    """-> "kernel" | "torch": where `policy` sends hot spot `spot` (a key
+    of ROUTES) on keys x (..., n)."""
+    resolved = resolve_policy(policy, x.device)
+    if policy != "auto" or resolved == "torch":
+        return resolved
+    kernel, ceiling = ROUTES[spot]
+    if (x.dtype in cuda.KERNELS[kernel].dtypes
+            and (ceiling is None or x.shape[-1] <= ceiling)):
+        return "kernel"
+    return "torch"
 
 
 def local_sort_fn(policy: str = "auto"):
@@ -67,16 +88,12 @@ def local_sort_fn(policy: str = "auto"):
     return lambda x: local_sort(x, policy=policy)
 
 
-def local_sort(x: torch.Tensor, *, policy: str = "auto",
-               block: int | None = None) -> torch.Tensor:
+def local_sort(x: torch.Tensor, *, policy: str = "auto") -> torch.Tensor:
     """Sort each row of (..., n) (sentinel-padded rows welcome: sentinels
-    are ordinary largest keys and land on the tail). AUTO_SORT_MAX_N
-    applies to the row length."""
-    if policy == "auto" and x.shape[-1] > AUTO_SORT_MAX_N:
-        policy = "torch"
-    if resolve_policy(policy, x.device, x.dtype) == "torch":
+    are ordinary largest keys and land on the tail)."""
+    if route("local_sort", x, policy) == "torch":
         return torch.sort(x, dim=-1).values
-    return bops.local_sort(x, block=block or bops.DEFAULT_BLOCK)
+    return bops.local_sort(x)
 
 
 def probe_ranks(keys: torch.Tensor, probes: torch.Tensor, *,
@@ -88,22 +105,22 @@ def probe_ranks(keys: torch.Tensor, probes: torch.Tensor, *,
     (..., M).
 
     `assume_sorted` says each row of keys is sorted ascending, as every
-    splitter pipeline's locally sorted shards are. The kernel route then
-    searches (K4s) and the torch route runs `searchsorted`; otherwise the
-    kernel route counts (K4, any key order) and the torch route sorts and
-    searches.
+    splitter pipeline's locally sorted shards are: K4s searches them, and
+    the torch route skips its sort. Otherwise K4 counts (any key order).
     """
     probes = probes.expand(keys.shape[:-1] + probes.shape[-1:])
     if probes.shape[-1] == 0:
         return torch.zeros(probes.shape, dtype=torch.int32,
                            device=keys.device)
-    if resolve_policy(policy, keys.device, keys.dtype,
-                      wide=assume_sorted) == "torch":
-        if assume_sorted:
-            return torch.searchsorted(keys.contiguous(), probes.contiguous(),
-                                      side="left").to(torch.int32)
+    spot, kernel = (("probe_ranks.sorted", hk.probe_rank_search)
+                    if assume_sorted else
+                    ("probe_ranks.unsorted", hk.probe_rank_count))
+    if route(spot, keys, policy) == "kernel":
+        return hops.probe_ranks(keys, probes, kernel)
+    if not assume_sorted:
         return href.probe_ranks_ref(keys, probes)
-    return hops.probe_ranks(keys, probes, assume_sorted=assume_sorted)
+    return torch.searchsorted(keys.contiguous(), probes.contiguous(),
+                              side="left").to(torch.int32)
 
 
 def gamma_mask(x: torch.Tensor, lo_key: torch.Tensor, hi_key: torch.Tensor,
@@ -141,7 +158,7 @@ def sample_compact(keys: torch.Tensor, lo_key: torch.Tensor,
     reference's: `gamma_mask`, the mask, and `torch.sort` of every masked
     row. Both give the same bits for any state whose keys are
     nondecreasing in i, as refine keeps them."""
-    if resolve_policy(policy, keys.device, keys.dtype, wide=True) == "torch":
+    if route("sample_compact", keys, policy) == "torch":
         if u.dim() == 2:
             u = u[:, None, :]
         mask = (gamma_mask(keys, lo_key, hi_key, satisfied)
@@ -169,8 +186,7 @@ def merge_runs(runs: torch.Tensor, *, policy: str = "auto",
     kernel path merges only the runs' valid prefixes, in ceil(log2 k) K5
     levels, instead of re-sorting (kernels.merge.ops.merge_sorted_runs)."""
     with trace.span("merge"):
-        if resolve_policy(policy, runs.device, runs.dtype,
-                          wide=True) == "torch":
+        if route("merge_runs", runs, policy) == "torch":
             merged = torch.sort(runs.reshape(runs.shape[:-2] + (-1,)),
                                 dim=-1).values
             return merged if out_len is None else mops.cap_to(merged,
@@ -184,24 +200,16 @@ def merge_ragged(buf: torch.Tensor, starts: torch.Tensor,
     """Sort each row of (..., cap) holding sorted runs at traced offsets
     (starts, counts (..., k)), the hi sentinel elsewhere. Bit-identical to
     `torch.sort` of each row; see kernels.merge.ops.merge_ragged_runs for
-    the slot and its full-sort branch: the bitonic kernels, or
-    `torch.sort` where the policy sends the rows' dtype there (64-bit
-    rows under "auto")."""
-    def full_sort(rows):
-        if resolve_policy(policy, rows.device, rows.dtype) == "torch":
-            return torch.sort(rows, dim=-1).values
-        return bops.local_sort(rows)
-
+    the slot and its full-sort branch, which is this policy's
+    `local_sort`."""
     with trace.span("merge"):
-        if resolve_policy(policy, buf.device, buf.dtype,
-                          wide=True) == "torch":
+        if route("merge_ragged", buf, policy) == "torch":
             return torch.sort(buf, dim=-1).values
         return mops.merge_ragged_runs(buf, starts, counts, slot=slot,
-                                      full_sort=full_sort)
+                                      full_sort=local_sort_fn(policy))
 
 
 # The reference's batched names (dispatch.py:67-179): the same functions.
-local_sort_batched_fn = local_sort_fn
 local_sort_batched = local_sort
 probe_ranks_batched = probe_ranks
 merge_runs_batched = merge_runs

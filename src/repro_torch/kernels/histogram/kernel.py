@@ -15,9 +15,8 @@ on an H100 is the latency of those dependent loads, ceil(log32 n) of them
 (5 for a 2,000,000-key row), not bytes or operations: a comparison search
 needs ceil(log2(n+1)) keys per probe, 0.2 MB for the main path's 8 rows x
 256 probes. Beside it, `probe_ranks_search_plain` runs the same schedule
-in torch ops over all pairs at once. K4s also searches int64 rows (the
-core's 64-bit keys: int64 tag packing, int64 and float64 user keys), with
-the same schedule and INT64_MAX as the hi sentinel; K4 takes int32 only.
+in torch ops over all pairs at once. Over int64 rows it runs the same
+schedule, INT64_MAX the hi sentinel.
 
 K4 (`probe_rank_count`) takes keys in any order, as the Pallas kernel's
 contract allows (its keys "need NOT be sorted"); only
@@ -72,10 +71,9 @@ def probe_ranks_plain(keys: torch.Tensor, probes: torch.Tensor,
     return acc
 
 
-def _check_args(keys: torch.Tensor, probes: torch.Tensor, what: str,
-                dtypes: tuple = (torch.int32,)):
-    cuda.check_rows(keys, what, dtypes)
-    cuda.check_rows(probes, what, dtypes)
+def _check_args(keys: torch.Tensor, probes: torch.Tensor, what: str):
+    cuda.check_rows(keys, what)
+    cuda.check_rows(probes, what)
     if probes.dtype != keys.dtype:
         raise TypeError(f"{what}: probes {probes.dtype} and keys "
                         f"{keys.dtype} differ")
@@ -132,10 +130,8 @@ def probe_ranks_search_plain(keys: torch.Tensor, probes: torch.Tensor
 def probe_rank_search(keys: torch.Tensor, probes: torch.Tensor
                       ) -> torch.Tensor:
     """K4s: (rows, n) int32 or int64 keys sorted ascending in each row,
-    (rows, M) probes of the same dtype -> (rows, M) int32 ranks; int64
-    keys launch the int64 instantiation, counted as
-    `probe_rank_search.i64`."""
-    _check_args(keys, probes, "probe_rank_search", cuda.KEYS_32_64)
+    (rows, M) probes of the same dtype -> (rows, M) int32 ranks."""
+    _check_args(keys, probes, "probe_rank_search")
     rows, n = keys.shape
     m = probes.shape[1]
     if n == 0 or not rows or not m:
@@ -143,10 +139,8 @@ def probe_rank_search(keys: torch.Tensor, probes: torch.Tensor
     if keys.device.type == "cpu":
         return probe_ranks_search_plain(keys, probes)
     out = torch.empty((rows, m), dtype=torch.int32, device=keys.device)
-    wide = keys.dtype == torch.int64
-    cuda.launch("probe_rank_search_i64" if wide else "probe_rank_search",
-                keys.data_ptr(), probes.data_ptr(), out.data_ptr(), rows, n,
-                m, counter="probe_rank_search.i64" if wide else None)
+    cuda.launch("probe_rank_search", keys.dtype, keys.data_ptr(),
+                probes.data_ptr(), out.data_ptr(), rows, n, m)
     return out
 
 
@@ -162,6 +156,6 @@ def probe_rank_count(keys: torch.Tensor, probes: torch.Tensor
         return probe_ranks_plain(keys, probes)
     out = torch.zeros((rows, m), dtype=torch.int32, device=keys.device)
     if rows and n and m:
-        cuda.launch("probe_rank_count", keys.data_ptr(), probes.data_ptr(),
-                    out.data_ptr(), rows, n, m)
+        cuda.launch("probe_rank_count", keys.dtype, keys.data_ptr(),
+                    probes.data_ptr(), out.data_ptr(), rows, n, m)
     return out

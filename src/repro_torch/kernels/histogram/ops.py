@@ -2,26 +2,25 @@
 
 `probe_ranks` flattens any leading axes to the kernels' rows, with
 per-row probes (the reference's batched form, ops.py:32) or one probe
-vector shared by every row (its unbatched form, ops.py:17). Over rows
-sorted ascending (`assume_sorted`) it searches with K4s; otherwise it
-counts with K4. Neither kernel needs the reference's tile padding
-(ops.py:38-41): K4s searches the row as it is and K4 masks the ragged
-tile edge itself.
+vector shared by every row (its unbatched form, ops.py:17), through the
+kernel it is given: K4 counts keys in any order (the default); K4s
+searches rows sorted ascending. Neither kernel needs the reference's tile
+padding (ops.py:38-41): K4s searches the row as it is and K4 masks the
+ragged tile edge itself.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.histogram.kernel import (probe_rank_count,
-                                                  probe_rank_search)
+from repro_torch.kernels.histogram.kernel import probe_rank_count
 
 
-def probe_ranks(keys: torch.Tensor, probes: torch.Tensor, *,
-                assume_sorted: bool = False) -> torch.Tensor:
-    """rank[..., m] = #{keys[...] < probes[..., m]}; keys sorted ascending
-    in each row when `assume_sorted`, in any order otherwise. keys
-    (..., n); probes (..., M) with the same leading axes, or (M,) shared
-    by every row -> (..., M)."""
+def probe_ranks(keys: torch.Tensor, probes: torch.Tensor,
+                kernel=probe_rank_count) -> torch.Tensor:
+    """rank[..., m] = #{keys[...] < probes[..., m]} by `kernel`
+    (`probe_rank_count`, or `probe_rank_search` over rows sorted
+    ascending): keys (..., n); probes (..., M) with the same leading axes,
+    or (M,) shared by every row -> (..., M)."""
     lead = keys.shape[:-1]
     if probes.dim() == 1:
         probes = probes.expand(lead + probes.shape)
@@ -29,7 +28,6 @@ def probe_ranks(keys: torch.Tensor, probes: torch.Tensor, *,
         raise ValueError(f"probe_ranks: probes {tuple(probes.shape)} do not "
                          f"match keys {tuple(keys.shape)}")
     m = probes.shape[-1]
-    kernel = probe_rank_search if assume_sorted else probe_rank_count
     ranks = kernel(keys.reshape(-1, keys.shape[-1]),
                    probes.reshape(-1, m).contiguous())
     return ranks.reshape(lead + (m,))
@@ -41,9 +39,7 @@ def probe_counts(keys: torch.Tensor, probes: torch.Tensor, *,
     histogram/ops.py:48): count[..., m] = #{probes[m-1] <= key <
     probes[m]}, the first bucket below probes[0] and the last at or above
     probes[-1]; keys (..., n), probes (M,) or (..., M) -> (..., M+1)
-    int32. The ranks go through `dispatch.probe_ranks(...,
-    assume_sorted=False)`, so on the card "auto" and "kernel" count with
-    K4."""
+    int32, from `dispatch.probe_ranks(..., assume_sorted=False)`."""
     from repro_torch.kernels import dispatch
 
     r = dispatch.probe_ranks(keys, probes, policy=policy,

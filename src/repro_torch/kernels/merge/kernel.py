@@ -71,8 +71,8 @@ def strided_compare_exchange(x: torch.Tensor, d: int,
         return strided_compare_exchange_plain(x, d, flip)
     out = torch.empty_like(x)
     if x.numel():
-        cuda.launch("strided_compare_exchange", x.data_ptr(), out.data_ptr(),
-                    x.numel(), d, int(flip))
+        cuda.launch("strided_compare_exchange", x.dtype, x.data_ptr(),
+                    out.data_ptr(), x.numel(), d, int(flip))
     return out
 
 
@@ -96,9 +96,7 @@ def merge_pass_hbm(x: torch.Tensor, run: int, *,
 
 
 def _merge_path_args(x: torch.Tensor, counts, out_len):
-    if x.dtype not in cuda.KEYS_32_64:
-        raise TypeError(f"merge_path_pairs: keys must be int32 or int64, "
-                        f"got {x.dtype}")
+    cuda.check_keys(x, "merge_path_pairs")
     if x.dim() != 3 or 0 in x.shape:
         raise ValueError(f"merge_path_pairs: expected non-empty (rows, k, "
                          f"stride), got {tuple(x.shape)}")
@@ -109,8 +107,6 @@ def _merge_path_args(x: torch.Tensor, counts, out_len):
                          f"{tuple(x.shape[:2])} on {x.device}, got "
                          f"{counts.dtype} {tuple(counts.shape)} on "
                          f"{counts.device}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"merge_path_pairs: unsupported device {x.device}")
     length = 2 * x.shape[2] if out_len is None else out_len
     if length < 1:
         raise ValueError(f"merge_path_pairs: out_len {out_len} must be >= 1")
@@ -154,13 +150,12 @@ def merge_path_pairs(x: torch.Tensor, counts: torch.Tensor | None = None,
                      out_len: int | None = None, *, _fill: bool = True):
     """K5: merge run 2j with run 2j+1 of each row of (rows, k, stride)
     sorted int32 or int64 runs -> (out (rows, ceil(k/2), L), merged
-    (rows, ceil(k/2)) int32); int64 keys launch the int64 instantiation,
-    counted as `merge_path_pairs.i64`. Run i's keys are its first
-    counts[:, i] slots (the whole stride when counts is None); an odd last
-    run merges with an empty one; L is out_len (default 2 * stride), and
-    each output run is its first L merged keys, then the hi sentinel;
-    merged counts them, min(count sum, L). So at k <= 2, with every slot past a count holding the
-    sentinel, the output is `cap_to(sort(row), out_len)`.
+    (rows, ceil(k/2)) int32). Run i's keys are its first counts[:, i]
+    slots (the whole stride when counts is None); an odd last run merges
+    with an empty one; L is out_len (default 2 * stride), and each output
+    run is its first L merged keys, then the hi sentinel; merged counts
+    them, min(count sum, L). So at k <= 2, with every slot past a count
+    holding the sentinel, the output is `cap_to(sort(row), out_len)`.
 
     `_fill=False` is merge_sorted_runs' inner levels alone: the kernel
     leaves each output run's slots past its merged count unwritten, since
@@ -176,10 +171,8 @@ def merge_path_pairs(x: torch.Tensor, counts: torch.Tensor | None = None,
                       device=x.device)
     merged = torch.empty((rows, (k + 1) // 2), dtype=torch.int32,
                          device=x.device)
-    wide = x.dtype == torch.int64
-    cuda.launch("merge_path_pairs_i64" if wide else "merge_path_pairs",
-                x.data_ptr(), None if counts is None else counts.data_ptr(),
+    cuda.launch("merge_path_pairs", x.dtype, x.data_ptr(),
+                None if counts is None else counts.data_ptr(),
                 out.data_ptr(), merged.data_ptr(), rows, k, stride, length,
-                int(_fill),
-                counter="merge_path_pairs.i64" if wide else None)
+                int(_fill))
     return out, merged

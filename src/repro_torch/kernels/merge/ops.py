@@ -26,7 +26,6 @@ import torch
 
 from repro_torch.core.common import hi_sentinel, pow2_ceil
 from repro_torch.kernels.bitonic_sort import kernel as BK
-from repro_torch.kernels.bitonic_sort import ops as bops
 from repro_torch.kernels.merge import kernel as MK
 from repro_torch.runtime.syncs import sync_site
 
@@ -125,8 +124,8 @@ ragged_branches: Counter = Counter()
 
 
 def merge_ragged_runs(buf: torch.Tensor, starts: torch.Tensor,
-                      counts: torch.Tensor, slot: int | None = None,
-                      full_sort=bops.local_sort) -> torch.Tensor:
+                      counts: torch.Tensor, slot: int | None = None, *,
+                      full_sort) -> torch.Tensor:
     """Sort each row of (..., cap) that holds k sorted runs at traced
     offsets (starts and counts (..., k); every other slot holds the hi
     sentinel): bit-identical to a full sort of the row (counterpart of
@@ -136,14 +135,12 @@ def merge_ragged_runs(buf: torch.Tensor, starts: torch.Tensor,
     `slot` is the merge tree's static per-run capacity, rounded up to a
     power of two (memory is k*slot a row); None is the whole row, which
     fits every run. A run past the slot (the splitting broke its eps
-    guarantee) sends the call to a full local sort of the buffers
-    (`full_sort`: the bitonic kernels by default; the dispatch passes
-    torch.sort for 64-bit rows under "auto"). The
+    guarantee) sends the call to `full_sort`, a full local sort of the
+    buffers (`dispatch.merge_ragged` passes its policy's local sort). The
     reference picks the branch with a lax.cond on the device; here the
     branch is read on the host, once per call for all rows, as the
-    splitter rounds' early exit is (core/splitters.py). Both branches
-    run the kernels on int32 rows; each call adds one to `ragged_branches`
-    under the branch it took."""
+    splitter rounds' early exit is (core/splitters.py). Each call adds one
+    to `ragged_branches` under the branch it took."""
     cap = buf.shape[-1]
     slot = pow2_ceil(cap if slot is None else min(slot, cap))
     if slot < cap:

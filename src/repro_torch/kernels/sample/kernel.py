@@ -18,8 +18,7 @@ positions and the sampled keys, 0.32 ms for a round-1 pass over (8, 2^25)
 float32 draws at 3.35 TB/s. Membership needs no key (in a sorted row the
 keys of interval i are the index range [first key > lo_key_i, first key
 >= hi_key_i)); a block of 8,192 positions builds its membership bitmap
-from those ranges and skips u outside them. Two launches a round, both
-counted under `sample_compact` (`sample_compact.i64` for int64 keys): the
+from those ranges and skips u outside them. Two launches a round: the
 count launch writes each tile's hits, the emit launch sums the counts
 before each tile and writes the kept keys, the counts and the sentinel
 tail. No host read.
@@ -45,14 +44,10 @@ DRAWS = (torch.float32, torch.float64)
 
 def _check_args(keys, lo_key, hi_key, satisfied, u, prob, cap):
     what = "sample_compact"
-    if keys.dtype not in cuda.KEYS_32_64:
-        raise TypeError(f"{what}: keys must be int32 or int64, got "
-                        f"{keys.dtype}")
+    cuda.check_keys(keys, what)
     if keys.dim() != 3:
         raise ValueError(f"{what}: expected (shards, batch, n) keys, got "
                          f"{tuple(keys.shape)}")
-    if keys.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {keys.device}")
     shards, batch, n = keys.shape
     if lo_key.dim() != 2 or lo_key.shape[0] != batch:
         raise ValueError(f"{what}: the state must be (batch, m) = ({batch}, "
@@ -123,8 +118,7 @@ def sample_compact(keys: torch.Tensor, lo_key: torch.Tensor,
     (S, B) int32, overflow (S, B) int32): the first min(cap, n) keys with
     lo_key_i < key < hi_key_i for an unsatisfied i and u < prob, in
     position order, then the hi sentinel; sampled their count cut at cap,
-    overflow the rest. int64 keys launch the int64 instantiations, counted
-    as `sample_compact.i64`."""
+    overflow the rest."""
     _check_args(keys, lo_key, hi_key, satisfied, u, prob, cap)
     if keys.device.type == "cpu":
         return sample_compact_plain(keys, lo_key, hi_key, satisfied, u,
@@ -142,16 +136,12 @@ def sample_compact(keys: torch.Tensor, lo_key: torch.Tensor,
     rows, m = shards * batch, lo_key.shape[1]
     tile_counts = torch.empty((rows, -(-n // TILE)), dtype=torch.int32,
                               device=dev)
-    wide = keys.dtype == torch.int64
-    suffix = "_i64" if wide else ""
-    counter = "sample_compact.i64" if wide else "sample_compact"
-    common = (keys.data_ptr(), lo_key.data_ptr(), hi_key.data_ptr(),
-              satisfied.data_ptr(), u.data_ptr(),
+    common = (keys.dtype, keys.data_ptr(), lo_key.data_ptr(),
+              hi_key.data_ptr(), satisfied.data_ptr(), u.data_ptr(),
               int(u.dtype == torch.float64), int(u.dim() == 2),
               prob.data_ptr(), tile_counts.data_ptr())
-    cuda.launch("sample_compact_count" + suffix, *common, rows, batch, n, m,
-                counter=counter)
-    cuda.launch("sample_compact_emit" + suffix, *common, vals.data_ptr(),
+    cuda.launch("sample_compact_count", *common, rows, batch, n, m)
+    cuda.launch("sample_compact_emit", *common, vals.data_ptr(),
                 sampled.data_ptr(), overflow.data_ptr(), rows, batch, n, m,
-                out_len, cap, counter=counter)
+                out_len, cap)
     return vals, sampled, overflow

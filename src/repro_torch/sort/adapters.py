@@ -21,8 +21,8 @@ so under `jax.enable_x64(True)`; with x64 off the reference raises there
 instead. Auto-detected duplicates are tagged only when the packing fits
 int32, and sort untagged otherwise, as the reference does with x64 off:
 untagged keys stay on the kernel route, where int64 packing would take
-the local sorts to torch.sort (kernels.dispatch: K1-K3 take int32 only;
-K4s and K5 search and merge int64 keys too).
+the local sorts to torch.sort (`kernels.dispatch.ROUTES` says which
+kernel takes which key width).
 
 Inside the plan every key is in the encoded domain (int32 for 32-bit keys,
 for uint32 the flipped one; int64 for 64-bit keys), so `key_min`/`key_max`

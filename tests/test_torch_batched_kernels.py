@@ -35,6 +35,7 @@ from repro_torch.kernels.histogram import kernel as thk
 from repro_torch.kernels.histogram import ops as thops
 from repro_torch.kernels.merge import ops as tmops
 from repro_torch.sort.grouping import group_by_length
+from torch_parity import auto_on_card  # noqa: F401
 
 INT_MAX = np.iinfo(np.int32).max
 KINDS = ["wide", "dups", "sentinel_tail"]
@@ -175,16 +176,13 @@ def test_merge_runs_batched_matches_reference(rng, port, ref, k, r):
     _eq(td.merge_runs_batched(torch.from_numpy(runs), policy=port), want)
 
 
-def test_auto_policy_row_ceiling(monkeypatch):
+def test_auto_policy_row_ceiling(monkeypatch, auto_on_card):
     """AUTO_SORT_MAX_N applies to the row length, as in the reference:
     with "auto" resolving to the kernels (as on the card), a longer row
     goes to torch.sort and a shorter one to the kernels."""
-    def kernels_called(x, block):
+    def kernels_called(x):
         raise AssertionError("kernel path")
 
-    monkeypatch.setattr(td, "resolve_policy",
-                        lambda policy, device, dtype=None: "kernel"
-                        if policy == "auto" else policy)
     monkeypatch.setattr(td.bops, "local_sort", kernels_called)
     long_rows = torch.zeros((2, td.AUTO_SORT_MAX_N + 1), dtype=torch.int32)
     assert td.local_sort_batched(long_rows).shape == long_rows.shape

@@ -5,6 +5,8 @@ Every pairing must give the same bits: local sorts (sentinel tails and
 duplicates included), probe ranks with and without `assume_sorted`, and
 the post-exchange k-way merge. The port's entry points take rows; the
 reference's take one array, so each row is held to one reference call.
+Also the port's own rule, written out: where each policy sends each hot
+spot by key width, device and row length, and the kernels' counters.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +14,9 @@ import pytest
 import torch
 
 from repro.kernels import dispatch as rd
+from repro_torch.kernels import cuda
 from repro_torch.kernels import dispatch as td
+from torch_parity import auto_on_card  # noqa: F401
 
 PAIRS = [("kernel", "pallas"), ("torch", "xla")]
 INT_MAX = np.iinfo(np.int32).max
@@ -33,6 +37,104 @@ def test_policy_names_and_resolution():
     assert td.resolve_policy("kernel", "cpu") == "kernel"
     with pytest.raises(ValueError):
         td.resolve_policy("pallas", "cpu")
+
+
+#: The route of each hot spot, key dtype, device and policy. Each row is
+#: (hot spot, dtype): then the route on a CPU tensor under "auto",
+#: "kernel" and "torch", then on a CUDA tensor under the same three. The
+#: ragged merge's full-sort branch is `merge_ragged.full_sort`.
+ROUTE_ROWS = {
+    ("local_sort", "int32"): ("torch", "kernel", "torch",
+                              "kernel", "kernel", "torch"),
+    ("local_sort", "int64"): ("torch", "kernel", "torch",
+                              "torch", "kernel", "torch"),
+    ("probe_ranks.sorted", "int32"): ("torch", "kernel", "torch",
+                                      "kernel", "kernel", "torch"),
+    ("probe_ranks.sorted", "int64"): ("torch", "kernel", "torch",
+                                      "kernel", "kernel", "torch"),
+    ("probe_ranks.unsorted", "int32"): ("torch", "kernel", "torch",
+                                        "kernel", "kernel", "torch"),
+    ("probe_ranks.unsorted", "int64"): ("torch", "kernel", "torch",
+                                        "torch", "kernel", "torch"),
+    ("sample_compact", "int32"): ("torch", "kernel", "torch",
+                                  "kernel", "kernel", "torch"),
+    ("sample_compact", "int64"): ("torch", "kernel", "torch",
+                                  "kernel", "kernel", "torch"),
+    ("merge_runs", "int32"): ("torch", "kernel", "torch",
+                              "kernel", "kernel", "torch"),
+    ("merge_runs", "int64"): ("torch", "kernel", "torch",
+                              "kernel", "kernel", "torch"),
+    ("merge_ragged", "int32"): ("torch", "kernel", "torch",
+                                "kernel", "kernel", "torch"),
+    ("merge_ragged", "int64"): ("torch", "kernel", "torch",
+                                "kernel", "kernel", "torch"),
+    ("merge_ragged.full_sort", "int32"): ("torch", "kernel", "torch",
+                                          "kernel", "kernel", "torch"),
+    ("merge_ragged.full_sort", "int64"): ("torch", "kernel", "torch",
+                                          "torch", "kernel", "torch"),
+}
+COLUMNS = [(d, p) for d in ("cpu", "cuda")
+           for p in ("auto", "kernel", "torch")]
+#: The row ceiling: (hot spot, device, policy, row length, route), int32.
+CEILING_ROWS = [
+    ("local_sort", "cuda", "auto", 1 << 22, "kernel"),
+    ("local_sort", "cuda", "auto", (1 << 22) + 1, "torch"),
+    ("local_sort", "cuda", "kernel", (1 << 22) + 1, "kernel"),
+    ("merge_ragged.full_sort", "cuda", "auto", 1 << 22, "kernel"),
+    ("merge_ragged.full_sort", "cuda", "auto", (1 << 22) + 1, "torch"),
+    ("merge_ragged.full_sort", "cuda", "kernel", (1 << 22) + 1, "kernel"),
+    ("merge_ragged", "cuda", "auto", (1 << 22) + 1, "kernel"),
+]
+
+
+def _full_sort_route(monkeypatch, rows, policy):
+    """The route `dispatch.merge_ragged`'s full-sort branch takes on rows
+    ("torch" where the whole merge is `torch.sort`)."""
+    branch = {}
+    monkeypatch.setattr(td.mops, "merge_ragged_runs",
+                        lambda *args, full_sort, **kw: branch.setdefault(
+                            "sort", full_sort))
+    monkeypatch.setattr(td.bops, "local_sort", lambda x: "kernel")
+    td.merge_ragged(rows, None, None, policy=policy)
+    got = branch["sort"](rows) if branch else "torch"
+    return got if isinstance(got, str) else "torch"
+
+
+@pytest.mark.parametrize(
+    "spot,dtype,device,policy,n,want",
+    [(spot, dtype, device, policy, 8, want)
+     for (spot, dtype), wants in ROUTE_ROWS.items()
+     for (device, policy), want in zip(COLUMNS, wants)]
+    + [(spot, "int32", device, policy, n, want)
+       for spot, device, policy, n, want in CEILING_ROWS])
+def test_routing_table(request, monkeypatch, spot, dtype, device, policy, n,
+                       want):
+    """`dispatch.route` (and the ragged full-sort branch) against the rule
+    written out above; CUDA rows resolve as on the card (`auto_on_card`),
+    on row-less CPU tensors."""
+    if device == "cuda":
+        request.getfixturevalue("auto_on_card")
+    rows = torch.zeros((0, n), dtype=getattr(torch, dtype))
+    if spot == "merge_ragged.full_sort":
+        got = _full_sort_route(monkeypatch, rows, policy)
+    else:
+        got = td.route(spot, rows, policy)
+    assert got == want
+
+
+def test_kernel_counters_are_the_recorded_names():
+    """The launch counters the benchmark and the card tests read, by name;
+    the `_i64` launchers are derived, not written out."""
+    assert cuda.WIDE == ("probe_rank_search.i64", "merge_path_pairs.i64",
+                         "sample_compact.i64")
+    assert cuda.COUNTERS == (
+        "bitonic_sort_blocks", "bitonic_merge_smem.reverse",
+        "bitonic_merge_smem.tail", "strided_compare_exchange",
+        "probe_rank_count", "probe_rank_search", "merge_path_pairs",
+        "sample_compact", "probe_rank_search.i64", "merge_path_pairs.i64",
+        "sample_compact.i64")
+    assert cuda.OFF_MAIN_PATH == ("probe_rank_count",)
+    assert not any(name.endswith("_i64") for name in cuda.SIGNATURES)
 
 
 @pytest.mark.parametrize("port,ref", PAIRS)

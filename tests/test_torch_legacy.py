@@ -220,7 +220,7 @@ def test_probe_counts_routes_to_the_counting_kernel(monkeypatch):
 
     seen = []
     real = hk.probe_rank_count
-    monkeypatch.setattr(thops, "probe_rank_count",
+    monkeypatch.setattr(hk, "probe_rank_count",
                         lambda k, p: seen.append(k.shape) or real(k, p))
     keys = torch.from_numpy(np.random.default_rng(0).permutation(
         4096).astype(np.int32))

@@ -6,6 +6,8 @@ with the reference under `jax.enable_x64(True)` (the port packs int64
 where the reference does so under x64); and the kernel policy on 64-bit
 keys. The reference's draws are injected.
 """
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -250,20 +252,25 @@ def test_float64_batched_matches_reference():
 # ------------------------------------------------------------- policy
 def test_auto_policy_sends_64_bit_keys_to_torch():
     """Under "auto" on the card a 64-bit local sort (and count) takes the
-    torch route; 64-bit searches and merges (`wide`: K4s and K5) take
-    the kernels' int64 instantiations."""
-    assert dispatch.resolve_policy("auto", "cuda", torch.int64) == "torch"
-    assert dispatch.resolve_policy("auto", "cuda", torch.float64) == "torch"
-    assert dispatch.resolve_policy("auto", "cuda", torch.int32) == "kernel"
-    assert dispatch.resolve_policy("auto", "cuda") == "kernel"
-    assert dispatch.resolve_policy("auto", "cpu", torch.int32) == "torch"
-    assert dispatch.resolve_policy("kernel", "cuda", torch.int64) == "kernel"
-    assert dispatch.resolve_policy("auto", "cuda", torch.int64,
-                                   wide=True) == "kernel"
-    assert dispatch.resolve_policy("auto", "cpu", torch.int64,
-                                   wide=True) == "torch"
-    assert dispatch.resolve_policy("torch", "cuda", torch.int64,
-                                   wide=True) == "torch"
+    torch route; 64-bit searches, samples and merges (K4s, K6 and K5)
+    take the kernels' int64 instantiations."""
+    def keys(dtype, device="cuda"):
+        """What `route` reads of a key tensor, on a device the CPU lacks."""
+        return SimpleNamespace(dtype=dtype, device=torch.device(device),
+                               shape=(2, 8))
+
+    route = dispatch.route
+    assert route("local_sort", keys(torch.int64)) == "torch"
+    assert route("local_sort", keys(torch.float64)) == "torch"
+    assert route("probe_ranks.unsorted", keys(torch.int64)) == "torch"
+    assert route("local_sort", keys(torch.int32)) == "kernel"
+    assert route("local_sort", keys(torch.int32, "cpu")) == "torch"
+    assert route("local_sort", keys(torch.int64), "kernel") == "kernel"
+    for spot in ("probe_ranks.sorted", "sample_compact", "merge_runs",
+                 "merge_ragged"):
+        assert route(spot, keys(torch.int64)) == "kernel"
+        assert route(spot, keys(torch.int64, "cpu")) == "torch"
+        assert route(spot, keys(torch.int64), "torch") == "torch"
 
 
 def test_explicit_kernel_policy_on_int64_raises():

@@ -25,6 +25,7 @@ from repro.kernels.merge import ops as rmops
 from repro_torch.core import exchange as tex
 from repro_torch.data import distributions as tdist
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.bitonic_sort import ops as tbops
 from repro_torch.kernels.merge import ops as tmops
 from repro_torch.parallel.comm import Comm
 from torch_parity import (
@@ -59,7 +60,8 @@ def test_merge_ragged_matches_pallas(rng, slot):
     tmops.ragged_branches.clear()
     got = tmops.merge_ragged_runs(torch.from_numpy(buf),
                                   torch.from_numpy(starts),
-                                  torch.from_numpy(counts), slot=slot)
+                                  torch.from_numpy(counts), slot=slot,
+                                  full_sort=tbops.local_sort)
     branch = "merge_tree" if slot == 128 else "full_sort"
     assert dict(tmops.ragged_branches) == {branch: 1}
     for r in range(2):

@@ -26,6 +26,7 @@ from repro_torch.core.common import HSSConfig, hi_sentinel
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.sample import kernel as tsk
 from repro_torch.parallel.comm import Comm
+from torch_parity import auto_on_card  # noqa: F401
 
 P = 4
 DTYPES = {"int32": torch.int32, "int64": torch.int64}
@@ -208,22 +209,12 @@ def _batched(rows, policy, cfg):
         cfg=dataclasses.replace(cfg, kernel_policy=policy))
 
 
-def on_card(monkeypatch):
-    """"auto" resolved as on the card, on CPU tensors: K6, K4s and K5 run
-    their plain versions (64-bit keys too), 64-bit local sorts torch.sort."""
-    resolve = dispatch.resolve_policy
-    monkeypatch.setattr(
-        dispatch, "resolve_policy",
-        lambda policy, device, dtype=None, *, wide=False: resolve(
-            policy, "cuda", dtype, wide=wide))
-
-
 @pytest.mark.parametrize("dtype,policy", [
     ("int32", "kernel"), ("int32", "auto"), ("int64", "auto")])
 @pytest.mark.parametrize("cfg", [HSSConfig(), HSSConfig(eps=0.01),
                                  HSSConfig(sample_per_shard=8)],
                          ids=["default", "tight", "tiny_sample"])
-def test_splitter_search_on_the_kernels_equals_torch(rng, monkeypatch, cfg,
+def test_splitter_search_on_the_kernels_equals_torch(rng, request, cfg,
                                                      dtype, policy):
     """hss_splitters_batched over 3 requests, under "kernel" and under
     "auto" as it resolves on the card (the route of 64-bit keys, whose
@@ -232,7 +223,7 @@ def test_splitter_search_on_the_kernels_equals_torch(rng, monkeypatch, cfg,
     rows = sorted_rows(rng, (8, 3, 2048), DTYPES[dtype])
     want = _batched(rows, "torch", cfg)
     if policy == "auto":
-        on_card(monkeypatch)
+        request.getfixturevalue("auto_on_card")
     got = _batched(rows, policy, cfg)
     for g, w in zip(got[:2], want[:2]):
         assert torch.equal(g, w)

@@ -25,9 +25,9 @@ from repro_torch.core import exchange as tex
 from repro_torch.core import splitters as tsp
 from repro_torch.core.hss import hss_sort_sharded
 from repro_torch.parallel.comm import Comm
-from torch_parity import (
-    assert_bits_equal, assert_stats_equal, auto_mesh, port_exchange_config,
-    port_hss_config, reference_uniform)
+from torch_parity import (  # noqa: F401 (auto_on_card, a fixture)
+    assert_bits_equal, assert_stats_equal, auto_mesh, auto_on_card,
+    port_exchange_config, port_hss_config, reference_uniform)
 
 # repro.core re-exports a function named `exchange`, which shadows the
 # submodule as a package attribute
@@ -82,15 +82,14 @@ def test_kernel_policy_matches_reference():
 
 
 @pytest.mark.parametrize("name", ["full_int32", "repeated_int64"])
-def test_tagged_int64_sort_on_the_card_route_matches_reference(monkeypatch,
-                                                               name):
+def test_tagged_int64_sort_on_the_card_route_matches_reference(
+        monkeypatch, auto_on_card, name):
     """tag=True on keys whose pack is int64, with "auto" resolved as on the
     card ("kernel" refuses 64-bit local sorts, which sort on torch.sort):
     each splitter round's sample runs K6's int64 plain version, the
     searches and merges K4s's and K5's. Bit for bit against the
     reference's sort under x64 with its draws injected: shards, counts,
     splitter keys and ranks, every SplitterStats field."""
-    from repro_torch.kernels import dispatch
     from repro_torch.kernels.sample import kernel as tsk
     from torch_parity import assert_sort_outputs_equal, sort_both
 
@@ -100,16 +99,13 @@ def test_tagged_int64_sort_on_the_card_route_matches_reference(monkeypatch,
         x = rng.integers(-2 ** 31, 2 ** 31 - 1, n).astype(np.int32)
     else:
         x = rng.integers(0, 2 ** 40, 300)[rng.integers(0, 300, n)]
-    resolve, plain = dispatch.resolve_policy, tsk.sample_compact_plain
+    plain = tsk.sample_compact_plain
     calls = []
 
     def counted(keys, *args):
         calls.append(keys.dtype)
         return plain(keys, *args)
 
-    monkeypatch.setattr(dispatch, "resolve_policy",
-                        lambda policy, device, dtype=None, *, wide=False:
-                        resolve(policy, "cuda", dtype, wide=wide))
     monkeypatch.setattr(tsk, "sample_compact_plain", counted)
     got, want = sort_both(x, 8, x64=True, tag=True)
     assert_sort_outputs_equal(got, want, x64=True)

@@ -24,6 +24,7 @@ from repro_torch.kernels.merge import kernel as tmk
 from repro_torch.kernels.merge import ops as tmops
 from repro_torch.sort.adapters import make_plan
 from repro_torch.sort.spec import SortSpec
+from torch_parity import auto_on_card  # noqa: F401
 
 I64_MAX = torch.iinfo(torch.int64).max
 P = 8
@@ -159,17 +160,13 @@ def test_tagged_sort_under_the_kernel_policy_equals_numpy(rng, door):
 
 
 @pytest.fixture
-def card_route(monkeypatch):
-    """"auto" as it resolves on the card, on CPU tensors: the kernels'
-    plain versions where the card would launch a kernel, torch.sort for
-    the 64-bit local sorts. Returns the calls of the int64 plain K4s and
-    K5."""
+def card_route(auto_on_card, monkeypatch):
+    """"auto" as it resolves on the card, on CPU tensors (`auto_on_card`):
+    the kernels' plain versions where the card would launch a kernel,
+    torch.sort for the 64-bit local sorts. Returns the calls of the int64
+    plain K4s and K5."""
     calls = {"search": 0, "merge": 0}
-    resolve = dispatch.resolve_policy
     search, merge = thk.probe_ranks_search_plain, tmk.merge_path_pairs_plain
-
-    def on_card(policy, device, dtype=None, *, wide=False):
-        return resolve(policy, "cuda", dtype, wide=wide)
 
     def counted(name, fn):
         def run(x, *args, **kw):
@@ -177,7 +174,6 @@ def card_route(monkeypatch):
             return fn(x, *args, **kw)
         return run
 
-    monkeypatch.setattr(dispatch, "resolve_policy", on_card)
     monkeypatch.setattr(thk, "probe_ranks_search_plain",
                         counted("search", search))
     monkeypatch.setattr(tmk, "merge_path_pairs_plain",

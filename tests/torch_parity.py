@@ -40,6 +40,10 @@ process on the CPU and exchange only NumPy arrays:
     arrays leaf by leaf;
   * `torch_one_thread`: a fixture that runs a test on one torch thread
     (the training tests' many small ops under several workers);
+  * `auto_on_card`: a fixture under which "auto" resolves as on a CUDA
+    device while the tensors stay on the CPU: each hot spot takes the
+    route `repro_torch.kernels.dispatch.ROUTES` gives it on the card, the
+    kernels' plain versions standing in for the kernels;
   * `assert_bits_equal` / `assert_sort_outputs_equal` /
     `assert_batched_outputs_equal` / `assert_recovery_equal` /
     `assert_audit_equal` / `assert_semisort_equal`:
@@ -88,6 +92,15 @@ def torch_one_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+@pytest.fixture
+def auto_on_card(monkeypatch):
+    from repro_torch.kernels import dispatch
+
+    resolve = dispatch.resolve_policy
+    monkeypatch.setattr(dispatch, "resolve_policy",
+                        lambda policy, device: resolve(policy, "cuda"))
 
 
 def auto_mesh(p: int):
