@@ -10,9 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the kernels are built from the checkout's sources, nothing else) and
      prints ptxas's registers, stack and spills for each instantiation of
      K1 (one per block size) and of K2 (one per segment size), and its
-     registers, shared memory and spills for K4s's and K5's int32 and
-     int64 instantiations, failing on a missing size or instantiation, a
-     spill or more than 64 registers;
+     registers, shared memory and spills for K4s's, K5's, K6's and K7's
+     int32 and int64 instantiations, failing on a missing size or
+     instantiation, a spill or more than 64 registers;
   3. kernels: K1 at every power-of-two block 2..1,024 on 5 rows (random,
      all INT_MAX, duplicates, INT_MIN among INT_MAX and small keys,
      random) and on a row read at a one-key offset, and K2 at every
@@ -43,7 +43,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      SKEW2 keys recorded as they ran, round 1 (nothing satisfied) and
      round 2, each against its plain version and the torch route (the
      reference's masked sort, `library_ms`), and the splitter keys, ranks
-     and SplitterStats of those sorts equal to the "torch" policy's;
+     and SplitterStats of those sorts equal to the "torch" policy's; K7,
+     which writes the dense exchange's send buffer (the reference cuts
+     and pads the slices in XLA), is row 11 (int32 and int64): the
+     benchmark cells' send, 8 sorted rows of 2^25 keys cut at row 0's
+     octiles into slices of at most 12,582,912 keys, against its plain
+     version, which is the torch route (the int64 index gather, timed
+     again through the route as `library_ms`), one launch a call;
   4. slice 1: `repro_torch.sort.sort` with 8 shards, eps 0.05 and the
      default "auto" policy on WEAK_SCALING (16,000,000 UNIF int32 keys,
      repro/configs/paper_sort.py:18 at p = 8), 16,000,000 standard-normal
@@ -277,7 +283,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      five examples/torch_*.py at their defaults, each a subprocess
      exiting 0. Paths (b)-(d) launch no kernel (`PATH_KERNELS`);
   last (phase 12, run after 13-28): every kernel (K1, K2 by role, K3,
-     K4s, K5) against its plain version,
+     K4s, K5, K6, K7) against its plain version,
      exactly, at every shape and parameter the main paths of phases 4-5,
      7-10, 13-17, 19-22, 25 and 26 called it with (recorded as they ran,
      `kernel_shapes`):
@@ -287,9 +293,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      (rows, n) checked in `shapes_checked`.
 
 Each path's kernels are gated (`check_path_launches`): every kernel it
-launches by the code, none other. The HSS paths launch K1-K3, K4s and
-K5 (every post-exchange merge); the
-sample sorts and top_k rank nothing, so they launch no K4s; the counting
+launches by the code, none other. The HSS paths launch K1-K3, K4s, K6,
+K7 (every dense exchange's send) and K5 (every post-exchange merge); the
+allgather and ragged exchanges send no dense buffer, so no K7; the
+sample sorts and top_k rank nothing, so they launch no K4s; top_k
+exchanges nothing, so no K7; the counting
 dispatch launches no kernel (`PATH_KERNELS`); only `probe_counts`
 (phase 25) launches the counting K4, whose operations per pair are read
 from the built library's SASS (`k4_sass_line`). A kernel row faster than
@@ -346,22 +354,26 @@ BASELINES = ("sample_random", "sample_regular", "ams", "multistage")
 #: The kernels each path of phase 10 launches, from the code: every local
 #: sort (the shards', the sample buffers', the gathered probes') runs K1,
 #: K2 in both roles and K3 at these sizes; every post-exchange merge runs
-#: K5 (MERGING); ams, multistage and HSS rank a
-#: sample with K4s; the sample sorts rank nothing. Only probe_counts
-#: counts (K4).
+#: K5 (MERGING); every dense exchange (dense, and dense_spill's dense
+#: channel) writes its send buffer with K7 (SENDING); ams, multistage
+#: and HSS rank a sample with K4s; the sample sorts rank nothing. Only
+#: probe_counts counts (K4).
 SORTING = ("bitonic_sort_blocks", "bitonic_merge_smem.reverse",
            "bitonic_merge_smem.tail", "strided_compare_exchange")
 MERGING = SORTING + ("merge_path_pairs",)
-RANKING = MERGING + ("probe_rank_search",)
+SENDING = MERGING + ("dense_send",)
+RANKING = SENDING + ("probe_rank_search",)
 #: HSS's splitter rounds also draw each round's sample with K6, where the
 #: reference sorts each masked row; ams ranks a sample of its own.
 HSS = RANKING + ("sample_compact",)
+#: HSS over an exact exchange (allgather, ragged): no dense send buffer.
+HSS_EXACT = tuple(k for k in HSS if k != "dense_send")
 #: The 64-bit route's (int64 tag packing, float64 keys): torch.sort local
-#: sorts, the int64 K4s, K5 and K6 (`repro_torch.kernels.cuda.WIDE`).
+#: sorts, the int64 K4s, K5, K6 and K7 (`repro_torch.kernels.cuda.WIDE`).
 WIDE = ("probe_rank_search.i64", "merge_path_pairs.i64",
-        "sample_compact.i64")
-PATH_KERNELS = {"sample_random": MERGING, "sample_regular": MERGING,
-                "ams": RANKING, "multistage": HSS, "ragged": HSS,
+        "sample_compact.i64", "dense_send.i64")
+PATH_KERNELS = {"sample_random": SENDING, "sample_regular": SENDING,
+                "ams": RANKING, "multistage": HSS, "ragged": HSS_EXACT,
                 # PRESORTED shards outgrow the ragged slot: a full local
                 # sort of each buffer, no merge
                 "ragged_presorted": SORTING + ("probe_rank_search",
@@ -379,8 +391,8 @@ PATH_KERNELS = {"sample_random": MERGING, "sample_regular": MERGING,
                 # algorithm's front door does; probe_counts counts keys in
                 # any order (K4, its one path); merge_flat_runs of 2^21-key
                 # runs merges by K5 alone
-                "legacy:hss": HSS, "legacy:sample_random": MERGING,
-                "legacy:sample_regular": MERGING, "legacy:ams": RANKING,
+                "legacy:hss": HSS, "legacy:sample_random": SENDING,
+                "legacy:sample_regular": SENDING, "legacy:ams": RANKING,
                 "legacy:multistage": HSS,
                 "probe_counts": ("probe_rank_count",),
                 "merge_flat_runs": ("merge_path_pairs",)}
@@ -389,7 +401,8 @@ PORT_KERNELS = ("bitonic_sort_warp_kernel", "bitonic_merge_smem_kernel",
                 "bitonic_merge_warp_kernel", "strided_ce_kernel",
                 "strided_ce_vec4_kernel", "probe_rank_count_kernel",
                 "probe_rank_search_kernel", "merge_path_pairs_kernel",
-                "sample_count_kernel", "sample_emit_kernel")
+                "sample_count_kernel", "sample_emit_kernel",
+                "dense_send_kernel")
 
 
 def fail(msg: str):
@@ -609,8 +622,8 @@ def ptxas_line(card):
 
 
 def ptxas_wide_line(card):
-    """ptxas's registers, shared memory and spill bytes of K4s's, K5's and
-    K6's (count and emit) int32 and int64 instantiations
+    """ptxas's registers, shared memory and spill bytes of K4s's, K5's,
+    K6's (count and emit) and K7's int32 and int64 instantiations
     (`analysis.budgets.ptxas_report`), one line; fails on a missing
     instantiation, a spill or more than 64 registers (K5's and K6's
     __launch_bounds__ of 4 blocks of 256 threads)."""
@@ -622,16 +635,16 @@ def ptxas_wide_line(card):
              for (entry, config), got in sorted(report.items())
              if entry in ("probe_rank_search_kernel",
                           "merge_path_pairs_kernel", "sample_count_kernel",
-                          "sample_emit_kernel")}
-    emit({"measure": "ptxas_k4s_k5_k6", "instantiations": found,
+                          "sample_emit_kernel", "dense_send_kernel")}
+    emit({"measure": "ptxas_k4s_k5_k6_k7", "instantiations": found,
           "card": card})
-    if len(found) != 8:
-        fail(f"ptxas report lacks K4s/K5/K6 instantiations: found "
+    if len(found) != 10:
+        fail(f"ptxas report lacks K4s/K5/K6/K7 instantiations: found "
              f"{sorted(found)}")
     bad = [k for k, e in found.items()
            if e["spill_bytes"] or e["registers"] > MAX_REGISTERS]
     if bad:
-        fail(f"K4s/K5/K6 instantiations spill or exceed {MAX_REGISTERS} "
+        fail(f"K4s/K5/K6/K7 instantiations spill or exceed {MAX_REGISTERS} "
              f"registers: {bad}")
 
 
@@ -879,6 +892,84 @@ def sample_compact_rows(torch, row, check, card):
         del calls, timed, first, second
 
 
+def send_inputs(torch, keys, gen, shape):
+    """The dense exchange's send at one shape: (p, B, n) rows sorted with 0
+    to 3/8 of each in hi sentinels past n_valid, cut by p-1 splitters a
+    request drawn from its rows (`destination_slices`) -> (rows, starts,
+    counts); the counts still uncut by any pair capacity."""
+    from repro_torch.core.exchange import destination_slices
+
+    p, batch, n = shape
+    hi = torch.iinfo(keys(1).dtype).max
+    x = keys(p, batch, n)
+    tails = torch.randint(0, 3 * n // 8 + 1, (p, batch), generator=gen,
+                          device=x.device, dtype=torch.int32)
+    x = torch.where(torch.arange(n, device=x.device) >= n - tails[..., None],
+                    hi, x)
+    x = torch.sort(x, dim=-1).values
+    flat = x.transpose(0, 1).reshape(batch, -1)
+    pick = torch.randint(0, flat.shape[1], (batch, p - 1), generator=gen,
+                         device=x.device)
+    spl = torch.sort(torch.gather(flat, 1, pick), dim=-1).values
+    starts, counts = destination_slices(x, spl, n - tails)
+    return x, starts, counts
+
+
+def dense_send_rows(torch, row, check, gen):
+    """K7's rows (11; it replaces no Pallas site: the reference cuts and
+    pads the slices in XLA), int32 and int64, at the benchmark cells'
+    send: 8 sorted rows of 2^25 keys (int64: the tagged cell's 35-bit
+    packs of SKEW2 keys over 28 tag bits) cut by row 0's octiles into
+    slices of about 2^22 keys, each cut at pair_cap (12,582,912). Against
+    its plain version, which is the torch route (the int64 index gather,
+    timed again through the route as `library_ms`), one launch a call.
+    Bound: bytes, one read of each key sent and one write of the
+    (8, 8, 1, cap) buffer."""
+    from repro_torch.core.exchange import ExchangeConfig, destination_slices
+    from repro_torch.kernels import cuda, dispatch
+    from repro_torch.kernels.send import kernel as SEND
+
+    cap = ExchangeConfig().pair_cap(MERGE_N_LOCAL, P)
+    for wide in (False, True):
+        if wide:
+            dtype = torch.int64
+            x = (torch.randint(0, 101, (P, 1, MERGE_N_LOCAL), generator=gen,
+                               device="cuda", dtype=dtype) << 28) | \
+                torch.randint(0, 1 << 28, (P, 1, MERGE_N_LOCAL),
+                              generator=gen, device="cuda", dtype=dtype)
+        else:
+            dtype = torch.int32
+            x = torch.randint(-2 ** 31, 2 ** 31 - 1, (P, 1, MERGE_N_LOCAL),
+                              generator=gen, device="cuda", dtype=dtype)
+        x = torch.sort(x, dim=-1).values
+        # row 0's octiles: slices of about 2^22 keys in every row
+        starts, counts = destination_slices(
+            x, x[0, 0, torch.arange(1, P, device="cuda") * (MERGE_N_LOCAL
+                                                             // P)])
+        args = (x, starts, torch.clamp(counts, max=cap), cap)
+        name = "dense_send" + ("[int64]" if wide else "")
+        counter = "dense_send" + (".i64" if wide else "")
+        before = cuda.launches[counter]
+        got = SEND.dense_send(*args)
+        if cuda.launches[counter] != before + 1:
+            fail(f"{name}: {cuda.launches[counter] - before} launches a "
+                 "call, not 1")
+        err = check(name, got, SEND.dense_send_plain(*args))
+        del got
+        sent = int(args[2].sum())
+        key_bytes = x.element_size()
+        row(11, name, "K7", counter, "sort[skew2_tag]" if wide else "sort",
+            "none (the dense exchange's send buffer: the reference cuts "
+            "and pads the slices in XLA)", err,
+            lambda a=args: SEND.dense_send(*a),
+            lambda a=args: SEND.dense_send_plain(*a),
+            lambda a=args: dispatch.dense_send(*a, policy="torch"),
+            key_bytes * (sent + P * P * cap), 0,
+            timed_shape=[P, P, 1, cap], sent_keys=sent,
+            max_slice=int(counts.max()), key_bytes=key_bytes)
+        del x, args, starts, counts
+
+
 def kernel_phase(torch, card, floor_ms, k4_ops):
     """One row per Pallas site and kernel, in site order; `launches` is
     filled in from the main paths' runs later. k4_ops: the counting K4's
@@ -1109,6 +1200,9 @@ def kernel_phase(torch, card, floor_ms, k4_ops):
     # int64, rounds 1 and 2 as they ran
     sample_compact_rows(torch, row, check, card)
 
+    # K7: the benchmark cells' dense send, int32 and int64
+    dense_send_rows(torch, row, check, gen)
+
     # #5 K4s's int64 instantiation: one round's search of the tagged
     # cell's splitters, 8 sorted rows of 2^25 int64 packs x 256 probes
     kw = torch.sort((keys((P, MERGE_N_LOCAL)).long() << 28)
@@ -1308,7 +1402,8 @@ def batched_phase(torch, np, card):
         launches = dict(cuda.launches)
         if main_launches is None:
             main_launches = launches
-        check_path_launches(f"sort_batched[{exchange}]", launches)
+        check_path_launches(f"sort_batched[{exchange}]", launches,
+                            None if exchange == "dense" else HSS_EXACT)
         max_count, limit = check_batched(np, f"sort_batched[{exchange}]",
                                          out, xs, sorted_rows)
         ref = sort_batched(xs, dataclasses.replace(spec,
@@ -1654,9 +1749,9 @@ def moe_inputs(np):
 
 
 def check_wide_route(name, launches, tensors):
-    """The 64-bit route's gate: its searches, samples and merges launched
-    the int64 K4s, K6 and K5 and nothing else of the port's (its local
-    sorts are torch.sort), every tensor on the card."""
+    """The 64-bit route's gate: its searches, samples, sends and merges
+    launched the int64 K4s, K6, K7 and K5 and nothing else of the port's
+    (its local sorts are torch.sort), every tensor on the card."""
     from repro_torch.kernels import cuda
 
     check_path_launches(name, launches, cuda.WIDE)
@@ -1796,21 +1891,24 @@ def kernel_shapes(seen: set):
     (K2, counted by role), the distance and flip (K3), the probe count
     (K4s) or, for K5, (counter, rows, k, stride, out_len or 0, whether
     counts were given, whether it fills), for K6 (counter, shards, batch,
-    n, splitters, cap, whether the draws are shared, their dtype). K4s,
-    K5 and K6 on int64 keys are recorded under their `.i64` counters. The
-    wrappers still launch; nothing is synchronised."""
+    n, splitters, cap, whether the draws are shared, their dtype), for K7
+    (counter, shards, batch, n, cap). K4s, K5, K6 and K7 on int64 keys
+    are recorded under their `.i64` counters. The wrappers still launch;
+    nothing is synchronised."""
     from repro_torch.kernels.bitonic_sort import kernel as BK
     from repro_torch.kernels.histogram import kernel as HK
     from repro_torch.kernels.histogram import ops as hops
     from repro_torch.kernels.merge import kernel as MK
     from repro_torch.kernels.sample import kernel as SK
+    from repro_torch.kernels.send import kernel as SEND
 
     real = {"sort_blocks": BK.sort_blocks,
             "bitonic_merge_smem": BK.bitonic_merge_smem,
             "strided_compare_exchange": MK.strided_compare_exchange,
             "probe_rank_search": HK.probe_rank_search,
             "merge_path_pairs": MK.merge_path_pairs,
-            "sample_compact": SK.sample_compact}
+            "sample_compact": SK.sample_compact,
+            "dense_send": SEND.dense_send}
 
     def sort_blocks(x, block):
         seen.add(("bitonic_sort_blocks", *x.shape, block))
@@ -1844,16 +1942,21 @@ def kernel_shapes(seen: set):
         return real["sample_compact"](keys, lo_key, hi_key, satisfied, u,
                                       prob, cap)
 
+    def dense_send(keys, starts, counts, cap):
+        seen.add(("dense_send" + wide(keys), *keys.shape, cap))
+        return real["dense_send"](keys, starts, counts, cap)
+
     wrappers = {"sort_blocks": sort_blocks,
                 "bitonic_merge_smem": bitonic_merge_smem,
                 "strided_compare_exchange": strided_compare_exchange,
                 "probe_rank_search": probe_rank_search,
                 "merge_path_pairs": merge_path_pairs,
-                "sample_compact": sample_compact}
+                "sample_compact": sample_compact,
+                "dense_send": dense_send}
     # every module that holds a wrapper by name, the callers' imports too
-    # (dispatch calls K6 through its module, `skernel`)
-    patched = [(mod, name) for mod in (BK, MK, HK, hops, SK) for name in real
-               if getattr(mod, name, None) is real[name]]
+    # (dispatch calls K6 and K7 through their modules)
+    patched = [(mod, name) for mod in (BK, MK, HK, hops, SK, SEND)
+               for name in real if getattr(mod, name, None) is real[name]]
     for mod, name in patched:
         setattr(mod, name, wrappers[name])
     try:
@@ -1942,13 +2045,16 @@ def path_shapes_phase(torch, seen: set, card, device="cuda"):
     the row, some hi sentinels among them, K5 on sorted runs holding a
     random count of keys each (the hi sentinel past it; without counts,
     whole runs), K6 on sorted rows with sentinel tails under two states
-    (`sample_compact_inputs`); K4s, K5 and K6 at an `.i64` counter's
-    signatures on int64 keys, INT64_MAX the sentinel. Returns the (rows,
-    n) checked for each counter ((rows, k, stride) for K5, (shards,
-    batch, n) for K6)."""
+    (`sample_compact_inputs`), K7 on sorted rows with sentinel tails cut
+    by splitters drawn from them (`send_inputs`), the counts cut at the
+    signature's cap; K4s, K5, K6 and K7 at an `.i64` counter's signatures
+    on int64 keys, INT64_MAX the sentinel. Returns the (rows, n) checked
+    for each counter ((rows, k, stride) for K5, (shards, batch, n) for K6
+    and K7)."""
     from repro_torch.kernels.bitonic_sort import kernel as BK
     from repro_torch.kernels.histogram import kernel as HK
     from repro_torch.kernels.merge import kernel as MK
+    from repro_torch.kernels.send import kernel as SEND
 
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
@@ -2005,13 +2111,19 @@ def path_shapes_phase(torch, seen: set, card, device="cuda"):
         elif kind == "sample_compact":
             got, want = sample_compact_inputs(torch, of_width, gen, sig,
                                               device)
+        elif kind == "dense_send":
+            x, starts, counts = send_inputs(torch, of_width, gen, sig[1:4])
+            args = (x, starts, torch.clamp(counts, max=sig[4]), sig[4])
+            got, want = SEND.dense_send(*args), SEND.dense_send_plain(*args)
+            del x, starts, counts, args
         else:
             fail(f"path_shapes_phase: no inputs for {counter}")
         if not torch.equal(got, want):
             fail(f"{counter}{list(sig[1:])} disagrees with its plain "
                  "version at a main path's shape")
         shapes.setdefault(counter, set()).add(
-            tuple(sig[1:4]) if kind in ("merge_path_pairs", "sample_compact")
+            tuple(sig[1:4]) if kind in ("merge_path_pairs", "sample_compact",
+                                        "dense_send")
             else (rows, n))
         del got, want
     emit({"measure": "path_shapes", "checked": len(seen),
@@ -2407,7 +2519,8 @@ def slo_phase(torch, np, card):
 
     (err, launches), peak = peak_run(torch, lambda: launched(torch, raises))
     paths["sort[slo,ALL_EQUAL,tag=False]"] = launches
-    check_path_launches("sort[slo,ALL_EQUAL,tag=False]", launches)
+    check_path_launches("sort[slo,ALL_EQUAL,tag=False]", launches,
+                        HSS_EXACT)
     emit({"measure": "slo_error", "input": "ALL_EQUAL", "tag": False,
           "out_slack": 8.0, "achieved": err.achieved, "slo": err.slo,
           "launches": launches, "max_allocated_bytes": peak, "card": card})
@@ -2426,7 +2539,7 @@ def slo_phase(torch, np, card):
         x, dataclasses.replace(rspec, imbalance_slo=1.1)))
     r = out.recovery
     paths["sort[slo,refine]"] = launches
-    check_path_launches("sort[slo,refine]", launches)
+    check_path_launches("sort[slo,refine]", launches, HSS_EXACT)
     if not (miss > 1.1 and r.imbalance_recovery == "refine"
             and r.achieved_imbalance <= 1.1 and out.audit.ok
             and np.array_equal(out.gather(), np.sort(x))):
@@ -2589,21 +2702,23 @@ def grouping_timing_phase(torch, np, card):
 
 #: Phases 19-22: the service at the batched cell's width. Each kind's
 #: kernels, from the code: sort, sort_kv (4 key + 21 tag bits: int32
-#: packing) and semisort run the HSS path's seven; top_k sorts and merges,
-#: ranking nothing; argsort of UNIF keys (30 + 21 bits) packs int64: its
-#: local sorts are torch.sort, its searches, samples and merges the int64
-#: K4s, K6 and K5 (`cuda.WIDE`); the mixed window is their union.
-#: bucket_lengths' 11 key bits (lengths 16..2,048) and 20 tag bits
-#: (1,048,576 documents) are over int32's 30, so it packs int64: the int64
-#: K4s, K6 and K5. The corrupt drill's degraded path sorts each request
-#: alone, under its own spec (HSS on int32 keys, audited): the HSS path's
-#: seven.
+#: packing) and semisort run the HSS path's eight; top_k sorts and merges,
+#: ranking and sending nothing; argsort of UNIF keys (30 + 21 bits) packs
+#: int64: its local sorts are torch.sort, its searches, samples, sends and
+#: merges the int64 K4s, K6, K7 and K5 (`cuda.WIDE`); the mixed window is
+#: their union. bucket_lengths' 11 key bits (lengths 16..2,048) and 20 tag
+#: bits (1,048,576 documents) are over int32's 30, so it packs int64: the
+#: int64 K4s, K6 and K5 over the exact allgather exchange, so no K7. The
+#: corrupt drill's degraded path sorts each request alone, under its own
+#: spec (HSS on int32 keys over the allgather exchange, audited): the HSS
+#: path's seven but K7.
 SERVE_KINDS = ("sort", "sort_kv", "semisort", "top_k", "argsort")
 PATH_KERNELS.update({"serve[sort]": HSS, "serve[sort_kv]": HSS,
                      "serve[semisort]": HSS, "serve[top_k]": MERGING,
                      "serve[argsort]": WIDE, "serve[mixed]": HSS + WIDE,
-                     "serve[http]": HSS, "serve[degraded]": HSS,
-                     "bucket_lengths": WIDE})
+                     "serve[http]": HSS, "serve[degraded]": HSS_EXACT,
+                     "bucket_lengths": tuple(k for k in WIDE
+                                             if k != "dense_send.i64")})
 SERVE_LOAD = 16              # two full batches of max_batch = B
 MIXED_LOAD = 64
 HTTP_N = 262_144             # JSON bodies of a few MB

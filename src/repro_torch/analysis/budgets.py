@@ -34,6 +34,9 @@ K6  sample_count_kernel<T>,       static 3 * kSampleThreads + kSampleThreads
                                   warp), whatever the key type; 256
                                   threads, launch bounds (256, 4): 64
                                   registers
+K7  dense_send_kernel<T>          none (registers only), kSendThreads
+                                  threads, launch bounds (256): 255
+                                  registers
 
 `check_kernel_budgets()` raises `BudgetError` with the arithmetic on the
 first configuration that does not fit. `check_ptxas(footprints, log)`
@@ -59,6 +62,7 @@ __all__ = [
     "probe_count_footprint",
     "merge_path_footprint",
     "sample_compact_footprints",
+    "dense_send_footprint",
     "default_footprints",
     "check_kernel_budgets",
     "ptxas_report",
@@ -76,9 +80,9 @@ HOPPER = {
     "regs_per_sm": 65_536,
     "threads_per_block_max": 1_024,
 }
-WORD = 4    # an int32 key; K4s, K5 and K6 also take int64 keys (8 bytes)
-#: K4s's, K5's and K6's instantiations: ptxas's template argument -> the
-#: config.
+WORD = 4    # an int32 key; K4s-K7 also take int64 keys (8 bytes)
+#: K4s's, K5's, K6's and K7's instantiations: ptxas's template argument ->
+#: the config.
 KEY_TYPES = {"i": "int32", "l": "int64"}
 
 
@@ -95,7 +99,7 @@ def kernel_constants(source: Path = SOURCE) -> Dict[str, int]:
 
 @dataclasses.dataclass(frozen=True)
 class KernelFootprint:
-    kernel: str            # "K1", "K2", "K3", "K4", "K4s", "K5", "K6"
+    kernel: str            # "K1", "K2", "K3", "K4", "K4s", "K5"-"K7"
     entry: str             # the __global__ function (ptxas's entry name)
     config: str            # the template argument, or "-"
     threads: int           # threads a block
@@ -214,10 +218,18 @@ def sample_compact_footprints(c=None, config: str = "int32"
                  for entry in ("sample_count_kernel", "sample_emit_kernel"))
 
 
+def dense_send_footprint(c=None, config: str = "int32") -> KernelFootprint:
+    """K7 at one key type: a copy through registers, no shared memory."""
+    c = c or kernel_constants()
+    threads = c["kSendThreads"]
+    return KernelFootprint("K7", "dense_send_kernel", config, threads, 0, 0,
+                           0, _reg_cap(threads), "0")
+
+
 def default_footprints(c=None) -> Tuple[KernelFootprint, ...]:
     """Every shipped configuration: K1 at each block size 2..1,024, K2 at
-    each segment 2..kMaxSmemKeys, K3's two forms, K4, and K4s, K5 and K6
-    at each key type."""
+    each segment 2..kMaxSmemKeys, K3's two forms, K4, and K4s, K5, K6 and
+    K7 at each key type."""
     c = c or kernel_constants()
     out = [sort_block_footprint(1 << j, c) for j in range(1, 11)]
     seg = 2
@@ -234,6 +246,7 @@ def default_footprints(c=None) -> Tuple[KernelFootprint, ...]:
                                    threads, 0, 0, 0, _reg_cap(threads), "0"))
         out.append(merge_path_footprint(c, config))
         out.extend(sample_compact_footprints(c, config))
+        out.append(dense_send_footprint(c, config))
     return tuple(out)
 
 
@@ -250,7 +263,8 @@ ENTRIES = ("bitonic_sort_warp_kernel", "bitonic_merge_warp_kernel",
            "bitonic_merge_smem_kernel", "strided_ce_vec4_kernel",
            "strided_ce_kernel", "probe_rank_count_kernel",
            "probe_rank_search_kernel", "merge_path_pairs_kernel",
-           "sample_count_kernel", "sample_emit_kernel", "empty_kernel")
+           "sample_count_kernel", "sample_emit_kernel", "dense_send_kernel",
+           "empty_kernel")
 
 
 def _entry(mangled: str):

@@ -84,7 +84,7 @@ class ExchangeConfig:
     pair_factor: float = 3.0      # per-(src, dst) capacity = factor*n/p
     out_slack: float = 1.0        # extra slack on the (1+eps) output capacity
     capacity_scale: float = 1.0   # multiplier on every static buffer
-    kernel_policy: str = "auto"   # post-exchange merge backend (dispatch)
+    kernel_policy: str = "auto"   # send and merge backend (dispatch)
     out_extra: int = 0            # additive output headroom (semisort lights)
 
     def pair_cap(self, n_local: int, p: int) -> int:
@@ -144,29 +144,17 @@ def _rows_valid(n_valid, p: int, batch: int, n: int,
 
 
 def _dense_send(local_sorted: torch.Tensor, starts: torch.Tensor,
-                sent_counts: torch.Tensor, cap: int, comm: Comm):
+                sent_counts: torch.Tensor, cap: int, comm: Comm,
+                policy: str):
     """The dense channel: each (source, request) row sends at most `cap`
     keys of each destination slice, sentinel padded, in one all_to_all of
     the keys and one of the counts. local_sorted (p, B, n), starts and
     sent_counts (p_src, B, p_dst) -> (recv (p_dst, p_src, B, cap),
     recv_counts (p_dst, p_src, B))."""
-    p, batch, n = local_sorted.shape
-    dev = local_sorted.device
-    # the send buffer in all_to_all's layout (p_src, p_dst, B, cap); its
-    # flat gather index into the shards is built once
-    starts = starts.permute(0, 2, 1)
-    sent_counts = sent_counts.permute(0, 2, 1).contiguous()
-    pos = torch.arange(cap, dtype=torch.int64, device=dev)
-    row = torch.arange(p * batch, dtype=torch.int64,
-                       device=dev).reshape(p, 1, batch, 1) * n
-    idx = row + torch.clamp(starts.to(torch.int64)[..., None] + pos,
-                            max=n - 1)
-    vals = local_sorted.reshape(-1)[idx]
-    del idx
-    buf = torch.where(pos < sent_counts[..., None], vals,
-                      hi_sentinel(local_sorted.dtype))
-    del vals
-    return comm.all_to_all(buf), comm.all_to_all(sent_counts)
+    buf = dispatch.dense_send(local_sorted, starts, sent_counts, cap,
+                              policy=policy)   # (p_src, p_dst, B, cap)
+    return (comm.all_to_all(buf),
+            comm.all_to_all(sent_counts.permute(0, 2, 1).contiguous()))
 
 
 def _gather_windows(runs: torch.Tensor, n_valid: torch.Tensor,
@@ -215,7 +203,8 @@ def exchange_dense_batched(local_sorted: torch.Tensor,
     overflow = comm.psum((counts - sent_counts).sum(dim=-1,
                                                     dtype=torch.int32))
     recv, recv_counts = _dense_send(local_sorted, starts, sent_counts, cap,
-                                    comm)   # (p_dst, p_src, B, cap)
+                                    comm, cfg.kernel_policy)
+    # recv (p_dst, p_src, B, cap)
     # p sorted sentinel-tailed runs of cap keys per (destination, request),
     # each holding its received count's keys
     out = dispatch.merge_runs(recv.transpose(1, 2), policy=cfg.kernel_policy,
@@ -257,8 +246,9 @@ def exchange_dense_spill(local_sorted: torch.Tensor,
                                         nv)                 # (p_src, p_dst)
     sent_counts = torch.clamp(counts, max=cap)
     recv, recv_counts = _dense_send(local_sorted[:, None], starts[:, None],
-                                    sent_counts[:, None], cap,
-                                    comm)   # (p_dst, p_src, 1, cap)
+                                    sent_counts[:, None], cap, comm,
+                                    cfg.kernel_policy)
+    # recv (p_dst, p_src, 1, cap)
 
     # -- the spill channel: position i spills iff its offset in its
     # destination slice is past that pair's capacity

@@ -2,7 +2,7 @@
 //
 // Five kernels replace the eight Pallas call sites of the sort and the
 // batched sort (a batched Pallas kernel is its unbatched one per row, and
-// every kernel here already takes rows), and two more replace none:
+// every kernel here already takes rows), and three more replace none:
 //
 //   K1  bitonic_sort_blocks      repro/kernels/bitonic_sort/kernel.py:83, :98
 //                                (a warp kernel, one instantiation per size)
@@ -19,15 +19,17 @@
 //   K6  sample_compact           a splitter round's sample of sorted rows,
 //                                which the reference draws by sorting the
 //                                masked rows (K1-K3's sites)
+//   K7  dense_send               the dense exchange's send buffer, which the
+//                                reference cuts and pads in XLA
 //
 // empty_launch starts a kernel that does nothing: the floor a timed launch
 // cannot go below, measured through the same ctypes route.
 //
-// Keys are int32, the core's encoded 32-bit keys. K4s, K5 and K6 are also
-// instantiated for int64 keys (the `_i64` launchers): the core's 64-bit
-// keys (int64 and float64 user keys, and implicit tags packed into int64)
-// are searched, merged and sampled on the card as well, while K1-K3 and
-// K4 take int32 only. Arrays are flat: a (rows, n) tensor is rows*n keys,
+// Keys are int32, the core's encoded 32-bit keys. K4s, K5, K6 and K7 are
+// also instantiated for int64 keys (the `_i64` launchers): the core's
+// 64-bit keys (int64 and float64 user keys, and implicit tags packed into
+// int64) are searched, merged, sampled and sent on the card as well, while
+// K1-K3 and K4 take int32 only. Arrays are flat: a (rows, n) tensor is rows*n keys,
 // and every kernel keeps its work inside a run or row because run lengths
 // divide the row length.
 //
@@ -1020,6 +1022,92 @@ __global__ void __launch_bounds__(kSampleThreads, 4)
     vrow[o++] = k[__ffs(hits) - 1];
 }
 
+// K7 writes the dense exchange's send buffer. Row (s, b) of keys (S, B, n)
+// is shard s of request b, sorted; starts and counts (S, B, S) int32 say
+// where destination d's slice of that row begins and how many of its keys
+// go (the count is already cut at the pair's capacity). Run (s, d, b) of
+// buf (S, S, B, cap) gets keys[s, b, starts + j] in slot j < count and the
+// hi sentinel in the slots after it: a batched copy. It replaces no Pallas
+// kernel: the reference cuts and pads the slices in XLA, and the port's
+// torch route built an int64 gather index of S*S*B*cap entries (805 M at
+// the benchmark's (8, 1, 2^25) rows, 6.4 GB), clamped it, gathered through
+// it and masked the result in six passes, 24 ms a call on an H100.
+//
+// What bounds it: bytes. One read of the keys that go (at most every key
+// once: 1.07 GB at 2^28 int32 keys) and one write of the buffer (3.22 GB
+// at cap 12,582,912), 1.28 ms at 3.35 TB/s; twice that for int64 keys.
+//
+// Design. A block owns kSendThreads * kSendVecs 16-byte stores of one run
+// (4,096 int32 or 2,048 int64 slots); the grid is the static shape, runs
+// times tiles, so the launch reads no count back. A thread fills its
+// slots from consecutive scalar loads of the row (a slice starts anywhere,
+// so they are not vector loads; a warp's loads fall on the same lines and
+// coalesce in L1) and writes them as one 16-byte store; a slot past the
+// count loads nothing. Where cap is not a multiple of a store, or the
+// buffer is not 16-byte aligned, every thread stores scalars, a warp's 32
+// consecutive slots at a time. A read index is clamped to the row's end,
+// as the torch route's gather index is, so both give the same bits for
+// any counts. Offsets are 64-bit: S*S*B*cap passes 2^31 at larger B.
+constexpr int kSendThreads = 256;       // K7: threads a block
+constexpr int kSendVecs = 4;            // K7: 16-byte stores a thread
+
+__device__ __forceinline__ void store16(int* dst, const int (&v)[4]) {
+  *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store16(int64_t* dst,
+                                        const int64_t (&v)[2]) {
+  *reinterpret_cast<longlong2*>(dst) = make_longlong2(v[0], v[1]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSendThreads)
+    dense_send_kernel(const T* __restrict__ keys,
+                      const int* __restrict__ starts,
+                      const int* __restrict__ counts, T* __restrict__ buf,
+                      int p, int64_t batch, int64_t n, int64_t cap,
+                      int64_t tiles, int vec) {
+  constexpr T kHi = KeyLimits<T>::hi;
+  constexpr int kLanes = 16 / sizeof(T);         // slots a 16-byte store
+  constexpr int kTile = kSendThreads * kSendVecs * kLanes;
+  const int64_t run = blockIdx.x / tiles;        // (s, d, b) of buf
+  const int64_t j0 = (blockIdx.x - run * tiles) * kTile;
+  const int64_t sd = run / batch;
+  const int64_t b = run - sd * batch;
+  const int64_t s = sd / p;
+  const int64_t at = (s * batch + b) * p + (sd - s * p);    // (s, b, d)
+  const int64_t start = starts[at];
+  const int64_t count = counts[at];
+  const T* row = keys + (s * batch + b) * n;
+  T* out = buf + run * cap;
+  const int64_t last = n - 1;
+  if (vec) {
+#pragma unroll
+    for (int r = 0; r < kSendVecs; ++r) {
+      const int64_t j =
+          j0 + (static_cast<int64_t>(r) * kSendThreads + threadIdx.x) *
+                   kLanes;
+      if (j >= cap) break;
+      T v[kLanes];
+#pragma unroll
+      for (int i = 0; i < kLanes; ++i) {
+        const int64_t src = start + j + i;
+        v[i] = j + i < count ? row[src < last ? src : last] : kHi;
+      }
+      store16(out + j, v);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kSendVecs * kLanes; ++r) {
+      const int64_t j =
+          j0 + static_cast<int64_t>(r) * kSendThreads + threadIdx.x;
+      if (j >= cap) break;
+      const int64_t src = start + j;
+      out[j] = j < count ? row[src < last ? src : last] : kHi;
+    }
+  }
+}
+
 __global__ void empty_kernel() {}
 
 bool is_pow2(int64_t v) { return v > 0 && (v & (v - 1)) == 0; }
@@ -1152,6 +1240,28 @@ int launch_sample_emit(const void* keys, const void* lo_key,
       static_cast<const int*>(tile_counts), static_cast<T*>(vals),
       static_cast<int*>(sampled), static_cast<int*>(overflow), n, batch, m,
       tiles, out_len, cap);
+  return cudaGetLastError();
+}
+
+// One K7 launch: a block a (run, tile) of the (p, p, batch, cap) buffer.
+template <typename T>
+int launch_dense_send(const void* keys, const void* starts,
+                      const void* counts, void* buf, int p, int64_t batch,
+                      int64_t n, int64_t cap, cudaStream_t stream) {
+  if (p < 1 || batch < 1 || n < 1 || n > INT_MAX || cap < 1)
+    return cudaErrorInvalidValue;
+  constexpr int kLanes = 16 / sizeof(T);
+  constexpr int64_t kTile = kSendThreads * kSendVecs * kLanes;
+  const int64_t tiles = (cap + kTile - 1) / kTile;
+  const int64_t runs = static_cast<int64_t>(p) * p * batch;
+  if (runs > INT_MAX / tiles) return cudaErrorInvalidValue;
+  const int vec = cap % kLanes == 0 &&
+                  reinterpret_cast<uintptr_t>(buf) % 16 == 0;
+  dense_send_kernel<T><<<static_cast<unsigned>(runs * tiles), kSendThreads,
+                         0, stream>>>(
+      static_cast<const T*>(keys), static_cast<const int*>(starts),
+      static_cast<const int*>(counts), static_cast<T*>(buf), p, batch, n,
+      cap, tiles, vec);
   return cudaGetLastError();
 }
 
@@ -1330,6 +1440,23 @@ int sample_compact_emit_i64(const void* keys, const void* lo_key,
                                      sampled, overflow, rows, batch, n, m,
                                      out_len, cap,
                                      static_cast<cudaStream_t>(stream));
+}
+
+// K7: keys (p, batch, n), starts and counts (p, batch, p) int32 -> buf (p,
+// p, batch, cap): run (s, d, b) holds keys[s, b, starts[s, b, d] + j] for
+// j < counts[s, b, d], then the hi sentinel.
+int dense_send(const void* keys, const void* starts, const void* counts,
+               void* buf, int p, long long batch, long long n,
+               long long cap, void* stream) {
+  return launch_dense_send<int>(keys, starts, counts, buf, p, batch, n, cap,
+                                static_cast<cudaStream_t>(stream));
+}
+
+int dense_send_i64(const void* keys, const void* starts, const void* counts,
+                   void* buf, int p, long long batch, long long n,
+                   long long cap, void* stream) {
+  return launch_dense_send<int64_t>(keys, starts, counts, buf, p, batch, n,
+                                    cap, static_cast<cudaStream_t>(stream));
 }
 
 int empty_launch(void* stream) {

@@ -15,7 +15,7 @@ count in `launches` — the count a run reads to show that its main path
 went through the kernels. `KERNELS` records each kernel's key dtypes,
 counters and launchers. For int64 keys `launch` picks the launcher's
 `_i64` twin and counts under `<kernel>.i64` (`WIDE`), so a run shows which
-key width its searches, merges and samples ran at. K2 serves two
+key width its searches, merges, samples and sends ran at. K2 serves two
 Pallas sites, so it is counted apart by role: `bitonic_merge_smem.reverse`
 (a pair merge, merge_adjacent) and `bitonic_merge_smem.tail` (an HBM
 pass's tail, merge_bitonic_blocks). Which hot spot runs which kernel is
@@ -58,6 +58,7 @@ SIGNATURES = {
                              _I, _P),
     "sample_compact_emit": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                             _L, _L, _L, _I, _I, _I, _P),
+    "dense_send": (_P, _P, _P, _P, _I, _L, _L, _L, _P),
     "empty_launch": (_P,),
 }
 
@@ -83,6 +84,7 @@ KERNELS = {
     "merge_path_pairs": Kernel(KEYS_32_64),
     "sample_compact": Kernel(KEYS_32_64, launchers=("sample_compact_count",
                                                     "sample_compact_emit")),
+    "dense_send": Kernel(KEYS_32_64),
 }
 _KERNEL_OF = {fn: name for name, k in KERNELS.items()
               for fn in k.launchers or (name,)}

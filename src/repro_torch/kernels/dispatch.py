@@ -1,8 +1,9 @@
 """Kernel-policy dispatch (counterpart of repro.kernels.dispatch).
 
 One selection layer over the sort hot spots — `local_sort`, `probe_ranks`,
-the splitter rounds' `sample_compact` and the post-exchange `merge_runs`
-and `merge_ragged` — so the CPU tests and the card share one code path.
+the splitter rounds' `sample_compact`, the dense exchange's `dense_send`
+and the post-exchange `merge_runs` and `merge_ragged` — so the CPU tests
+and the card share one code path.
 `route(spot, x, policy)` decides what runs:
 
   "auto"    (default) the hand-written kernel where `ROUTES` lets it
@@ -34,6 +35,7 @@ from repro_torch.kernels.histogram import ops as hops
 from repro_torch.kernels.histogram import ref as href
 from repro_torch.kernels.merge import ops as mops
 from repro_torch.kernels.sample import kernel as skernel
+from repro_torch.kernels.send import kernel as sendk
 from repro_torch.runtime import trace
 
 POLICIES = ("auto", "kernel", "torch")
@@ -48,12 +50,13 @@ AUTO_SORT_MAX_N = 1 << 22
 #: width and row length: hot spot -> (its hand-written kernel, whose key
 #: dtypes `cuda.KERNELS` records; the longest row "auto" gives it, or
 #: None). The local sorts (K1-K3) take int32 only, as no Pallas kernel of
-#: the reference takes 64-bit keys; K4s, K6 and K5 take int64 too.
+#: the reference takes 64-bit keys; K4s, K6, K7 and K5 take int64 too.
 ROUTES = {
     "local_sort": ("bitonic_sort_blocks", AUTO_SORT_MAX_N),     # K1-K3
     "probe_ranks.sorted": ("probe_rank_search", None),          # K4s
     "probe_ranks.unsorted": ("probe_rank_count", None),         # K4
     "sample_compact": ("sample_compact", None),                 # K6
+    "dense_send": ("dense_send", None),                         # K7
     "merge_runs": ("merge_path_pairs", None),                   # K5
     "merge_ragged": ("merge_path_pairs", None),                 # K5
 }
@@ -173,6 +176,24 @@ def sample_compact(keys: torch.Tensor, lo_key: torch.Tensor,
              for t in (lo_key, hi_key, satisfied))
     return skernel.sample_compact(keys.contiguous(), *state, u.contiguous(),
                                   prob.expand(batch).contiguous(), cap)
+
+
+def dense_send(local_sorted: torch.Tensor, starts: torch.Tensor,
+               sent_counts: torch.Tensor, cap: int, *,
+               policy: str = "auto") -> torch.Tensor:
+    """The dense exchange's send buffer: local_sorted (p, B, n), row (s, b)
+    sorted; starts and sent_counts (p_src, B, p_dst) int32, each
+    destination's slice of each row and the keys of it that go (at most
+    cap) -> buf (p_src, p_dst, B, cap), all_to_all's layout: run (s, d, b)
+    holds the slice's first sent_counts keys, then the hi sentinel. The
+    kernel route copies each slice into its run (K7,
+    `kernels.send.kernel`); the torch route is K7's plain version, an
+    int64 index gather of every slot."""
+    if route("dense_send", local_sorted, policy) == "kernel":
+        return sendk.dense_send(local_sorted.contiguous(),
+                                starts.contiguous(),
+                                sent_counts.contiguous(), cap)
+    return sendk.dense_send_plain(local_sorted, starts, sent_counts, cap)
 
 
 def merge_runs(runs: torch.Tensor, *, policy: str = "auto",

@@ -314,10 +314,14 @@ def test_budget_fires_on_dynamic_smem_without_opt_in():
 
 def test_shipped_kernel_configs_fit_the_budget():
     checked = budgets.check_kernel_budgets()
-    # K4s, K5 and K6's two launches at each key type, int32 and int64
-    assert len(checked) == 10 + 14 + 2 + 1 + 2 + 2 + 4
+    # K4s, K5, K6's two launches and K7 at each key type, int32 and int64
+    assert len(checked) == 10 + 14 + 2 + 1 + 2 + 2 + 4 + 2
     assert {fp.kernel for fp in checked} == {"K1", "K2", "K3", "K4", "K4s",
-                                             "K5", "K6"}
+                                             "K5", "K6", "K7"}
+    for config in ("int32", "int64"):
+        k7 = budgets.dense_send_footprint(config=config)
+        assert (k7.entry, k7.static_smem, k7.threads, k7.max_registers) == (
+            "dense_send_kernel", 0, 256, 255)
     for k6 in budgets.sample_compact_footprints(config="int64"):
         assert (k6.static_smem, k6.threads, k6.max_registers) == (3104, 256,
                                                                   64)

@@ -28,16 +28,18 @@ def card():
 HBM_PASSES = ("strided_compare_exchange", "bitonic_merge_smem.tail")
 
 
-def _assert_main_path_launches(rows_on_chip=False):
+def _assert_main_path_launches(rows_on_chip=False, dense=True):
     """Every kernel of the int32 main paths launched, but the HBM passes
-    where each local sort's rows fit one K2 segment (`rows_on_chip`); the
-    counting K4, which only `assume_sorted=False` reaches, and the int64
-    instantiations (`cuda.WIDE`) did not."""
+    where each local sort's rows fit one K2 segment (`rows_on_chip`) and
+    K7 where the exchange sends no dense buffer (`dense` False: allgather,
+    ragged); the counting K4, which only `assume_sorted=False` reaches,
+    and the int64 instantiations (`cuda.WIDE`) did not."""
     got = dict(cuda.launches)
-    skip = (cuda.OFF_MAIN_PATH + cuda.WIDE
-            + (HBM_PASSES if rows_on_chip else ()))
+    never = cuda.OFF_MAIN_PATH + cuda.WIDE + (() if dense
+                                              else ("dense_send",))
+    skip = never + (HBM_PASSES if rows_on_chip else ())
     assert all(got[k] > 0 for k in cuda.COUNTERS if k not in skip), got
-    assert all(got[k] == 0 for k in cuda.OFF_MAIN_PATH + cuda.WIDE), got
+    assert all(got[k] == 0 for k in never), got
 
 
 def _card_keys(shape, seed=0):
@@ -396,6 +398,70 @@ def test_cuda_sample_compact_matches_plain(card, batch, n, dtype, u_dtype,
                     assert torch.equal(g, w)
 
 
+def _send_inputs(dtype, p, batch, n, seed):
+    """(p, B, n) sorted rows with hi-sentinel tails past n_valid, cut by
+    splitters drawn from each request's rows -> (rows, starts, counts)."""
+    from repro_torch.core.exchange import destination_slices
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    info = torch.iinfo(dtype)
+    x = torch.randint(info.min, info.max, (p, batch, n), generator=g,
+                      device="cuda", dtype=dtype)
+    tails = torch.randint(0, n // 4 + 1, (p, batch), generator=g,
+                          device="cuda", dtype=torch.int32)
+    x = torch.where(torch.arange(n, device="cuda") >= n - tails[..., None],
+                    info.max, x)
+    x = torch.sort(x, dim=-1).values
+    flat = x.transpose(0, 1).reshape(batch, -1)
+    pick = torch.randint(0, flat.shape[1], (batch, p - 1), generator=g,
+                         device="cuda")
+    spl = torch.sort(torch.gather(flat, 1, pick), dim=-1).values
+    return (x, *destination_slices(x, spl, n - tails))
+
+
+def _check_send(x, starts, counts, cap):
+    """One K7 launch, counted under its key width, against its plain
+    version (the torch route's index gather)."""
+    from repro_torch.kernels.send import kernel as tsend
+
+    sent = torch.clamp(counts, max=cap)
+    counter = "dense_send" + (".i64" if x.dtype == torch.int64 else "")
+    before = cuda.launches[counter]
+    got = tsend.dense_send(x, starts, sent, cap)
+    torch.cuda.synchronize()
+    assert cuda.launches[counter] == before + 1
+    assert torch.equal(got, tsend.dense_send_plain(x, starts, sent, cap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64],
+                         ids=["int32", "int64"])
+@pytest.mark.parametrize("p,batch,n", [(2, 1, 10), (3, 3, 999),
+                                       (8, 1, 100_003), (8, 5, 4097)])
+def test_cuda_dense_send_matches_plain(card, p, batch, n, dtype):
+    """K7 on ragged shapes: caps that cut slices and caps past the row,
+    multiples of a 16-byte store (vector stores) and not (scalar)."""
+    x, starts, counts = _send_inputs(dtype, p, batch, n, seed=p + batch)
+    for cap in (1, 3, 8, max(8, n // p), n + 5, 3 * n):
+        _check_send(x, starts, counts, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64],
+                         ids=["int32", "int64"])
+def test_cuda_dense_send_at_the_benchmark_shape(card, dtype):
+    """The benchmark cells' send: (8, 1, 2^25) sorted rows, slices of
+    about 2^22 keys, pair_cap 12,582,912: one launch, equal to the plain
+    version (the torch route)."""
+    from repro_torch.core.exchange import ExchangeConfig
+
+    x, starts, counts = _send_inputs(dtype, 8, 1, 1 << 25, seed=11)
+    cap = ExchangeConfig().pair_cap(1 << 25, 8)
+    assert cap == 12_582_912
+    _check_send(x, starts, counts, cap)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,n,m", [(8, 100_003, 256), (70_000, 64, 8),
                                       (4, 1, 256), (4, 33, 256)])
@@ -445,6 +511,7 @@ def test_cuda_tagged_int64_sort_runs_the_wide_kernels(card, door):
         np.testing.assert_array_equal(order, np.argsort(x, kind="stable"))
     assert got == set(cuda.WIDE), got
     assert cuda.launches["merge_path_pairs.i64"] == 3
+    assert cuda.launches["dense_send.i64"] == 1
 
 
 @pytest.mark.cuda
@@ -472,7 +539,7 @@ def test_cuda_sort_batched_matches_numpy_and_torch_policy(card, exchange):
     xs = rng.integers(0, 2 ** 31 - 1, (8, 8 * 32768 + 3)).astype(np.int32)
     cuda.reset_launches()
     out = sort_batched(xs, SortSpec(shards=8, exchange=exchange))
-    _assert_main_path_launches()
+    _assert_main_path_launches(dense=exchange == "dense")
     assert int(out.overflow.max()) == 0
     for b in range(8):
         np.testing.assert_array_equal(out.gather(b), np.sort(xs[b]))
@@ -623,7 +690,8 @@ _RANKS = {"sample_random": False, "sample_regular": False, "ams": True,
 def test_cuda_algorithms_match_numpy_and_torch_policy(card, algorithm,
                                                       exchange):
     """Under retry each algorithm ends exact through the kernels, with the
-    same shards as the torch policy, and launches K4s only if it ranks."""
+    same shards as the torch policy, launches K4s only if it ranks and K7
+    only over the dense exchange."""
     from repro_torch.sort import SortSpec, sort
 
     x = np.random.default_rng(3).integers(0, 2 ** 31 - 1,
@@ -636,6 +704,7 @@ def test_cuda_algorithms_match_numpy_and_torch_policy(card, algorithm,
     assert all(got[k] > 0 for k in ("bitonic_sort_blocks",
                                     "strided_compare_exchange")), got
     assert (got["probe_rank_search"] > 0) == _RANKS[algorithm], got
+    assert (got["dense_send"] > 0) == (exchange == "dense"), got
     assert got["probe_rank_count"] == 0, got
     assert int(out.overflow) == 0
     np.testing.assert_array_equal(out.gather(), np.sort(x))

@@ -60,6 +60,10 @@ ROUTE_ROWS = {
                                   "kernel", "kernel", "torch"),
     ("sample_compact", "int64"): ("torch", "kernel", "torch",
                                   "kernel", "kernel", "torch"),
+    ("dense_send", "int32"): ("torch", "kernel", "torch",
+                              "kernel", "kernel", "torch"),
+    ("dense_send", "int64"): ("torch", "kernel", "torch",
+                              "kernel", "kernel", "torch"),
     ("merge_runs", "int32"): ("torch", "kernel", "torch",
                               "kernel", "kernel", "torch"),
     ("merge_runs", "int64"): ("torch", "kernel", "torch",
@@ -126,13 +130,13 @@ def test_kernel_counters_are_the_recorded_names():
     """The launch counters the benchmark and the card tests read, by name;
     the `_i64` launchers are derived, not written out."""
     assert cuda.WIDE == ("probe_rank_search.i64", "merge_path_pairs.i64",
-                         "sample_compact.i64")
+                         "sample_compact.i64", "dense_send.i64")
     assert cuda.COUNTERS == (
         "bitonic_sort_blocks", "bitonic_merge_smem.reverse",
         "bitonic_merge_smem.tail", "strided_compare_exchange",
         "probe_rank_count", "probe_rank_search", "merge_path_pairs",
-        "sample_compact", "probe_rank_search.i64", "merge_path_pairs.i64",
-        "sample_compact.i64")
+        "sample_compact", "dense_send", "probe_rank_search.i64",
+        "merge_path_pairs.i64", "sample_compact.i64", "dense_send.i64")
     assert cuda.OFF_MAIN_PATH == ("probe_rank_count",)
     assert not any(name.endswith("_i64") for name in cuda.SIGNATURES)
 

@@ -252,8 +252,8 @@ def test_float64_batched_matches_reference():
 # ------------------------------------------------------------- policy
 def test_auto_policy_sends_64_bit_keys_to_torch():
     """Under "auto" on the card a 64-bit local sort (and count) takes the
-    torch route; 64-bit searches, samples and merges (K4s, K6 and K5)
-    take the kernels' int64 instantiations."""
+    torch route; 64-bit searches, samples, sends and merges (K4s, K6, K7
+    and K5) take the kernels' int64 instantiations."""
     def keys(dtype, device="cuda"):
         """What `route` reads of a key tensor, on a device the CPU lacks."""
         return SimpleNamespace(dtype=dtype, device=torch.device(device),
@@ -266,8 +266,8 @@ def test_auto_policy_sends_64_bit_keys_to_torch():
     assert route("local_sort", keys(torch.int32)) == "kernel"
     assert route("local_sort", keys(torch.int32, "cpu")) == "torch"
     assert route("local_sort", keys(torch.int64), "kernel") == "kernel"
-    for spot in ("probe_ranks.sorted", "sample_compact", "merge_runs",
-                 "merge_ragged"):
+    for spot in ("probe_ranks.sorted", "sample_compact", "dense_send",
+                 "merge_runs", "merge_ragged"):
         assert route(spot, keys(torch.int64)) == "kernel"
         assert route(spot, keys(torch.int64, "cpu")) == "torch"
         assert route(spot, keys(torch.int64), "torch") == "torch"
