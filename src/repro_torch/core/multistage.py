@@ -149,6 +149,10 @@ def two_stage_sort_batched(local: torch.Tensor, *, comm: Comm, r1: int,
     (out (p, B, out_cap) sorted sentinel-padded rows, n_valid (p, B),
     overflow (B,)).
 
+    Under a profiler it records span `stage1` around stage 1's splitters
+    and exchange (its merge inside), and `stage2` around stage 2 from the
+    fold of the stage-1 rows to the final unfold (`runtime/trace.py`).
+
     uniform: (j, n) -> (p, n) draws; draws 0..k1-1 are stage 1's rounds
     (n = n_local), draws k1.. stage 2's (n = the stage-1 output row).
     Each request shares them, as each of the reference's per-row calls
@@ -168,37 +172,41 @@ def two_stage_sort_batched(local: torch.Tensor, *, comm: Comm, r1: int,
 
     # -- stage 1: r1 groups over all p shards, exchanged along outer
     k1 = hss_cfg.resolved_rounds(r1)
-    with trace.span("splitters"):
-        g_keys, _, _ = hss_splitters_general(
-            local_sorted, comm=comm, num_parts=r1, cfg=hss_cfg,
-            uniform=lambda j: uniform(j, n_local))
     outer = comm.along("outer", r1, r2)
-    with trace.span("exchange"):
-        mid, mid_valid, ovf1 = exchange_batched(
-            outer.fold(local_sorted), outer.rows(g_keys), comm=outer,
-            cfg=dataclasses.replace(ex_cfg, out_slack=STAGE1_OUT_SLACK),
-            eps=eps)
-    mid = outer.unfold(mid)                               # (p, B, cap1)
-    mid_valid = outer.unfold(mid_valid)                   # (p, B)
+    with trace.span("stage1"):
+        with trace.span("splitters"):
+            g_keys, _, _ = hss_splitters_general(
+                local_sorted, comm=comm, num_parts=r1, cfg=hss_cfg,
+                uniform=lambda j: uniform(j, n_local))
+        with trace.span("exchange"):
+            mid, mid_valid, ovf1 = exchange_batched(
+                outer.fold(local_sorted), outer.rows(g_keys), comm=outer,
+                cfg=dataclasses.replace(ex_cfg, out_slack=STAGE1_OUT_SLACK),
+                eps=eps)
+        mid = outer.unfold(mid)                           # (p, B, cap1)
+        mid_valid = outer.unfold(mid_valid)               # (p, B)
     del local_sorted
 
     # -- stage 2: HSS within each group along inner, on the padded rows
     inner = comm.along("inner", r1, r2)
     cap1 = mid.shape[-1]
-    mid, mid_valid = inner.fold(mid), inner.fold(mid_valid)
-    group_n = inner.psum(mid_valid)                       # (r1*B,)
 
     def stage2_draws(j):
         u = uniform(k1 + j, cap1)[:, None].expand(p, batch, cap1)
         return inner.fold(u)
 
-    with trace.span("splitters"):
-        s_keys, _, _ = hss_splitters_general(
-            mid, comm=inner, num_parts=r2, cfg=hss_cfg,
-            uniform=stage2_draws, n_valid=group_n, first_round=k1)
-    with trace.span("exchange"):
-        out, n_valid, ovf2 = exchange_batched(
-            mid, s_keys, comm=inner, cfg=ex_cfg, eps=eps, n_valid=mid_valid)
+    with trace.span("stage2"):
+        mid, mid_valid = inner.fold(mid), inner.fold(mid_valid)
+        group_n = inner.psum(mid_valid)                   # (r1*B,)
+        with trace.span("splitters"):
+            s_keys, _, _ = hss_splitters_general(
+                mid, comm=inner, num_parts=r2, cfg=hss_cfg,
+                uniform=stage2_draws, n_valid=group_n, first_round=k1)
+        with trace.span("exchange"):
+            out, n_valid, ovf2 = exchange_batched(
+                mid, s_keys, comm=inner, cfg=ex_cfg, eps=eps,
+                n_valid=mid_valid)
+        out, n_valid = inner.unfold(out), inner.unfold(n_valid)
     overflow = (ovf1.reshape(r2, batch).sum(dim=0, dtype=torch.int32)
                 + ovf2.reshape(r1, batch).sum(dim=0, dtype=torch.int32))
-    return inner.unfold(out), inner.unfold(n_valid), overflow
+    return out, n_valid, overflow

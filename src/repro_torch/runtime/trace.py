@@ -20,6 +20,10 @@ its phases inside it:
               all_gather of the shards' suffixes)
   merge       the k-way merge of the received runs
               (`kernels/dispatch.merge_runs`, `merge_ragged`)
+  stage1      multistage's first stage: its splitters and exchange
+              (`core/multistage.two_stage_sort_batched`)
+  stage2      multistage's second stage, from the fold of the stage-1
+              rows to the final unfold: its splitters and exchange
 
 A public call made inside another opens no span of its own: its phases
 sit under the outer root. Retry, verify and SLO re-launches run inside
@@ -65,8 +69,8 @@ import time
 import torch
 
 #: Spans kept in memory; past this the oldest are dropped. A 2^28-key
-#: HSS call records 6 (8 when tagged), so the bound holds some eight
-#: thousand calls.
+#: HSS call records 6 (8 when tagged, 11 two-stage), so the bound holds
+#: some six thousand calls.
 MAX_SPANS = 65_536
 
 _profiler_enabled = torch._C._autograd._profiler_enabled

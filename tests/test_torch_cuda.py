@@ -257,6 +257,28 @@ def test_cuda_merge_sorted_runs_at_the_benchmark_shape(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed", [21, 22])
+def test_cuda_local_sort_at_the_two_stage_shape(card, seed):
+    """The two-stage cell's local sort (2^28 keys, p = 64): (64, 1, 2^22)
+    rows, at `AUTO_SORT_MAX_N`, so "auto" sends them to K1-K3; equal to
+    torch.sort bit for bit."""
+    from repro_torch.kernels import dispatch
+
+    n = dispatch.AUTO_SORT_MAX_N
+    assert n == 1 << 22
+    x = _card_keys((64, 1, n), seed)
+    x[7] &= 255                                   # a row of duplicates
+    before = dict(cuda.launches)
+    got = dispatch.local_sort(x, policy="auto")
+    torch.cuda.synchronize()
+    ran = {k for k in ("bitonic_sort_blocks", "strided_compare_exchange",
+                       "bitonic_merge_smem.reverse", "bitonic_merge_smem.tail")
+           if cuda.launches[k] > before[k]}
+    assert len(ran) == 4, ran
+    assert torch.equal(got, torch.sort(x, dim=-1).values)
+
+
+@pytest.mark.cuda
 def test_cuda_probe_rank_count(card):
     keys = _card_keys((8, 100_003))
     probes = torch.sort(_card_keys((8, 256), seed=1), dim=-1).values

@@ -7,7 +7,9 @@ shard_map; the (outer, inner) `Comm` views; the collective log against the
 reference's per-round counts (multistage.py:66-76); and the overflow,
 which the port counts over every group where the reference reads one
 shard's. The reference's draws are injected (its shard key split in two,
-each stage key split once a round).
+each stage key split once a round). The benchmark's plain two-stage
+reference (`hssbench/reference_two_stage.py`) holds the port's answers on
+the (8, 8) and (4, 4) grids to the sorted keys and the stage bounds.
 """
 import importlib
 
@@ -27,6 +29,7 @@ from repro_torch.core.common import HSSConfig as TorchHSSConfig
 from repro_torch.data import distributions as tdist
 from repro_torch.parallel.comm import Comm
 from repro_torch.sort import driver as tdriver
+from hssbench.reference_two_stage import stage_checks
 from torch_parity import (
     argsort_both, assert_batched_outputs_equal, assert_bits_equal,
     assert_sort_outputs_equal, auto_mesh, random_keys, sort_batched_both,
@@ -236,3 +239,21 @@ def test_stage2_draws_are_per_row():
         for o in range(r1):
             for b in range(batch):
                 assert torch.all(rows[i, o * batch + b] == o * r2 + i)
+
+
+@pytest.mark.parametrize("stages,n_local,seed", [
+    ((8, 8), 256, 1), ((8, 8), 256, 2), ((4, 4), 1024, 3)])
+def test_plain_two_stage_reference_holds_the_port(stages, n_local, seed):
+    """Seeded UNIF keys through the front door on the (r1, r2) grid: the
+    answer is the sorted input, each group within (1 + eps) N / r1, each
+    shard within (1 + eps) G / r2 of its group and (1 + eps)^2 N / p."""
+    r1, r2 = stages
+    x = tdist.make_distribution("UNIF", r1 * r2 * n_local, seed=seed)
+    spec = tsort.SortSpec(shards=r1 * r2, stages=stages, device="cpu",
+                          algorithm="multistage", tag=False)
+    out = tsort.sort(x, spec)
+    checks = stage_checks(torch.as_tensor(x), out.shards, out.counts, r1,
+                          r2, spec.eps)
+    assert all(c["ok"] for c in checks.values()), checks
+    assert checks["wrong_keys"]["value"] == 0
+    assert checks["shard_excess"]["limit"] < (1 + spec.eps) ** 2 - 1 + 0.01

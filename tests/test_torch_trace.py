@@ -219,23 +219,27 @@ OTHER_DOORS = {
         {"sort": ["local_sort", "exchange"], "exchange": ["merge"]}),
     "multistage": (lambda: tsort.sort(
         _keys(), SortSpec(device="cpu", algorithm="multistage")),
-        {"sort": ["plan", "local_sort"] + ["splitters", "exchange"] * 2,
-         "exchange": ["merge"]}),
+        {"sort": ["plan", "local_sort", "stage1", "stage2"],
+         "stage1": ["splitters", "exchange"],
+         "stage2": ["splitters", "exchange"], "exchange": ["merge"]}),
 }
 
 
 @pytest.mark.parametrize("kind", sorted(OTHER_DOORS))
 def test_the_other_front_doors_open_one_root(kind):
     """semisort, groupby, top_k and the two-stage sort: one root a call,
-    its phases under it and every merge inside an exchange."""
+    its phases under it (the two-stage sort's splitters and exchanges
+    under its `stage1` and `stage2`) and every merge inside an
+    exchange."""
     fn, tree = OTHER_DOORS[kind]
     _, spans = _traced(fn)
     (root,) = _roots(spans)
     assert root["name"] == "sort"
     assert {s["call"] for s in spans} == {root["id"]}
     assert _children(spans, root) == tree["sort"]
-    for exchange in (s for s in spans if s["name"] == "exchange"):
-        assert _children(spans, exchange) == tree["exchange"]
+    for name, kids in tree.items():
+        for parent in (s for s in spans if s["name"] == name):
+            assert _children(spans, parent) == kids
 
 
 TAG_PLANS = {
